@@ -1,0 +1,303 @@
+"""Correlation panels on the device (`cigwas_tpu.ops.corr`, main path).
+
+* marker–marker Kendall tau-b ("npn"): the 3x3 genotype contingency table of
+  every marker pair comes from one exact int8 product ``X (3m, n) @ X.T``
+  (``torch._int_mm``); tau-b maps to Pearson by sin(pi/2 * tau);
+* marker–phenotype Pearson with NaN masking and phenotype–phenotype Pearson
+  are float32 matmuls in full precision (TF32 off, asserted).
+
+Panels come back as device tensors padded to a PANEL_ALIGN multiple (or a
+``row_tile`` multiple for the striped panel) with layout [m markers,
+p traits, inert pads]: pad rows and columns are 0 off the diagonal, so the
+level-0 screen isolates them.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from cigwas_tpu_torch.device import require_full_f32, resolve
+from cigwas_tpu_torch.host import PANEL_ALIGN
+from cigwas_tpu_torch.ops.decode import (
+    PAD_BYTE,
+    contingency_counts,
+    geno_onehot,
+    geno_value_valid,
+    unpack_bed_codes,
+)
+
+# samples per decode step (bytes chunk = this / 4)
+DEFAULT_SAMPLE_CHUNK = 131072
+# marker rows per Kendall stripe of the striped panel (a PANEL_ALIGN multiple)
+PANEL_ROW_TILE = 2048
+# decode the whole (3m, n) int8 one-hot once when it fits this many bytes;
+# beyond it each stripe re-decodes its sample chunks
+DECODE_ONCE_MAX_BYTES = 2 << 30
+
+
+def _pad_rows(arr: np.ndarray, multiple: int, fill) -> np.ndarray:
+    pad = (-arr.shape[0]) % multiple
+    if pad == 0:
+        return arr
+    return np.concatenate(
+        [arr, np.full((pad,) + arr.shape[1:], fill, dtype=arr.dtype)], axis=0
+    )
+
+
+def _prep_bytes(bed_bytes: np.ndarray, num_samples: int, sample_chunk: int):
+    """Pad the byte matrix so every sample chunk is full; returns (bytes,
+    n_chunks). Tail codes of the last partial byte and padding bytes are
+    forced to "missing" so they contribute nothing."""
+    bed_bytes = np.asarray(bed_bytes, dtype=np.uint8)
+    m, B = bed_bytes.shape
+    rem = num_samples % 4
+    if rem and B * 4 >= num_samples:
+        last = bed_bytes[:, (num_samples - 1) // 4].astype(np.uint16)
+        keep_mask = (1 << (2 * rem)) - 1
+        pad_bits = PAD_BYTE & ~keep_mask
+        bed_bytes = bed_bytes.copy()
+        bed_bytes[:, (num_samples - 1) // 4] = ((last & keep_mask) | pad_bits).astype(np.uint8)
+    chunk_bytes = sample_chunk // 4
+    padB = (-B) % chunk_bytes
+    if padB:
+        bed_bytes = np.concatenate(
+            [bed_bytes, np.full((m, padB), PAD_BYTE, dtype=np.uint8)], axis=1
+        )
+    return bed_bytes, bed_bytes.shape[1] // chunk_bytes
+
+
+def _sample_chunk(n_bytes: int, sample_chunk: int) -> int:
+    return min(sample_chunk, 4 * (((n_bytes + 31) // 32) * 32))
+
+
+def _kendall_from_counts(counts: torch.Tensor, mr: int, mc: int) -> torch.Tensor:
+    """(3mr, 3mc) channel-major f32 contingency counts -> (mr, mc) npn corr.
+
+    Concordant/discordant/tie aggregates of `corr_kernels.cu:455-471`, in the
+    JAX package's order of operations; the result is sin(pi/2 * tau_b)."""
+    s = [
+        counts[(i // 3) * mr : (i // 3 + 1) * mr, (i % 3) * mc : (i % 3 + 1) * mc]
+        for i in range(9)
+    ]
+    p = (
+        s[0] * (s[4] + s[5] + s[7] + s[8])
+        + s[1] * (s[5] + s[8])
+        + s[3] * (s[7] + s[8])
+        + s[4] * s[8]
+    )
+    q = (
+        s[1] * (s[3] + s[6])
+        + s[2] * (s[3] + s[4] + s[6] + s[7])
+        + s[4] * s[6]
+        + s[5] * (s[6] + s[7])
+    )
+    t = (
+        s[0] * (s[1] + s[2])
+        + s[1] * s[2]
+        + s[3] * (s[4] + s[5])
+        + s[4] * s[5]
+        + s[6] * (s[7] + s[8])
+        + s[7] * s[8]
+    )
+    u = (
+        s[0] * (s[3] + s[6])
+        + s[1] * (s[4] + s[7])
+        + s[2] * (s[5] + s[8])
+        + s[3] * s[6]
+        + s[4] * s[7]
+        + s[5] * s[8]
+    )
+    tau = (p - q) / torch.sqrt((p + q + t) * (p + q + u))
+    return torch.sin(math.pi / 2 * tau)
+
+
+def _phen_arrays(phen: np.ndarray, n_padded: int, device):
+    """NaN-zeroed phenotypes and their validity, zero-padded to n_padded."""
+    phen = np.asarray(phen, dtype=np.float32)
+    phen0 = np.zeros((phen.shape[0], n_padded), dtype=np.float32)
+    phenv = np.zeros((phen.shape[0], n_padded), dtype=np.float32)
+    phen0[:, : phen.shape[1]] = np.nan_to_num(phen)
+    phenv[:, : phen.shape[1]] = np.isfinite(phen).astype(np.float32)
+    return torch.from_numpy(phen0).to(device), torch.from_numpy(phenv).to(device)
+
+
+def _chunk_sums(codes, ph0, phv):
+    """One sample chunk's (s_mp, s_p, n_val) contributions."""
+    vals, valid = geno_value_valid(codes)
+    return (
+        (vals * valid) @ ph0.T,
+        valid @ ph0.T,
+        valid @ phv.T,
+    )
+
+
+def marker_phen_sums(bed_bytes, phen: np.ndarray, num_samples: int, device,
+                     sample_chunk: int = DEFAULT_SAMPLE_CHUNK):
+    """(s_mp, s_p, n_val) (m, p) f32 device tensors, accumulated over sample
+    chunks (`cigwas_tpu.ops.corr.marker_phen_sums_dispatch`); no host fetch."""
+    device = resolve(device)
+    require_full_f32()
+    bed_bytes = np.asarray(bed_bytes, dtype=np.uint8)
+    sample_chunk = _sample_chunk(bed_bytes.shape[1], sample_chunk)
+    padded, n_chunks = _prep_bytes(bed_bytes, num_samples, sample_chunk)
+    ph0, phv = _phen_arrays(phen, padded.shape[1] * 4, device)
+    rows = torch.tensor(padded, device=device)
+    cb = padded.shape[1] // n_chunks
+    sums = None
+    for c in range(n_chunks):
+        part = _chunk_sums(
+            unpack_bed_codes(rows[:, c * cb : (c + 1) * cb]),
+            ph0[:, c * 4 * cb : (c + 1) * 4 * cb],
+            phv[:, c * 4 * cb : (c + 1) * 4 * cb],
+        )
+        sums = part if sums is None else tuple(a + b for a, b in zip(sums, part))
+    return sums
+
+
+def marker_phen_corr_from_sums(sums, marker_mean: np.ndarray,
+                               marker_std: np.ndarray) -> np.ndarray:
+    """Fetch the sums and finish r = (s_mp - mean s_p) / (n_valid std) on the
+    host, as the JAX package does."""
+    s_mp, s_p, n_val = (t.cpu().numpy() for t in sums)
+    mean = np.asarray(marker_mean, dtype=np.float32)[:, None]
+    std = np.asarray(marker_std, dtype=np.float32)[:, None]
+    return (s_mp - mean * s_p) / (n_val * std)
+
+
+def phen_phen_corr(phen: np.ndarray, device) -> np.ndarray:
+    """(p, p) Pearson panel of standardized phenotypes with pairwise NaN
+    masking: r_ab = sum_valid(y_a y_b) / n_valid_ab."""
+    device = resolve(device)
+    require_full_f32()
+    phen = np.asarray(phen, dtype=np.float32)
+    p0 = torch.from_numpy(np.nan_to_num(phen)).to(device)
+    v = torch.from_numpy(np.isfinite(phen).astype(np.float32)).to(device)
+    return ((p0 @ p0.T) / (v @ v.T)).cpu().numpy()
+
+
+def _reorder_mask_panel(C: torch.Tensor, idx: torch.Tensor, v_valid: int):
+    """Move inert pad-marker rows behind the traits and zero their corrs.
+
+    idx permutes [markers, pad, traits] -> [markers, traits, pad]; rows and
+    columns at positions >= v_valid are cleared off the diagonal (their raw
+    values are NaN from all-missing pad genotypes)."""
+    C2 = C.index_select(0, idx).index_select(1, idx)
+    r = torch.arange(C.shape[0], device=C.device)
+    pad_rc = (r[:, None] >= v_valid) | (r[None, :] >= v_valid)
+    off_diag = r[:, None] != r[None, :]
+    return torch.where(pad_rc & off_diag, 0.0, C2)
+
+
+def _pads_last_index(m: int, m_pad: int, p: int, device) -> torch.Tensor:
+    return torch.from_numpy(
+        np.concatenate([np.arange(m), np.arange(m_pad, m_pad + p), np.arange(m, m_pad)])
+    ).to(device)
+
+
+def corr_panel_device(bed_bytes, phen: np.ndarray, marker_mean: np.ndarray,
+                      marker_std: np.ndarray, num_samples: int, device,
+                      sample_chunk: int = DEFAULT_SAMPLE_CHUNK):
+    """Packed correlation panel of a block, built and left on ``device``;
+    returns (C (vp, vp) f32, v). The one-hot of each sample chunk is decoded
+    once and feeds both the contingency product and the marker-phen sums
+    (`cigwas_tpu.ops.corr.corr_panel_device`). For blocks up to ~4096
+    markers; larger blocks use :func:`corr_panel_device_tiled`."""
+    device = resolve(device)
+    require_full_f32()
+    bed_bytes = np.asarray(bed_bytes, dtype=np.uint8)
+    m, p = bed_bytes.shape[0], phen.shape[0]
+    v = m + p
+    m_pad = m + ((-v) % PANEL_ALIGN)
+    bed_bytes = _pad_rows(bed_bytes, m_pad, PAD_BYTE)
+    mean = _pad_rows(np.asarray(marker_mean, dtype=np.float32), m_pad, 1.0)
+    std = _pad_rows(np.asarray(marker_std, dtype=np.float32), m_pad, 1.0)
+    sample_chunk = _sample_chunk(bed_bytes.shape[1], sample_chunk)
+    padded, n_chunks = _prep_bytes(bed_bytes, num_samples, sample_chunk)
+    ph0, phv = _phen_arrays(phen, padded.shape[1] * 4, device)
+    rows = torch.tensor(padded, device=device)
+    cb = padded.shape[1] // n_chunks
+    counts = torch.zeros((3 * m_pad, 3 * m_pad), dtype=torch.int32, device=device)
+    sums = None
+    for c in range(n_chunks):
+        codes = unpack_bed_codes(rows[:, c * cb : (c + 1) * cb])
+        oh = geno_onehot(codes).reshape(3 * m_pad, -1)
+        counts += contingency_counts(oh, oh)
+        part = _chunk_sums(
+            codes, ph0[:, c * 4 * cb : (c + 1) * 4 * cb], phv[:, c * 4 * cb : (c + 1) * 4 * cb]
+        )
+        sums = part if sums is None else tuple(a + b for a, b in zip(sums, part))
+    s_mp, s_p, n_val = sums
+    C_mm = _kendall_from_counts(counts.to(torch.float32), m_pad, m_pad)
+    mean_t = torch.from_numpy(mean).to(device)[:, None]
+    std_t = torch.from_numpy(std).to(device)[:, None]
+    C_mp = (s_mp - mean_t * s_p) / (n_val * std_t)
+    C_pp = (ph0 @ ph0.T) / (phv @ phv.T)
+    C = torch.cat([torch.cat([C_mm, C_mp], 1), torch.cat([C_mp.T, C_pp], 1)], 0)
+    C.fill_diagonal_(1.0)
+    if m_pad == m:
+        return C, v
+    return _reorder_mask_panel(C, _pads_last_index(m, m_pad, p, device), v), v
+
+
+def corr_panel_device_tiled(bed_bytes, phen: np.ndarray, marker_mean: np.ndarray,
+                            marker_std: np.ndarray, num_samples: int, device,
+                            mp_corr: np.ndarray | None = None,
+                            sample_chunk: int = DEFAULT_SAMPLE_CHUNK,
+                            row_tile: int = PANEL_ROW_TILE):
+    """Large-block panel, built in ``row_tile``-row Kendall stripes into a
+    device canvas and left there; returns (C, v) with vp the smallest
+    ``row_tile`` multiple >= m + p (`cigwas_tpu.ops.corr.corr_panel_device_tiled`).
+
+    The int8 one-hot of the whole block is decoded once when it fits
+    DECODE_ONCE_MAX_BYTES, so each stripe is one int8 product. mp_corr:
+    the (m, p) marker-phen correlations when the caller already has them
+    (the cusk pre-screen), else computed here on the device.
+    """
+    device = resolve(device)
+    require_full_f32()
+    bed_bytes = np.asarray(bed_bytes, dtype=np.uint8)
+    phen = np.asarray(phen, dtype=np.float32)
+    m, p = bed_bytes.shape[0], phen.shape[0]
+    v = m + p
+    vp = -(-v // row_tile) * row_tile
+    m_pad = vp - p
+    if mp_corr is None:
+        s_mp, s_p, n_val = marker_phen_sums(bed_bytes, phen, num_samples, device)
+        mean_t = torch.from_numpy(np.asarray(marker_mean, np.float32)).to(device)[:, None]
+        std_t = torch.from_numpy(np.asarray(marker_std, np.float32)).to(device)[:, None]
+        mp = (s_mp - mean_t * s_p) / (n_val * std_t)
+    else:
+        mp = torch.from_numpy(np.asarray(mp_corr, dtype=np.float32)).to(device)
+    bed_pad = _pad_rows(bed_bytes, m_pad, PAD_BYTE)
+    sample_chunk = _sample_chunk(bed_pad.shape[1], sample_chunk)
+    padded, n_chunks = _prep_bytes(bed_pad, num_samples, sample_chunk)
+    cols = torch.tensor(padded, device=device)
+    cb = padded.shape[1] // n_chunks
+
+    def decode(c):
+        return geno_onehot(unpack_bed_codes(cols[:, c * cb : (c + 1) * cb])).reshape(3 * m_pad, -1)
+
+    decoded = (
+        [decode(c) for c in range(n_chunks)]
+        if 3 * m_pad * 4 * padded.shape[1] <= DECODE_ONCE_MAX_BYTES else None
+    )
+    C = torch.zeros((vp, vp), dtype=torch.float32, device=device)
+    for t0 in range(0, m_pad, row_tile):
+        rt = min(row_tile, m_pad - t0)
+        counts = torch.zeros((3 * rt, 3 * m_pad), dtype=torch.int32, device=device)
+        for c in range(n_chunks):
+            X = decoded[c] if decoded is not None else decode(c)
+            # channel-major rows of the stripe: [a * m_pad + t0, + rt) per channel a
+            rows = torch.cat([X[a * m_pad + t0 : a * m_pad + t0 + rt] for a in range(3)])
+            counts += contingency_counts(rows, X)
+        C[t0 : t0 + rt, :m_pad] = _kendall_from_counts(counts.to(torch.float32), rt, m_pad)
+        del counts  # free this stripe's counts before the next one is allocated
+    # NaN marker-phen corrs stay NaN: the level-0 screen keeps such edges
+    C[:m, m_pad:] = mp
+    C[m_pad:, :m] = mp.T
+    C[m_pad:, m_pad:] = torch.from_numpy(phen_phen_corr(phen, device)).to(device)
+    C.fill_diagonal_(1.0)
+    return _reorder_mask_panel(C, _pads_last_index(m, m_pad, p, device), v), v

@@ -1,0 +1,233 @@
+"""Individual-level per-block skeleton pipeline (`cigwas_tpu.pipelines.cusk`).
+
+Loads one LD block of genotypes and standardized phenotypes, builds the
+correlation panel on the device, runs the two-stage PC-stable skeleton with
+the ancestor reduction in between, and writes the `.mdim/.ixs/.adj/.corr/.sep`
+block output — the same files as the JAX package's `cusk`.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from cigwas_tpu_torch.device import resolve
+from cigwas_tpu_torch.host import (
+    ML,
+    BedDims,
+    BfilesBase,
+    BimInfo,
+    check_path,
+    check_prepped_bed_path,
+    fisher_z,
+    load_phen,
+    make_path,
+    read_block_from_bed,
+    read_blocks_from_file,
+    read_floats_from_line_range,
+    threshold_array,
+)
+from cigwas_tpu_torch.ops.corr import (
+    corr_panel_device,
+    corr_panel_device_tiled,
+    marker_phen_corr_from_sums,
+    marker_phen_sums,
+)
+from cigwas_tpu_torch.skeleton import reduce_gcs, skeleton, subset_variables
+
+# largest block built by the single-pass panel; larger ones go through stripes
+FUSED_PANEL_MAX = 4096
+
+
+def cusk(
+    phen_path: str,
+    bed_base_path: str,
+    block_path: str,
+    alpha: float,
+    max_level: int,
+    max_level_two: int,
+    depth: int,
+    outdir: str,
+    block_index: int,
+    verbose: bool = True,
+    device="cuda",
+    stats: dict | None = None,
+):
+    """Two-stage skeleton for a single LD block (`cusk`, `cli.cpp:432-678`).
+
+    Returns the written ReducedGCS, or None if the block was skipped because
+    no marker–phenotype correlation is significant. stats, if given, collects
+    phase walls: ``prepare_s`` (host I/O) and those of
+    :meth:`CuskContext.finish`.
+    """
+    ctx = CuskContext(
+        phen_path, bed_base_path, block_path, alpha, max_level, max_level_two,
+        depth, outdir, verbose=verbose, device=device,
+    )
+    t = time.perf_counter()
+    prep = ctx.prepare(block_index)
+    if stats is not None:
+        stats["prepare_s"] = time.perf_counter() - t
+    return ctx.finish(prep, stats=stats)
+
+
+class CuskContext:
+    """Per-dataset state for running many cusk blocks.
+
+    Loading `.phen`/`.bim`/`.dim` and validating the block list happens once;
+    :meth:`prepare` does a block's host I/O and starts its marker-phen
+    pre-screen sums on the device, :meth:`finish` does the rest.
+    """
+
+    def __init__(
+        self,
+        phen_path: str,
+        bed_base_path: str,
+        block_path: str,
+        alpha: float,
+        max_level: int,
+        max_level_two: int,
+        depth: int,
+        outdir: str,
+        verbose: bool = True,
+        device="cuda",
+    ):
+        self.device = resolve(device)
+        check_prepped_bed_path(bed_base_path)
+        check_path(phen_path)
+        check_path(block_path)
+        check_path(outdir)
+
+        self.phen = load_phen(phen_path)
+        self.bfiles = BfilesBase(bed_base_path)
+        self.dims = BedDims.from_file(self.bfiles.dim())
+        if self.phen.num_samples != self.dims.num_samples:
+            raise ValueError("different num samples in phen and dims")
+        self.bim = BimInfo(self.bfiles.bim())
+        self.max_level = max_level
+        self.max_level_two = max_level_two
+        self.depth = depth
+        self.outdir = outdir
+        self.verbose = verbose
+        self.blocks = read_blocks_from_file(block_path)
+        for b in self.blocks:
+            if (
+                b.first_marker_ix >= self.bim.get_num_markers_on_chr(b.chr_id)
+                or b.last_marker_ix >= self.bim.get_num_markers_on_chr(b.chr_id)
+            ):
+                raise ValueError(
+                    f"block out of bounds with first_ix: {b.first_marker_ix} "
+                    f"last_ix: {b.last_marker_ix}"
+                )
+        self.Th = threshold_array(self.dims.num_samples, alpha)
+
+    def prepare(self, block_index: int) -> dict:
+        """Host I/O plus the pre-screen sums on the device (no fetch)."""
+        block = self.blocks[block_index]
+        num_markers = block.block_size()
+        if self.verbose:
+            print(
+                f"Processing block {block_index + 1} / {len(self.blocks)} "
+                f"({num_markers} markers)"
+            )
+        bedblock = read_block_from_bed(self.bfiles.bed(), block, self.dims, self.bim)
+        chr_start = self.bim.get_global_chr_start(block.chr_id)
+        first = chr_start + block.first_marker_ix
+        last = chr_start + block.last_marker_ix
+        means = read_floats_from_line_range(self.bfiles.means(), first, last)
+        stds = read_floats_from_line_range(self.bfiles.stds(), first, last)
+        if means.size != num_markers or stds.size != num_markers:
+            raise ValueError("block size and number of means or stds differ")
+        sums = marker_phen_sums(
+            bedblock, self.phen.data, self.dims.num_samples, self.device
+        )
+        return {
+            "block": block,
+            "bedblock": bedblock,
+            "means": means,
+            "stds": stds,
+            "mp_sums": sums,
+        }
+
+    def finish(self, prep: dict, stats: dict | None = None):
+        """Pre-screen, panel, two-stage skeleton and output write.
+
+        stats, if given, receives ``prescreen_s``, ``panel_s``, ``stage1``
+        (the skeleton's stats, see :func:`skeleton`), ``reduce_s``,
+        ``stage2`` and ``stage2_s``, ``retained_markers`` and the stages'
+        ``final_level`` / ``final_level_two``;
+        walls are host seconds that end in a device synchronisation."""
+        t = time.perf_counter()
+        mp_corr = marker_phen_corr_from_sums(prep["mp_sums"], prep["means"], prep["stds"])
+        with np.errstate(divide="ignore", invalid="ignore"):
+            num_sig = int((fisher_z(mp_corr) >= self.Th[0]).sum())
+        if stats is not None:
+            stats["prescreen_s"] = time.perf_counter() - t
+        if num_sig == 0:
+            if self.verbose:
+                print("No significant correlations found. Skipping block.")
+            return None
+        if self.verbose:
+            print(f"Found {num_sig} marker-phen correlations. Proceeding.")
+        return self._run_block(prep, mp_corr, stats)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _run_block(self, prep: dict, mp_corr: np.ndarray, stats: dict | None):
+        block = prep["block"]
+        num_markers = block.block_size()
+        num_phen = self.phen.num_phen
+        num_var = num_markers + num_phen
+        n = self.dims.num_samples
+        stats = {} if stats is None else stats
+        t = time.perf_counter()
+        if num_markers <= FUSED_PANEL_MAX:
+            C, v_panel = corr_panel_device(
+                prep["bedblock"], self.phen.data, prep["means"], prep["stds"], n,
+                self.device,
+            )
+        else:
+            C, v_panel = corr_panel_device_tiled(
+                prep["bedblock"], self.phen.data, prep["means"], prep["stds"], n,
+                self.device, mp_corr=mp_corr,
+            )
+        self._sync()
+        stats["panel_s"] = time.perf_counter() - t
+        stats["stage1"] = {}
+        res1 = skeleton(
+            C, self.Th, self.max_level, device=self.device, n_var=v_panel,
+            verbose=self.verbose, stats=stats["stage1"],
+        )
+        t = time.perf_counter()
+        keep = subset_variables(res1.G, num_var, num_markers, self.depth)
+        gcs = reduce_gcs(res1.G, C, res1.sepset, keep, num_var, num_phen, self.max_level)
+        stats["final_level"] = res1.final_level
+        del C, res1
+        stats["reduce_s"] = time.perf_counter() - t
+
+        # stage 2 (`reduced_gcs_cusk`, `cli.cpp:62-87`): re-screen from the
+        # reduced correlations (its level 0 rebuilds the adjacency)
+        if self.verbose:
+            print("Starting second cusk stage")
+        t = time.perf_counter()
+        stats["stage2"] = {}
+        res2 = skeleton(
+            gcs.C, self.Th, self.max_level_two, device=self.device,
+            verbose=self.verbose, stats=stats["stage2"],
+        )
+        keep2 = subset_variables(res2.G, gcs.num_var, gcs.num_markers(), self.depth)
+        gcs2 = reduce_gcs(
+            res2.G, gcs.C, res2.sepset, keep2, gcs.num_var, num_phen, ML,
+            index_map=gcs.new_to_old_indices,
+        )
+        stats["stage2_s"] = time.perf_counter() - t
+        stats["retained_markers"] = gcs2.num_markers()
+        stats["final_level_two"] = res2.final_level
+        if self.verbose:
+            print(f"Retained {gcs2.num_markers()} markers")
+        gcs2.to_file(make_path(self.outdir, block.to_file_string(), ""))
+        return gcs2

@@ -1,0 +1,89 @@
+"""Ancestor-subset selection and graph/correlation/sepset reduction
+(`cigwas_tpu.skeleton.reduce`; `parent_set.cpp:8-175`).
+
+Host numpy like the JAX package, except that a device panel is reduced on
+the device: only the kept (k, k) submatrix is fetched.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cigwas_tpu_torch.host import ReducedGCS
+
+
+def subset_variables(
+    G: np.ndarray, num_var: int, num_markers: int, max_depth: int
+) -> np.ndarray:
+    """Sorted indices of all traits plus the markers reachable from any trait
+    through marker-only paths of length <= max_depth (`parent_set.cpp:8-53`)."""
+    G = np.asarray(G).reshape(num_var, num_var).astype(bool)
+    keep_markers = np.zeros(num_markers, dtype=bool)
+    frontier = G[num_markers:, :num_markers].any(axis=0)
+    visited = np.zeros(num_markers, dtype=bool)
+    for _ in range(max_depth):
+        new = frontier & ~visited
+        if not new.any():
+            break
+        visited |= new
+        keep_markers |= new
+        frontier = G[:num_markers, :num_markers][new].any(axis=0)
+    keep = np.concatenate([np.where(keep_markers)[0], np.arange(num_markers, num_var)])
+    return np.sort(keep).astype(np.int32)
+
+
+def reduce_gcs(
+    G: np.ndarray,
+    C,
+    S: np.ndarray,
+    keep: np.ndarray,
+    num_var: int,
+    num_phen: int,
+    max_level: int,
+    index_map: np.ndarray | None = None,
+) -> ReducedGCS:
+    """Kept-variable submatrices of G/C/S, with sepset entries remapped to
+    the new index space and entries that point at removed variables
+    dropped (`parent_set.cpp:84-175`). C is a numpy panel or a device tensor
+    (possibly pad-extended beyond num_var). Output sepsets have stride
+    ``max_level``; S may be narrower, its missing slots being -1."""
+    keep = np.asarray(keep, dtype=np.int64)
+    G = np.asarray(G).reshape(num_var, num_var)
+    S = np.asarray(S).reshape(num_var, num_var, -1)
+    k = keep.size
+
+    old_to_new = np.full(num_var, -1, dtype=np.int32)
+    old_to_new[keep] = np.arange(k, dtype=np.int32)
+
+    Gr = G[np.ix_(keep, keep)].astype(np.int32)
+    if isinstance(C, torch.Tensor):
+        kd = torch.from_numpy(keep).to(C.device)
+        Cr = C.index_select(0, kd).index_select(1, kd).cpu().numpy().astype(np.float32)
+    else:
+        Cr = np.asarray(C).reshape(num_var, num_var)[np.ix_(keep, keep)].astype(np.float32)
+
+    depth = min(S.shape[2], max_level)
+    Ssub = S[np.ix_(keep, keep)][:, :, :depth]  # (k, k, depth)
+    valid = (Ssub != -1) & np.isin(Ssub, keep)
+    Sr = np.full((k, k, max_level), -1, dtype=np.int32)
+    # compact valid entries to the front of each (i, j) row
+    order = np.argsort(~valid, axis=2, kind="stable")
+    Scomp = np.take_along_axis(Ssub, order, axis=2)
+    vcomp = np.take_along_axis(valid, order, axis=2)
+    Sr[:, :, :depth] = np.where(vcomp, old_to_new[np.clip(Scomp, 0, num_var - 1)], -1)
+
+    if index_map is not None:
+        new_to_old = np.asarray(index_map, dtype=np.int32)[keep]
+    else:
+        new_to_old = keep.astype(np.int32)
+
+    return ReducedGCS(
+        num_var=k,
+        num_phen=num_phen,
+        max_level=max_level,
+        new_to_old_indices=new_to_old,
+        G=Gr,
+        C=Cr,
+        S=Sr,
+    )

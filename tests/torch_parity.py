@@ -1,0 +1,91 @@
+"""Shared helpers of the port's parity tests (tests/test_torch_*.py).
+
+Each test makes its inputs with numpy from a seed, runs the JAX function
+(on the CPU, as the JAX package's own tests run it) and its PyTorch
+counterpart on the same arrays, and compares them with a stated tolerance.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# the parity contract's continuous tolerance, the one the JAX package allows
+# between its own routes (tests/test_pallas_gather.py): XLA:CPU contracts
+# a*b - c*d into FMA and its rsqrt differs from 1/sqrt by up to 2 ulp, a
+# one-ulp operand change that cancellation amplifies on near-zero rho
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def set_threads() -> None:
+    """Two intra-op threads: tier-1 runs the test files in 6 workers."""
+    torch.set_num_threads(2)
+
+
+def nan_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    return np.array_equal(np.isnan(a), np.isnan(b))
+
+
+def assert_close_nan(a, b, atol: float) -> None:
+    """Same NaN positions, finite entries within atol."""
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape
+    assert nan_equal(a, b), "NaN positions differ"
+    ok = ~np.isnan(a)
+    np.testing.assert_allclose(a[ok], b[ok], rtol=0, atol=atol)
+
+
+def scattered_case(seed: int, vp: int, nt: int, d: int, nan_frac: float):
+    """Random symmetric panel with NaNs and scattered neighbour lists with
+    ragged degrees, pad slots holding 0 (the compaction's convention)."""
+    rng = np.random.default_rng(seed)
+    C = (0.4 * rng.normal(size=(vp, vp))).astype(np.float32)
+    C = ((C + C.T) / 2).astype(np.float32)
+    C[rng.random((vp, vp)) < nan_frac] = np.nan
+    np.fill_diagonal(C, 1.0)
+    nbrs = np.sort(rng.choice(vp, size=(nt, d), replace=True), axis=1).astype(np.int32)
+    node_ixs = rng.integers(0, vp, nt).astype(np.int32)
+    deg = rng.integers(max(4, d // 2), d + 1, nt).astype(np.int32)
+    nbrs = np.where(np.arange(d)[None, :] < deg[:, None], nbrs, 0).astype(np.int32)
+    return C, node_ixs, nbrs, deg
+
+
+def ar1_panel(seed: int, v: int, n: int, vp: int, ar: float = 0.92) -> np.ndarray:
+    """The AR(1)-correlated panel of tests/test_pallas_gather.py, zero-padded
+    to vp with a unit diagonal."""
+    rng = np.random.default_rng(seed)
+    L = rng.normal(size=(v, n))
+    for i in range(1, v):
+        L[i] = ar * L[i - 1] + np.sqrt(1 - ar**2) * L[i]
+    C = np.corrcoef(L).astype(np.float32)
+    Cp = np.zeros((vp, vp), np.float32)
+    Cp[:v, :v] = C
+    np.fill_diagonal(Cp, 1.0)
+    return Cp
+
+
+def jax_local_sweep(C, node_ixs, nbrs, deg, l: int, ct: int = 8):
+    """The JAX package's XLA local sweeps: (rho (nt, d), pos (nt, d, l))."""
+    import jax.numpy as jnp
+
+    from cigwas_tpu.ops import pcorr as jp
+
+    args = [jnp.asarray(a) for a in (C, node_ixs, nbrs, deg)]
+    if l == 1:
+        rho, pos = jp.level1_local_sweep(*args)
+        pos = np.asarray(pos)[:, :, None]
+    else:
+        fn = jp.level2_local_sweep if l == 2 else jp.level3_local_sweep
+        rho, pos = fn(*args, ct)
+    return np.asarray(rho), np.asarray(pos).reshape(len(deg), nbrs.shape[1], l)
+
+
+def torch_local_sweep(C, node_ixs, nbrs, deg, l: int):
+    """The port's local sweep on CPU tensors (its plain version)."""
+    from cigwas_tpu_torch.ops.kernels.local_sweep import local_sweep
+
+    rho, pos = local_sweep(
+        torch.from_numpy(C), torch.from_numpy(node_ixs), torch.from_numpy(nbrs),
+        torch.from_numpy(deg), l,
+    )
+    return rho.numpy(), pos.numpy()
