@@ -7,20 +7,36 @@ and the script exits non-zero:
 
 1. environment: versions, the card's name and power limit (nvidia-smi);
    fails without a CUDA device;
-2. build: compiles the CUDA kernels from ``cigwas_tpu_torch/csrc``;
-3. kernels: the levels 1-3 sweep kernel against its plain PyTorch version on
-   the card, on seeded panels with 1% NaNs, LD-clustered and scattered
-   neighbour lists, ragged degrees across the shared-memory limit; results
-   must be bit-identical;
-4. slice: a small block through the port's ``cusk`` on the card and on the
-   CPU (plain versions) must write the same decisions; then the reference's
-   default block (11,000 markers x 16,384 individuals x 8 traits, AR(1) LD,
-   planted marker->trait effects) through ``cusk`` on the card, with the
-   kernel launches counted per level, and its largest launch per level
-   re-run through the plain version on the card (identical hits and
-   positions required, both times printed); last, a second, warm run of the
-   block under torch.profiler for the device time by kernel and the idle
-   share.
+2. build: compiles the three CUDA sources under ``cigwas_tpu_torch/csrc`` in
+   parallel and prints ptxas' register and spill lines;
+3. kernels, each against its plain PyTorch version on the card, on seeded
+   8192-variable panels with NaNs, LD-clustered and scattered neighbour
+   lists, ragged degrees across the shared-memory limits:
+   the levels 1-3 sweep (``local_sweep``; rho and positions bit-identical),
+   the one- and two-panel gathers (``panel_gather``; int32 views equal),
+   the hetcor levels 1-3 sweep (``hetcor_sweep``; margins bit-identical,
+   both ``ess_mode``s, a time index);
+4. the ``cusk`` slice: a small block on the card and on the CPU (plain
+   versions) must write the same decisions; then the reference's default
+   block (11,000 markers x 16,384 individuals x 8 traits, AR(1) LD, planted
+   marker->trait effects) on the card with the kernel launches counted, and
+   its largest launch per kernel re-run through the plain version;
+5. the ``cuskss`` slice: the fixture inputs on the card and on the CPU must
+   write the same files; then a 10,000-marker x 8-trait summary-statistic
+   input (AR(1) mxm as a binary triangle, planted mxp effects, SE files for
+   a per-entry ESS in [3e5, 5e5]) through ``cuskss`` on the card, both
+   stages, with the launches counted and the largest launch per kernel
+   re-run through the plain version;
+6. a second, warm run of each slice under torch.profiler for the device
+   time by kernel and the idle share.
+
+Every kernel's line gives its time beside ``bound_ms``, the least time the
+card could take for the same work: the larger of the bytes the function must
+move (every distinct panel entry that the launch's lists address read once,
+however many nodes share it; the lists read once; outputs written once) over
+3.35 TB/s and its float32 operations over 67 TFLOP/s (NVIDIA's H100 SXM data
+sheet). ``max_abs_err`` is the NaN-aware largest |kernel - plain| measured on
+that launch.
 
 The last lines are the kernel summary (JSON), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -30,37 +46,51 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-import cigwas_tpu_torch  # noqa: F401  (sets the no-jax import guard first)
 from cigwas_tpu_torch import require_cuda
-from cigwas_tpu_torch.host import (
-    BED_PREFIX_COL_MAJ,
-    MarkerBlock,
-    ReducedGCS,
-    encode_bed_values,
-    prep_bed,
-    threshold_array,
-    write_marker_blocks_to_file,
-)
+from cigwas_tpu_torch.constants import BED_PREFIX_COL_MAJ
+from cigwas_tpu_torch.io import MarkerBlock, ReducedGC, ReducedGCS, write_marker_blocks_to_file
+from cigwas_tpu_torch.io.bed import encode_bed_values
 from cigwas_tpu_torch.ops import pcorr
 from cigwas_tpu_torch.ops.kernels import build
+from cigwas_tpu_torch.ops.kernels import hetcor_sweep as hs
 from cigwas_tpu_torch.ops.kernels import local_sweep as ls
-from cigwas_tpu_torch.pipelines import cusk
+from cigwas_tpu_torch.ops.kernels import panel_gather as pg
+from cigwas_tpu_torch.pipelines import CuskssArgs, cusk, cuskss
+from cigwas_tpu_torch.prep import prep_bed
 from cigwas_tpu_torch.skeleton import cupc
+from cigwas_tpu_torch.utils.stats import hetcor_threshold, threshold_array
 
-REPLACES = "cigwas_tpu/ops/pallas/panel_gather.py:280"
+# file:line of the function that reaches pl.pallas_call, per kernel
+PALLAS = "cigwas_tpu/ops/pallas/panel_gather.py"
+REPLACES = {"local_sweep": f"{PALLAS}:671", "panel_gather": f"{PALLAS}:138",
+            "panel_gather2": f"{PALLAS}:615", "hetcor_sweep": f"{PALLAS}:615"}
 # the reference's default block and CLI parameters
 M11K, N11K, P11K = 11000, 16384, 8
 ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH = 1e-4, 3, 14, 1
+# the summary-statistic input (the configuration of bench.py's cuskss phase)
+MSS, PSS, NSS = 10000, 8, 5.0e5
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                        "test_files")
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor cores
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# float32 operations per test, read off the kernels' inner loops (a sqrt, a
+# division and a tanh count as one each): the rho recursion and the compare
+# for local_sweep; plus validity and time checks, the ESS sums and counts
+# (four per term), the threshold (six) and the margin for hetcor_sweep
+SWEEP_OPS = {1: 12, 2: 15, 3: 19}
+HETCOR_OPS = {1: 29, 2: 49, 3: 69}
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -88,10 +118,82 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(tag: str, rho_k, pos_k, rho_p, pos_p, deg, rho_th: float) -> float:
-    """Require bit-identical rho and identical positions; returns max |diff|."""
-    if torch.equal(rho_k, rho_p) and torch.equal(pos_k, pos_p):
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the float32 rate, whichever is larger."""
+    b_ms, o_ms = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
+    return {"bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "bytes": n_bytes, "operations": n_ops}
+
+
+def addressed(node_ixs, nbrs, deg, vp: int, pads_read_node: bool) -> tuple[int, int]:
+    """What a launch's lists address in a (vp, vp) panel, counted on the card:
+    the distinct (row, col) entries among every node's (nb_j, nb_k) and
+    (x, nb_k), and the distinct variables. An entry or variable that many
+    nodes share (overlapping LD neighbourhoods) counts once. Slots j >= deg
+    are left out (the sweeps never read them) or read as the node itself
+    (the gathers)."""
+    dev = nbrs.device
+    nt, d = nbrs.shape
+    entry = torch.zeros(vp * vp, dtype=torch.bool, device=dev)
+    var = torch.zeros(vp, dtype=torch.bool, device=dev)
+    slot = torch.arange(d, device=dev)[None, :]
+    step = max(1, (1 << 25) // (d * d))
+    for i in range(0, nt, step):
+        x = node_ixs[i : i + step].long()[:, None]
+        nb = nbrs[i : i + step].long()
+        live = slot < deg[i : i + step, None]
+        if pads_read_node:
+            nb, live = torch.where(live, nb, x), torch.ones_like(live)
+        pair = live[:, :, None] & live[:, None, :]
+        entry[(nb[:, :, None] * vp + nb[:, None, :])[pair]] = True
+        entry[(x * vp + nb)[live]] = True
+        var[nb[live]] = True
+        var[x[:, 0]] = True
+    return int(entry.sum()), int(var.sum())
+
+
+def sweep_bound(node_ixs, nbrs, deg, vp: int, l: int, panels: int, ops: dict) -> dict:
+    """Bound of a levels 1-3 launch from its real lists: every slot y of a
+    node meets each conditioning set of its other deg - 1 neighbours once;
+    the distinct panel entries the lists address are read once from each
+    panel (and, for hetcor, the time index of each distinct variable), the
+    index lists once, the (nt, d) outputs written once."""
+    dg = deg.cpu().numpy().astype(np.int64)
+    nt, d = nbrs.shape
+    tests = int(sum(int(g) * math.comb(int(g) - 1, l) for g in dg))
+    entries, variables = addressed(node_ixs, nbrs, deg, vp, pads_read_node=False)
+    n_in = 4 * panels * entries + 4 * (nt * d + 2 * nt) + (4 * variables if panels == 2 else 0)
+    n_out = 4 * nt * d * ((1 + l) if panels == 1 else 1)
+    return {**bound(n_in + n_out, tests * ops[l]), "tests": tests, "distinct_entries": entries}
+
+
+def gather_bound(node_ixs, nbrs, deg, vp: int, panels: int) -> dict:
+    """Bound of a gather launch: nothing but bytes, the distinct panel
+    entries the lists address read once from each panel, the index lists
+    once, and (d^2 + d) entries per node and panel written once."""
+    nt, d = nbrs.shape
+    entries, _ = addressed(node_ixs, nbrs, deg, vp, pads_read_node=True)
+    n_bytes = 4 * panels * (entries + nt * (d * d + d)) + 4 * (nt * d + 2 * nt)
+    return {**bound(n_bytes, 0), "distinct_entries": entries}
+
+
+def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """NaN-aware largest |a - b|: elements with equal bits or equal values
+    count 0 (a NaN against the same NaN, a sentinel against itself), a NaN
+    against anything else counts inf."""
+    if a.numel() == 0:
         return 0.0
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (a == b)
+    diff = torch.where(same, torch.zeros_like(a), (a - b).abs())
+    return float(torch.nan_to_num(diff, nan=math.inf, posinf=math.inf).max())
+
+
+def compare(tag: str, rho_k, pos_k, rho_p, pos_p, deg, rho_th: float) -> float:
+    """Require bit-identical rho and identical positions; returns the
+    measured max |rho_k - rho_p|."""
+    if torch.equal(rho_k, rho_p) and torch.equal(pos_k, pos_p):
+        return max_abs_diff(rho_k, rho_p)
     diff = (rho_k != rho_p) | (pos_k != pos_p).any(-1)
     i, j = (int(v) for v in torch.nonzero(diff)[0])
     rk, rp = float(rho_k[i, j]), float(rho_p[i, j])
@@ -102,45 +204,164 @@ def compare(tag: str, rho_k, pos_k, rho_p, pos_p, deg, rho_th: float) -> float:
     )
 
 
-def phase_kernels(rho_th: dict) -> dict:
-    """Kernel vs plain at d in {8, 40, 64, 136, 240, 256, 300} (both sides of
-    the shared-memory limit), levels 1-3, clustered and scattered lists;
-    plus level-1 nodes of width 6600 (per-slot rows in global scratch)."""
-    t0 = time.perf_counter()
+def compare_bits(tag: str, got, exp) -> float:
+    """Require equal int32 views of every tensor (NaN payloads included);
+    returns the measured max |got - exp| over all of them."""
+    for i, (g, e) in enumerate(zip(got, exp)):
+        if g.shape != e.shape or not torch.equal(g.view(torch.int32), e.view(torch.int32)):
+            raise AssertionError(f"{tag}: output {i} differs from the plain gather")
+    return max(max_abs_diff(g, e) for g, e in zip(got, exp))
+
+
+def compare_margin(tag: str, m_k, m_p) -> tuple[int, float]:
+    """Require bit-identical margins (and so identical hit bits, margin < 0);
+    returns the number compared and the measured max |m_k - m_p|."""
+    same = m_k.view(torch.int32) == m_p.view(torch.int32)
+    if m_k.shape != m_p.shape or not bool(same.all()):
+        i, j = (int(v) for v in torch.nonzero(~same)[0])
+        raise AssertionError(
+            f"{tag}: kernel != plain margin at node {i} slot {j}: {float(m_k[i, j])!r} vs "
+            f"{float(m_p[i, j])!r}; {int((~same).sum())} of {same.numel()} differ, "
+            f"{int(((m_k < 0) != (m_p < 0)).sum())} hit bits among them"
+        )
+    return same.numel(), max_abs_diff(m_k, m_p)
+
+
+def check_panels():
+    """The 8192-variable panels of the kernel checks: a symmetric C with 1%
+    NaNs, a matched per-pair ESS with 15% NaNs, a time index in {0, 1, 2}."""
     rng = np.random.default_rng(0)
     vp = 8192
     C = (0.3 * rng.standard_normal((vp, vp), dtype=np.float32))
     C = (C + C.T) * np.float32(0.5)
     C[rng.random((vp, vp), dtype=np.float32) < 0.01] = np.nan
     np.fill_diagonal(C, 1.0)
-    Cd = torch.from_numpy(C).cuda()
+    N = rng.uniform(3e3, 1.2e4, (vp, vp)).astype(np.float32)
+    N = (N + N.T) * np.float32(0.5)
+    hole = np.triu(rng.random((vp, vp), dtype=np.float32) < 0.15, 1)
+    N[hole | hole.T] = np.nan
+    t_ix = rng.integers(0, 3, vp).astype(np.int32)
+    return (rng, vp, torch.from_numpy(C).cuda(), torch.from_numpy(N).cuda(),
+            torch.from_numpy(t_ix).cuda())
+
+
+def neighbour_lists(rng, vp: int, nt: int, d: int, clustered: bool, distinct: bool = True):
+    """Ragged ascending neighbour lists on the card: clustered in a window of
+    2d + 1 variables around the node, or scattered over the panel."""
+    node_ixs = rng.choice(vp, nt, replace=False).astype(np.int32)
+    deg = rng.integers(max(1, d // 2), d + 1, nt).astype(np.int32)
+    deg[0] = d
+    nbrs = np.zeros((nt, d), np.int32)
+    for i, x in enumerate(node_ixs):
+        if clustered:
+            lo = max(0, min(int(x) - d, vp - 2 * d - 1))
+            pool = np.arange(lo, min(vp, lo + 2 * d + 1))
+        else:
+            pool = np.arange(vp)
+        pool = pool[pool != x]
+        nbrs[i, : deg[i]] = np.sort(rng.choice(pool, deg[i], replace=not distinct))
+    return [torch.from_numpy(a).cuda() for a in (node_ixs, nbrs, deg)]
+
+
+def phase_kernels(rho_th: dict, panels) -> None:
+    """local_sweep vs plain at d in {8, 40, 64, 136, 240, 256, 300} (both
+    sides of the shared-memory limit), levels 1-3, clustered and scattered
+    lists; plus level-1 nodes of width 6600 (per-slot rows in global
+    scratch)."""
+    t0 = time.perf_counter()
+    rng, vp, Cd, _, _ = panels
     cases = [(d, l) for d in (8, 40, 64, 136, 240, 256, 300) for l in (1, 2, 3)]
     cases.append((6600, 1))
     n_cmp, max_err = 0, 0.0
     for clustered in (True, False):
         for d, l in cases:
-            nt = 2 if d > 1000 else 6
-            node_ixs = rng.choice(vp, nt, replace=False).astype(np.int32)
-            deg = rng.integers(max(2, d // 2), d + 1, nt).astype(np.int32)
-            deg[0] = d
-            nbrs = np.zeros((nt, d), np.int32)
-            for i, x in enumerate(node_ixs):
-                if clustered:  # a window of 2d + 1 variables around the node
-                    lo = max(0, min(int(x) - d, vp - 2 * d - 1))
-                    pool = np.arange(lo, min(vp, lo + 2 * d + 1))
-                else:
-                    pool = np.arange(vp)
-                pool = pool[pool != x]
-                nbrs[i, : deg[i]] = np.sort(rng.choice(pool, deg[i], replace=False))
-            args = [torch.from_numpy(a).cuda() for a in (node_ixs, nbrs, deg)]
+            if clustered and 2 * d + 1 > vp:
+                continue
+            args = neighbour_lists(rng, vp, 2 if d > 1000 else 6, d, clustered)
             rho_k, pos_k = ls.local_sweep(Cd, *args, l)
             rho_p, pos_p = pcorr.local_sweep_plain(Cd, *args, l)
             torch.cuda.synchronize()
             tag = f"{'clustered' if clustered else 'scattered'} d={d} l={l}"
-            max_err = max(max_err, compare(tag, rho_k, pos_k, rho_p, pos_p, deg, rho_th[l]))
+            max_err = max(max_err, compare(tag, rho_k, pos_k, rho_p, pos_p, args[2], rho_th[l]))
             n_cmp += 1
-    emit("kernels", t0, cases=n_cmp, bit_identical=True, max_abs_err=max_err)
-    return {"max_abs_err": max_err}
+    emit("kernels_local_sweep", t0, cases=n_cmp, bit_identical=True, max_abs_err=max_err)
+
+
+def phase_gather_kernel(panels) -> None:
+    """panel_gather vs plain, one and two panels, at d in {1, 8, 40, 136, 256,
+    300, 1000}, clustered and scattered, ragged degrees; plus one node of
+    width 13000 with repeated neighbours (indices read through the cache
+    instead of shared memory)."""
+    t0 = time.perf_counter()
+    rng, vp, Cd, Nd, _ = panels
+    n_cmp, max_err = 0, 0.0
+    for clustered in (True, False):
+        for d in (1, 8, 40, 136, 256, 300, 1000):
+            args = neighbour_lists(rng, vp, 3 if d >= 1000 else 6, d, clustered)
+            tag = f"{'clustered' if clustered else 'scattered'} d={d}"
+            max_err = max(
+                max_err,
+                compare_bits(tag + " one panel", pg.gather_local_panels(Cd, *args),
+                             pg.gather_local_panels_plain(Cd, *args)),
+                compare_bits(tag + " two panels", pg.gather_local_panels2(Cd, Nd, *args),
+                             pg.gather_local_panels2_plain(Cd, Nd, *args)))
+            torch.cuda.synchronize()
+            n_cmp += 2
+    args = neighbour_lists(rng, vp, 1, 13000, False, distinct=False)
+    max_err = max(max_err, compare_bits(
+        "scattered d=13000", pg.gather_local_panels(Cd, *args),
+        pg.gather_local_panels_plain(Cd, *args)))
+    torch.cuda.synchronize()
+    # beyond the main path's few-node tiles: one launch the size of a level-1
+    # bucket, against its bound and the advanced-indexing call; launched as
+    # the skeleton does, with the lists' range checked beforehand
+    args = neighbour_lists(rng, vp, 2048, 128, True)
+    nb = pg.remap_pad_slots(*args).long()
+    x = args[0].long()[:, None]
+    emit("kernels_panel_gather", t0, cases=n_cmp + 1, bit_identical=True, max_abs_err=max_err,
+         bucket_sized={
+             "nodes": 2048, "width": 128, "panels": 2, **gather_bound(*args, vp, 2),
+             "ms": cuda_ms(lambda: pg.gather_local_panels2(
+                 Cd, Nd, *args, index_range_checked=True), reps=20),
+             "library_ms": cuda_ms(
+                 lambda: [(P[nb[:, :, None], nb[:, None, :]], P[x, nb]) for P in (Cd, Nd)],
+                 reps=20),
+         })
+
+
+def phase_hetcor_kernel(panels) -> None:
+    """hetcor_sweep vs plain at d in {8, 40, 64, 136, 240, 300} (both sides of
+    the two-panel shared-memory limit, d = 166), levels 1-3, clustered and
+    scattered lists, ESS with 15% NaNs as it is ("float") and truncated
+    ("reference"), time indices in {0, 1, 2}; plus level-1 nodes of width
+    4600 (per-slot rows in global scratch). The two widest sizes alternate
+    the ESS mode between the clustered and the scattered lists."""
+    t0 = time.perf_counter()
+    rng, vp, Cd, Nd, td = panels
+    N_mode = {"float": Nd, "reference": pcorr.trunc_ref_ess(Nd)}
+    th = hetcor_threshold(ALPHA)
+    n_cmp, n_all, n_hits, max_err = 0, 0, 0, 0.0
+    for clustered in (True, False):
+        cases = [(d, l, m) for d in (8, 40, 64, 136) for l in (1, 2, 3)
+                 for m in ("float", "reference")]
+        cases += [(d, l, "float" if clustered else "reference")
+                  for d in (240, 300) for l in (1, 2, 3)]
+        if not clustered:
+            cases.append((4600, 1, "float"))
+        for d, l, mode in cases:
+            args = neighbour_lists(rng, vp, 2 if d > 1000 else (4 if d > 200 else 6), d,
+                                   clustered)
+            m_k = hs.hetcor_local_sweep(Cd, N_mode[mode], td, *args, th, l)
+            m_p = pcorr.hetcor_local_sweep_plain(Cd, N_mode[mode], td, *args, th, l)
+            torch.cuda.synchronize()
+            tag = f"{'clustered' if clustered else 'scattered'} d={d} l={l} {mode}"
+            count, err = compare_margin(tag, m_k, m_p)
+            n_all, max_err = n_all + count, max(max_err, err)
+            n_hits += int((m_k < 0).sum())
+            n_cmp += 1
+    assert 0 < n_hits < n_all, f"degenerate cases: {n_hits} hits of {n_all} margins"
+    emit("kernels_hetcor_sweep", t0, cases=n_cmp, bit_identical=True, max_abs_err=max_err,
+         margins=n_all, hits=n_hits)
 
 
 def write_block(d: str, G: np.ndarray, Y: np.ndarray) -> tuple[str, str]:
@@ -198,6 +419,17 @@ def block_files(outdir: str) -> dict:
     return {f: open(os.path.join(outdir, f), "rb").read() for f in sorted(os.listdir(outdir))}
 
 
+def assert_same_outputs(tag: str, cuda: dict, cpu: dict) -> None:
+    """Decision files byte-identical, .corr within 1e-6."""
+    assert cuda.keys() == cpu.keys() and cpu, (tag, sorted(cuda), sorted(cpu))
+    for f, data in cpu.items():
+        if f.endswith(".corr"):
+            a, b = np.frombuffer(cuda[f], np.float32), np.frombuffer(data, np.float32)
+            assert np.allclose(a, b, rtol=0, atol=1e-6), f"{tag}: {f}"
+        else:
+            assert cuda[f] == data, f"{tag}: {f} differs between cuda and cpu"
+
+
 def phase_small_reference(tmp: str) -> None:
     """A 1,500-marker block through cusk on the card and on the CPU (plain
     versions throughout): identical decisions, .corr within 1e-6."""
@@ -213,18 +445,108 @@ def phase_small_reference(tmp: str) -> None:
         cusk(stem + ".phen", stem, blocks, ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH,
              out, 0, verbose=False, device=dev)
         outs[dev] = block_files(out)
-    assert outs["cuda"].keys() == outs["cpu"].keys() and outs["cuda"], outs["cpu"].keys()
-    for f, data in outs["cpu"].items():
-        got = outs["cuda"][f]
-        if f.endswith(".corr"):
-            a, b = np.frombuffer(got, np.float32), np.frombuffer(data, np.float32)
-            assert np.allclose(a, b, rtol=0, atol=1e-6), f
-        else:
-            assert got == data, f"small block: {f} differs between cuda and cpu"
+    assert_same_outputs("small block", outs["cuda"], outs["cpu"])
     emit("small_reference", t0, files=sorted(outs["cpu"]), cuda_equals_cpu=True)
 
 
-def phase_slice(tmp: str, rho_th: dict) -> list:
+class Recorder:
+    """Wraps the kernel wrappers the skeleton calls so that the largest
+    launch of each kernel (by work) is kept for the kernel-vs-plain re-run.
+    The wrappers themselves count the launches. The re-runs are timed as the
+    skeleton launches them, with the lists' range already checked."""
+
+    NAMES = ("local_sweep", "hetcor_local_sweep", "gather_local_panels",
+             "gather_local_panels2")
+
+    def __init__(self):
+        self.largest: dict = {}
+        self.saved = {n: getattr(cupc, n) for n in self.NAMES}
+
+    def _keep(self, key, work, args):
+        if work > self.largest.get(key, (0,))[0]:
+            self.largest[key] = (work, args)
+
+    def __enter__(self):
+        saved = self.saved
+
+        def local_sweep(C, node_ixs, nbrs, deg, l, **kw):
+            self._keep(("local_sweep", l), nbrs.shape[0] * nbrs.shape[1] ** (l + 1),
+                       (C, node_ixs, nbrs, deg, l))
+            return saved["local_sweep"](C, node_ixs, nbrs, deg, l, **kw)
+
+        def hetcor_local_sweep(C, N, t_ix, node_ixs, nbrs, deg, th, l, **kw):
+            self._keep(("hetcor_sweep", l), nbrs.shape[0] * nbrs.shape[1] ** (l + 1),
+                       (C, N, t_ix, node_ixs, nbrs, deg, th, l))
+            return saved["hetcor_local_sweep"](C, N, t_ix, node_ixs, nbrs, deg, th, l, **kw)
+
+        def gather_local_panels(C, node_ixs, nbrs, deg, **kw):
+            self._keep(("panel_gather",), nbrs.shape[0] * nbrs.shape[1] ** 2,
+                       (C, node_ixs, nbrs, deg))
+            return saved["gather_local_panels"](C, node_ixs, nbrs, deg, **kw)
+
+        def gather_local_panels2(C, N, node_ixs, nbrs, deg, **kw):
+            self._keep(("panel_gather2",), nbrs.shape[0] * nbrs.shape[1] ** 2,
+                       (C, N, node_ixs, nbrs, deg))
+            return saved["gather_local_panels2"](C, N, node_ixs, nbrs, deg, **kw)
+
+        for n, fn in (("local_sweep", local_sweep), ("hetcor_local_sweep", hetcor_local_sweep),
+                      ("gather_local_panels", gather_local_panels),
+                      ("gather_local_panels2", gather_local_panels2)):
+            setattr(cupc, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(cupc, n, fn)
+
+
+def reset_all_launches() -> None:
+    ls.reset_launches()
+    hs.reset_launches()
+    pg.reset_launches()
+
+
+def kernel_entry(name: str, module, replaces: str, launches: int, err: float, ms: float,
+                 plain_ms: float, bnd: dict, library_ms, shape: dict) -> dict:
+    return {
+        "name": name, "route": "cuda", "source": module.SOURCE, "replaces": REPLACES[replaces],
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"], "library_ms": library_ms,
+        "shape": {**shape, **{k: v for k, v in bnd.items()
+                              if k in ("tests", "bytes", "operations", "distinct_entries")}},
+    }
+
+
+def gather_entries(rec: Recorder, launches: dict) -> list:
+    """The largest gather launch of a run, kernel vs plain (bit-identical)
+    and vs the advanced-indexing call that computes the same panels."""
+    out = []
+    for name, panels in (("panel_gather", 1), ("panel_gather2", 2)):
+        if (name,) not in rec.largest:
+            continue
+        args = rec.largest[(name,)][1]
+        kern = pg.gather_local_panels if panels == 1 else pg.gather_local_panels2
+        plain = pg.gather_local_panels_plain if panels == 1 else pg.gather_local_panels2_plain
+        err = compare_bits(f"largest {name}", kern(*args), plain(*args))
+        node_ixs, nbrs, deg = args[-3:]
+        nb = pg.remap_pad_slots(node_ixs, nbrs, deg).long()
+        x = node_ixs.long()[:, None]
+
+        def indexing():
+            return [(P[nb[:, :, None], nb[:, None, :]], P[x, nb]) for P in args[:panels]]
+
+        nt, d = nbrs.shape
+        out.append(kernel_entry(
+            name, pg, name, launches[name], err,
+            cuda_ms(lambda: kern(*args, index_range_checked=True), reps=20),
+            cuda_ms(lambda: plain(*args), reps=20),
+            gather_bound(node_ixs, nbrs, deg, args[0].shape[0], panels),
+            cuda_ms(indexing, reps=20), {"nodes": int(nt), "width": int(d)},
+        ))
+    return out
+
+
+def phase_slice(tmp: str, rho_th: dict):
     t0 = time.perf_counter()
     G, Y, planted = ar1_block(M11K, N11K, P11K, seed=0)
     b11k = os.path.join(tmp, "b11k")
@@ -233,39 +555,27 @@ def phase_slice(tmp: str, rho_th: dict) -> list:
     del G
     emit("slice_data", t0, markers=M11K, individuals=N11K, traits=P11K)
 
-    # record the largest launch per level (nodes x width^(l+1)) for the
-    # kernel-vs-plain re-run; the wrapper itself counts the launches
-    largest: dict = {}
-
-    def recording(C, node_ixs, nbrs, deg, l):
-        out = sweep(C, node_ixs, nbrs, deg, l)
-        work = nbrs.shape[0] * nbrs.shape[1] ** (l + 1)
-        if work > largest.get(l, (0,))[0]:
-            largest[l] = (work, C, node_ixs, nbrs, deg)
-        return out
-
-    sweep = cupc.local_sweep
-    cupc.local_sweep = recording
     out = os.path.join(tmp, "out11k")
     os.makedirs(out)
     stats: dict = {}
-    ls.reset_launches()
-    t1 = time.perf_counter()
-    try:
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder() as rec:
+        reset_all_launches()
+        t1 = time.perf_counter()
         res = cusk(stem + ".phen", stem, blocks, ALPHA, MAX_LEVEL, MAX_LEVEL_TWO,
                    DEPTH, out, 0, verbose=False, device="cuda", stats=stats)
         torch.cuda.synchronize()
-    finally:
-        cupc.local_sweep = sweep
-    wall = time.perf_counter() - t1
-    launches = dict(ls.launches)
+        wall = time.perf_counter() - t1
+        launches = {**{f"local_sweep_l{l}": n for l, n in ls.launches.items()}, **pg.launches}
 
     s1, s2 = stats["stage1"], stats["stage2"]
     ran = set(s1.get("level_wall_s", {})) | set(s2.get("level_wall_s", {}))
     assert stats["final_level"] == 3, f"stage 1 stopped at level {stats['final_level']}"
     for l in (1, 2, 3):
         if l in ran:
-            assert launches[l] > 0, f"level {l} ran without a kernel launch"
+            assert launches[f"local_sweep_l{l}"] > 0, f"level {l} ran without a kernel launch"
+    assert max(ran) >= 4 and launches["panel_gather"] > 0, (
+        f"levels {sorted(ran)} ran with {launches['panel_gather']} gather launches")
     assert res is not None
     base = os.path.join(out, "1_0_10999")
     for ext in (".mdim", ".ixs", ".adj", ".corr", ".sep"):
@@ -279,7 +589,7 @@ def phase_slice(tmp: str, rho_th: dict) -> list:
     recovered = float(np.mean([k in kept for k in planted]))
     assert recovered >= 0.5, f"only {recovered:.2f} of the planted markers retained"
     emit(
-        "slice", t0, cusk_wall_s=wall, prepare_s=stats["prepare_s"],
+        "slice_cusk", t0, cusk_wall_s=wall, prepare_s=stats["prepare_s"],
         prescreen_s=stats["prescreen_s"], panel_s=stats["panel_s"],
         l0_s=s1["l0_wall_s"], sepset_alloc_s=s1["sepset_alloc_s"],
         level_wall_s=s1["level_wall_s"], level_detail=s1["level_detail"],
@@ -291,39 +601,200 @@ def phase_slice(tmp: str, rho_th: dict) -> list:
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
     )
 
-    # the largest launch of each level, kernel vs plain on the card
+    # the largest launch of each kernel, kernel vs plain on the card
     t0 = time.perf_counter()
     kernels = []
-    for l in sorted(largest):
-        _, C, node_ixs, nbrs, deg = largest[l]
+    for l in (1, 2, 3):
+        C, node_ixs, nbrs, deg, _ = rec.largest[("local_sweep", l)][1]
         rho_k, pos_k = ls.local_sweep(C, node_ixs, nbrs, deg, l)
         rho_p, pos_p = pcorr.local_sweep_plain(C, node_ixs, nbrs, deg, l)
         err = compare(f"11k level {l}", rho_k, pos_k, rho_p, pos_p, deg, rho_th[l])
-        ms = cuda_ms(lambda: ls.local_sweep(C, node_ixs, nbrs, deg, l), reps=5)
-        plain_ms = cuda_ms(lambda: pcorr.local_sweep_plain(C, node_ixs, nbrs, deg, l), reps=2)
-        kernels.append({
-            "name": f"local_sweep_l{l}", "route": "cuda", "source": ls.SOURCE,
-            "replaces": REPLACES, "launches": launches[l], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms,
-            "shape": {"nodes": int(nbrs.shape[0]), "width": int(nbrs.shape[1])},
-        })
-    emit("largest_launch", t0, kernels=kernels)
-    profile_cusk(stem, blocks, os.path.join(tmp, "out11k_profiled"), wall)
-    return kernels
+        kernels.append(kernel_entry(
+            f"local_sweep_l{l}", ls, "local_sweep", launches[f"local_sweep_l{l}"], err,
+            cuda_ms(lambda: ls.local_sweep(C, node_ixs, nbrs, deg, l,
+                                           index_range_checked=True), reps=5),
+            cuda_ms(lambda: pcorr.local_sweep_plain(C, node_ixs, nbrs, deg, l), reps=2),
+            sweep_bound(node_ixs, nbrs, deg, C.shape[0], l, 1, SWEEP_OPS), None,
+            {"nodes": int(nbrs.shape[0]), "width": int(nbrs.shape[1])},
+        ))
+    kernels += gather_entries(rec, launches)
+    emit("largest_launch_cusk", t0, kernels=kernels)
+
+    def again():
+        out2 = os.path.join(tmp, "out11k_profiled")
+        os.makedirs(out2)
+        cusk(stem + ".phen", stem, blocks, ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH,
+             out2, 0, verbose=False, device="cuda")
+
+    return kernels, again, wall
 
 
-def profile_cusk(stem: str, blocks: str, out: str, unprofiled_wall_s: float) -> None:
-    """A second (warm) cusk run under torch.profiler: device time by kernel
-    name. The profiler slows the host, not the device, so the idle share is
-    taken against the unprofiled run's wall."""
+def write_sumstats(d: str) -> tuple[dict, list]:
+    """The summary-statistic input as files: a binary lower triangle of the
+    AR(1) marker correlations 0.92^|i-j|, an mxp table with 5 planted markers
+    per trait at 0.03 (smeared over their LD neighbourhood) plus N(0, 1/5e5)
+    noise, a pxp table at 0.1, SE tables that give every mxp and pxp entry an
+    ESS uniform in [3e5, 5e5], and one block over all markers. Returns the
+    `CuskssArgs.from_paths` keywords and the planted markers."""
+    rng = np.random.default_rng(2)
+    m, p = MSS, PSS
+    r, c = np.tril_indices(m)
+    (0.92 ** np.arange(m)).astype(np.float32)[r - c].tofile(os.path.join(d, "mxm.bin"))
+    del r, c
+    ii = np.arange(m)
+    mxp = rng.normal(size=(m, p)) / np.sqrt(NSS)
+    planted = []
+    for t in range(p):
+        for k in rng.integers(0, m, 5):
+            mxp[:, t] += 0.03 * 0.92 ** np.abs(ii - k)
+            planted.append(int(k))
+    mxp_se = (1.0 - mxp**2) / np.sqrt(rng.uniform(3e5, 5e5, size=(m, p)))
+    pxp = np.full((p, p), 0.1) + 0.9 * np.eye(p)
+    pxp_se = (1.0 - pxp**2) / np.sqrt(rng.uniform(3e5, 5e5, size=(p, p)))
+    pxp_se = np.triu(pxp_se) + np.triu(pxp_se, 1).T
+    np.fill_diagonal(pxp_se, 1.0)  # rho = 1 has no SE; the diagonal's ESS is never read
+    traits = [f"T{t}" for t in range(p)]
+    for name, tab in (("mxp", mxp), ("mxp_se", mxp_se)):
+        with open(os.path.join(d, name + ".txt"), "w") as f:
+            f.write("chr snp ref " + " ".join(traits) + "\n")
+            body = np.char.mod("%.9e", tab)
+            f.writelines(f"1 rs{i} A " + " ".join(body[i]) + "\n" for i in range(m))
+    for name, tab in (("pxp", pxp), ("pxp_se", pxp_se)):
+        with open(os.path.join(d, name + ".txt"), "w") as f:
+            f.write(" ".join(traits) + "\n")
+            body = np.char.mod("%.9e", tab)
+            f.writelines(f"{traits[i]} " + " ".join(body[i]) + "\n" for i in range(p))
+    write_marker_blocks_to_file([MarkerBlock("1", 0, m - 1)], os.path.join(d, "ss.blocks"))
+    kw = dict(
+        mxm=os.path.join(d, "mxm.bin"), mxp=os.path.join(d, "mxp.txt"),
+        mxp_se=os.path.join(d, "mxp_se.txt"), pxp=os.path.join(d, "pxp.txt"),
+        pxp_se=os.path.join(d, "pxp_se.txt"), blockfile=os.path.join(d, "ss.blocks"),
+        block_index=0, alpha=ALPHA, max_level_one=MAX_LEVEL, max_level_two=MAX_LEVEL_TWO,
+        max_depth=DEPTH, num_samples=NSS,
+    )
+    return kw, planted
+
+
+def phase_small_cuskss(tmp: str) -> None:
+    """The fixture inputs through cuskss on the card and on the CPU, Pearson
+    and hetcor (SE files), both stages: same files."""
+    t0 = time.perf_counter()
+    p = lambda name: os.path.join(FIXTURES, name)  # noqa: E731
+    se = {}
+    for key, src, lead in (("mxp_se", "marker_trait_summary_stats.txt", 3),
+                           ("pxp_se", "trait_summary_stats.txt", 1)):
+        lines = open(p(src)).read().splitlines()
+        se[key] = os.path.join(tmp, key + "_small.txt")
+        with open(se[key], "w") as f:
+            f.write(lines[0] + "\n")
+            for line in lines[1:]:
+                fields = line.split()
+                f.write(" ".join(fields[:lead] + ["0.00001"] * (len(fields) - lead)) + "\n")
+    for tag, extra in (("pearson", {}), ("hetcor", se)):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"ss_small_{tag}_{dev}")
+            os.makedirs(out)
+            cuskss(CuskssArgs.from_paths(
+                mxm=p("small_mxm.bin"), mxp=p("marker_trait_summary_stats.txt"),
+                pxp=p("trait_summary_stats.txt"), marker_indices=p("marker_indices.bin"),
+                alpha=ALPHA, num_samples=500000, max_level_one=3, max_level_two=1,
+                max_depth=1, outdir=out, **extra), verbose=False, device=dev)
+            outs[dev] = block_files(out)
+        assert_same_outputs(f"small cuskss {tag}", outs["cuda"], outs["cpu"])
+    emit("small_cuskss", t0, files=sorted(outs["cpu"]), cuda_equals_cpu=True)
+
+
+def phase_cuskss(tmp: str):
+    t0 = time.perf_counter()
+    ss = os.path.join(tmp, "ss")
+    out = os.path.join(tmp, "out_ss")
+    os.makedirs(ss)
+    os.makedirs(out)
+    kw, planted = write_sumstats(ss)
+    emit("cuskss_data", t0, markers=MSS, traits=PSS, num_samples=NSS,
+         mxm_bytes=os.path.getsize(kw["mxm"]))
+
+    stats: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder() as rec:
+        reset_all_launches()
+        t1 = time.perf_counter()
+        res = cuskss(CuskssArgs.from_paths(outdir=out, **kw), verbose=False, device="cuda",
+                     stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = {**{f"hetcor_sweep_l{l}": n for l, n in hs.launches.items()}, **pg.launches}
+
+    s1, s2 = stats["stage1"], stats["stage2"]
+    ran = set(s1.get("level_wall_s", {})) | set(s2.get("level_wall_s", {}))
+    for l in (1, 2, 3):
+        assert l in ran and launches[f"hetcor_sweep_l{l}"] > 0, (
+            f"level {l}: ran {l in ran}, {launches[f'hetcor_sweep_l{l}']} kernel launches")
+    assert max(ran) >= 4 and launches["panel_gather2"] > 0, (
+        f"levels {sorted(ran)} ran with {launches['panel_gather2']} two-panel gather launches")
+    base = os.path.join(out, f"1_0_{MSS - 1}")
+    for ext in (".mdim", ".ixs", ".adj", ".corr"):
+        assert os.path.getsize(base + ext) > 0, base + ext
+    back = ReducedGC.from_file(base)
+    k = back.num_var
+    assert k == res.num_var and back.num_phen == PSS and back.G.shape == (k, k)
+    assert np.array_equal(back.G, res.G) and np.array_equal(back.C, res.C)
+    assert np.array_equal(back.G, back.G.T) and not back.G.diagonal().any()
+    assert np.all(np.isfinite(back.C)) and np.all(np.abs(back.C) <= 1.0 + 1e-6)
+    assert np.all(np.isfinite(res.S)) and res.S.shape == (k, k)
+    kept = set(back.new_to_old_indices[: back.num_markers()].tolist())
+    recovered = float(np.mean([k in kept for k in planted]))
+    assert recovered >= 0.5, f"only {recovered:.2f} of the planted markers retained"
+    emit(
+        "slice_cuskss", t0, cuskss_wall_s=wall, load_s=stats["load_s"],
+        assemble_s=stats["assemble_s"], l0_s=s1["l0_wall_s"],
+        level_wall_s=s1["level_wall_s"], level_detail=s1["level_detail"],
+        reduce_s=s1["reduce_s"], stage2_l0_s=s2["l0_wall_s"],
+        stage2_level_wall_s=s2["level_wall_s"], stage2_reduce_s=s2["reduce_s"],
+        launches=launches, buckets={l: len(v) for l, v in s1["launches"].items()},
+        final_level=s1["final_level"], final_level_two=s2["final_level"],
+        retained_markers=res.num_markers(), planted_recovered=recovered,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+    )
+
+    # the largest launch of each kernel, kernel vs plain on the card
+    t0 = time.perf_counter()
+    kernels = []
+    for l in (1, 2, 3):
+        args = rec.largest[("hetcor_sweep", l)][1]
+        C, node_ixs, nbrs, deg = args[0], args[3], args[4], args[5]
+        count, err = compare_margin(f"cuskss level {l}", hs.hetcor_local_sweep(*args),
+                                    pcorr.hetcor_local_sweep_plain(*args))
+        kernels.append(kernel_entry(
+            f"hetcor_sweep_l{l}", hs, "hetcor_sweep", launches[f"hetcor_sweep_l{l}"], err,
+            cuda_ms(lambda: hs.hetcor_local_sweep(*args, index_range_checked=True), reps=5),
+            cuda_ms(lambda: pcorr.hetcor_local_sweep_plain(*args), reps=2),
+            sweep_bound(node_ixs, nbrs, deg, C.shape[0], l, 2, HETCOR_OPS), None,
+            {"nodes": int(nbrs.shape[0]), "width": int(nbrs.shape[1]),
+             "margins_bit_identical": count},
+        ))
+    kernels += gather_entries(rec, launches)
+    emit("largest_launch_cuskss", t0, kernels=kernels)
+
+    def again():
+        out2 = os.path.join(tmp, "out_ss_profiled")
+        os.makedirs(out2)
+        cuskss(CuskssArgs.from_paths(outdir=out2, **kw), verbose=False, device="cuda")
+
+    return kernels, again, wall
+
+
+def profile_run(tag: str, run, unprofiled_wall_s: float) -> None:
+    """A second (warm) run of a slice under torch.profiler: device time by
+    kernel name. The profiler slows the host, not the device, so the idle
+    share is taken against the unprofiled run's wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    os.makedirs(out)
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        cusk(stem + ".phen", stem, blocks, ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH,
-             out, 0, verbose=False, device="cuda")
+        run()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rows = sorted(
@@ -332,8 +803,8 @@ def profile_cusk(stem: str, blocks: str, out: str, unprofiled_wall_s: float) -> 
         key=lambda r: -r[1],
     )
     busy_s = sum(us for _, us in rows) / 1e6
-    emit("profile", t0, profiled_wall_s=wall, device_busy_s=busy_s,
-         device_idle_share=1.0 - busy_s / unprofiled_wall_s,
+    emit("profile_" + tag, t0, profiled_wall_s=wall, unprofiled_wall_s=unprofiled_wall_s,
+         device_busy_s=busy_s, device_idle_share=1.0 - busy_s / unprofiled_wall_s,
          top=[{"name": k[:80], "ms": us / 1e3} for k, us in rows[:10]])
 
 
@@ -347,22 +818,40 @@ def main() -> int:
          device_count=torch.cuda.device_count(), nvidia_smi=smi)
 
     t0 = time.perf_counter()
-    lib = build.build("local_sweep")
-    log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
-    emit("build", t0, library=lib.name,
-         ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln])
+    names = ("local_sweep", "panel_gather", "hetcor_sweep")
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, together
+        libs = list(pool.map(build.build, names))
+    for name, lib in zip(names, libs):
+        log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
+        emit("build", t0, source=name, library=lib.name,
+             ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln])
 
     th = threshold_array(N11K, ALPHA)
     rho_th = {l: float(np.float32(np.tanh(float(th[l])))) for l in (1, 2, 3)}
-    phase_kernels(rho_th)
+    panels = check_panels()
+    phase_kernels(rho_th, panels)
+    phase_gather_kernel(panels)
+    phase_hetcor_kernel(panels)
+    del panels
+    torch.cuda.empty_cache()
 
     tmp = tempfile.mkdtemp(prefix="cigwas_chip_smoke_")
     try:
         phase_small_reference(tmp)
-        kernels = phase_slice(tmp, rho_th)
+        kernels, cusk_again, wall = phase_slice(tmp, rho_th)
+        phase_small_cuskss(tmp)
+        kernels_ss, cuskss_again, wall_ss = phase_cuskss(tmp)
+        kernels += kernels_ss
+        profile_run("cusk", cusk_again, wall)
+        profile_run("cuskss", cuskss_again, wall_ss)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    assert "jax" not in sys.modules
+    bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "cigwas_tpu"))
+    assert not bad, bad
+    expected = [f"local_sweep_l{l}" for l in (1, 2, 3)] + ["panel_gather"] + [
+        f"hetcor_sweep_l{l}" for l in (1, 2, 3)] + ["panel_gather2"]
+    assert [k["name"] for k in kernels] == expected, [k["name"] for k in kernels]
+    assert all(k["launches"] > 0 for k in kernels)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from cigwas_tpu_torch.device import require_full_f32, resolve
-from cigwas_tpu_torch.host import PANEL_ALIGN
+from cigwas_tpu_torch.constants import PANEL_ALIGN
 from cigwas_tpu_torch.ops.decode import (
     PAD_BYTE,
     contingency_counts,

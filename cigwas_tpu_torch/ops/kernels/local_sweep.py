@@ -14,6 +14,11 @@ import torch
 
 from cigwas_tpu_torch.ops import pcorr
 from cigwas_tpu_torch.ops.kernels import build
+from cigwas_tpu_torch.ops.kernels.checks import (
+    check_index_range,
+    check_int32,
+    check_panels,
+)
 
 SOURCE = "cigwas_tpu_torch/csrc/local_sweep.cu"
 # kernel launches per level since the last reset; the CPU path adds nothing
@@ -36,7 +41,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def local_sweep(C: torch.Tensor, node_ixs: torch.Tensor, nbrs: torch.Tensor,
-                deg: torch.Tensor, l: int):
+                deg: torch.Tensor, l: int, *, index_range_checked: bool = False):
     """Min |pcorr(x, y | S)| over |S| = l for every node x and neighbour
     slot y, with the minimizing positions.
 
@@ -44,6 +49,10 @@ def local_sweep(C: torch.Tensor, node_ixs: torch.Tensor, nbrs: torch.Tensor,
     lists (pad slots hold any valid index), deg (nt,) <= d, all int32.
     Returns rho (nt, d) f32 and pos (nt, d, l) int32 ascending positions
     into the neighbour list; pad slots y >= deg come back as (2.0, 0).
+
+    index_range_checked: the caller has held these lists to
+    :func:`~cigwas_tpu_torch.ops.kernels.checks.check_index_range` on the
+    host, so the launch does not wait for the device to check them again.
     """
     if l not in (1, 2, 3):
         raise ValueError(f"local_sweep serves levels 1-3, got {l}")
@@ -52,24 +61,16 @@ def local_sweep(C: torch.Tensor, node_ixs: torch.Tensor, nbrs: torch.Tensor,
     if C.device.type != "cuda":
         raise ValueError(f"local_sweep: unsupported device {C.device}")
     nt, d = nbrs.shape
-    vp = C.shape[0]
-    if C.dtype != torch.float32 or C.dim() != 2 or C.shape[1] != vp:
-        raise ValueError("local_sweep: C must be a square float32 panel")
-    for name, t, shape in (("node_ixs", node_ixs, (nt,)), ("nbrs", nbrs, (nt, d)),
-                           ("deg", deg, (nt,))):
-        if t.dtype != torch.int32 or tuple(t.shape) != shape or t.device != C.device:
-            raise ValueError(f"local_sweep: {name} must be int32 {shape} on {C.device}")
+    vp = check_panels("local_sweep", C)
+    check_int32("local_sweep", C.device, node_ixs=(node_ixs, (nt,)),
+                nbrs=(nbrs, (nt, d)), deg=(deg, (nt,)))
     C, node_ixs, nbrs, deg = (t.contiguous() for t in (C, node_ixs, nbrs, deg))
     rho = torch.empty((nt, d), dtype=torch.float32, device=C.device)
     pos = torch.empty((nt, d, l), dtype=torch.int32, device=C.device)
     if nt == 0 or d == 0:
         return rho, pos
-    bad = (
-        (nbrs.min() < 0) | (nbrs.max() >= vp) | (node_ixs.min() < 0)
-        | (node_ixs.max() >= vp) | (deg.min() < 0) | (deg.max() > d)
-    )
-    if bool(bad):
-        raise ValueError("local_sweep: index out of range (nbrs, node_ixs < vp; deg <= d)")
+    if not index_range_checked:
+        check_index_range("local_sweep", vp, d, node_ixs, nbrs, deg)
     lib = _lib()
     n_scratch = lib.local_sweep_scratch_floats(nt, d)
     scratch = (

@@ -1,15 +1,26 @@
 """Partial-correlation CI tests of the skeleton levels, in plain PyTorch.
 
-Counterpart of :mod:`cigwas_tpu.ops.pcorr`. Three groups:
+Counterpart of :mod:`cigwas_tpu.ops.pcorr`. Two families, the plain
+skeleton's |rho| tests and the hetcor skeleton's margin tests
+(|rho| - tanh(th / sqrt(mean_ess - l - 3)) under a time constraint):
 
-* :func:`level0_screen` — the Fisher-z marginal screen;
+* :func:`level0_screen`, :func:`hetcor_l0_delete` — the Fisher-z marginal
+  screens; :func:`trunc_ref_ess` — the ``ess_mode="reference"`` transform;
 * :func:`local_sweep_plain` — levels 1-3 on each node's local panel, the
   plain version of the CUDA kernel ``csrc/local_sweep.cu`` (the wrapper
   :func:`cigwas_tpu_torch.ops.kernels.local_sweep.local_sweep` runs it for
   CPU tensors; on the card the kernel runs and this is what it is held to);
-* :func:`level_scan_minrho` — levels >= 4 over colex chunks of conditioning
-  sets, with one-hot selection matmuls like the JAX package, so a NaN in a
-  local panel sends a test to ``RHO_BIG`` the same way.
+* :func:`hetcor_local_sweep_plain` — the hetcor levels 1-3, the plain
+  version of ``csrc/hetcor_sweep.cu`` in the same way
+  (:func:`cigwas_tpu_torch.ops.kernels.hetcor_sweep.hetcor_local_sweep`);
+* :func:`level_scan_minrho`, :func:`level_scan_hetcor` — levels >= 4 over
+  colex chunks of conditioning sets, with one-hot selection matmuls like the
+  JAX package, so a NaN in a local panel sends a test to ``RHO_BIG`` the
+  same way. Each is the gather of the local panels
+  (:mod:`cigwas_tpu_torch.ops.kernels.panel_gather`: the kernel
+  ``csrc/panel_gather.cu`` on the card, its plain version on CPU tensors)
+  followed by its ``_pre`` form on gathered panels; the skeleton calls the
+  two steps itself.
 
 Every ``rsqrt`` of the JAX sweeps is spelled ``1 / sqrt``: that is IEEE
 exact on both CPU and CUDA, so the kernel (built with ``-fmad=false``) and
@@ -21,8 +32,15 @@ from __future__ import annotations
 
 import torch
 
+from cigwas_tpu_torch.ops.kernels.panel_gather import (
+    gather_local_panels,
+    gather_local_panels2,
+)
+
 # sentinel for masked or non-finite tests; |rho| <= 1 for any valid test
 RHO_BIG = 2.0
+# sentinel margin of a masked, time-forbidden or non-finite hetcor test
+MARGIN_BIG = 3.0e38
 # elements of the largest live intermediate of the plain sweeps
 PLAIN_ELEMS = 1 << 24
 
@@ -38,6 +56,27 @@ def level0_screen(C: torch.Tensor, th0: float) -> torch.Tensor:
     z0 = torch.abs(0.5 * torch.log(torch.abs((1 + C) / (1 - C))))
     eye = torch.eye(C.shape[0], dtype=torch.bool, device=C.device)
     return ~(z0 < th0) & ~eye
+
+
+def hetcor_l0_delete(C: torch.Tensor, N: torch.Tensor, th: float) -> torch.Tensor:
+    """Hetcor level-0 delete mask (`cigwas_tpu.ops.pcorr.hetcor_l0_packed`,
+    as bools): delete iff fisher_z(C) < th / sqrt(N - 3) with the RAW
+    per-pair N; a NaN threshold compares false and keeps the edge."""
+    z0 = torch.abs(0.5 * torch.log(torch.abs((1 + C) / (1 - C))))
+    return z0 < _f32(th, C) / torch.sqrt(N - 3.0)
+
+
+def trunc_ref_ess(N: torch.Tensor) -> torch.Tensor:
+    """The ``ess_mode="reference"`` transform: truncate toward zero with
+    NaN -> 0 first (a float -> int cast of NaN differs between CUDA and
+    x86, so no cast is involved)."""
+    return torch.trunc(torch.nan_to_num(N, nan=0.0))
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python scalar rounded to float32 on like's device, so th / sqrt(..)
+    divides two float32 values as the JAX package's ``jnp.float32(th)``."""
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
 def _first_min(rho: torch.Tensor, dim: int):
@@ -231,26 +270,289 @@ def _pcorr_rho_local(C_x, c_row, deg, left, sel, combos, l: int):
 
 
 def level_scan_minrho(C, node_ixs, nbrs, deg, combos_seq, left_seq, l: int):
-    """Many chunks of level-l CI tests (`cigwas_tpu.ops.pcorr.level_scan_minrho`).
+    """Many chunks of level-l CI tests (`cigwas_tpu.ops.pcorr.level_scan_minrho`):
+    the gather of the local panels (pad slots read as the node itself), then
+    :func:`level_scan_minrho_pre`."""
+    C_x, c_row = gather_local_panels(C, node_ixs, nbrs, deg)
+    return level_scan_minrho_pre(C_x, c_row, deg, combos_seq, left_seq, l)
+
+
+def level_scan_minrho_pre(C_x, c_row, deg, combos_seq, left_seq, l: int):
+    """`level_scan_minrho` on gathered local panels C_x (nt, d, d), c_row (nt, d).
 
     combos_seq: (nch, K, l) colex position tuples; left_seq: (nch, nt) valid
     rows per node per chunk. Returns (rho_min (nt, d), rank (nt, d) int64):
     the minimum |rho| over every scanned set and the launch-local rank
     (chunk * K + first argmin over K) that achieves it, merged across chunks
     with a strict <."""
-    C_x, c_row = _local_panels(C, node_ixs, nbrs)
     nt, d = c_row.shape
     nch, K, _ = combos_seq.shape
-    rho_min = torch.full((nt, d), RHO_BIG, device=C.device)
-    rank = torch.zeros((nt, d), dtype=torch.int64, device=C.device)
+    dev = c_row.device
+    rho_min = torch.full((nt, d), RHO_BIG, device=dev)
+    rank = torch.zeros((nt, d), dtype=torch.int64, device=dev)
     for ci in range(nch):
         combos = combos_seq[ci]
         sel = _combo_onehots(combos, d, l)
         rho = _pcorr_rho_local(C_x, c_row, deg, left_seq[ci], sel, combos, l)
         rho_c = rho.amin(1)
-        k_ix = torch.arange(K, device=C.device)[None, :, None]
+        k_ix = torch.arange(K, device=dev)[None, :, None]
         argk = torch.where(rho == rho_c[:, None, :], k_ix, K).amin(1)
         better = rho_c < rho_min
         rho_min = torch.where(better, rho_c, rho_min)
         rank = torch.where(better, ci * K + argk, rank)
     return rho_min, rank
+
+
+# --- hetcor: per-test thresholds from the mean pairwise ESS -----------------
+
+
+def _ess_masked(N_raw: torch.Tensor):
+    """(values with NaN -> 0, counts 1/0) of raw per-pair ESS entries."""
+    return torch.nan_to_num(N_raw), torch.where(torch.isnan(N_raw), 0.0, 1.0)
+
+
+def hetcor_local_gather(C, N, t_ix, node_ixs, nbrs):
+    """Local panels of both matrices and the time indices, by tensor
+    indexing: Cb, Nb (nt, d, d); qb, nr, tn (nt, d); t_x (nt,)."""
+    Cb, qb = _local_panels(C, node_ixs, nbrs)
+    Nb, nr = _local_panels(N, node_ixs, nbrs)
+    return Cb, qb, Nb, nr, t_ix[nbrs].float(), t_ix[node_ixs].float()
+
+
+def hetcor1_local_sweep_pre(Cb, qb, Nb_raw, nr_raw, tn, t_x, deg, th: float):
+    """Min over s of |rho_{xy|s}| - tanh(th / sqrt(mean_ess({x,y,s}) - 4)) per
+    slot y, on gathered panels (`cigwas_tpu.ops.pcorr._hetcor1_local_core`):
+    the pre-scaled rho of :func:`level1_local_sweep_pre`, ESS sums
+    left-associated (x,y) + (x,s) + (y,s). Pad slots y >= deg, which the JAX
+    form leaves to its caller, come back as MARGIN_BIG here."""
+    d = qb.shape[1]
+    Nbv, Nbc = _ess_masked(Nb_raw)
+    nrv, nrc = _ess_masked(nr_raw)
+    Rc = _rinv(Cb)  # (nt, s, y)
+    Pc = Cb * Rc
+    Rq = _rinv(qb)
+    Pq = qb * Rq
+    rho = torch.abs(qb[:, None, :] * (Rq[:, :, None] * Rc) - Pq[:, :, None] * Pc)
+    NyS = Nbv.transpose(1, 2)  # [nt, s, y] = N[y_nbr, s_nbr]
+    total = nrv[:, None, :] + nrv[:, :, None] + NyS
+    count = nrc[:, None, :] + nrc[:, :, None] + Nbc.transpose(1, 2)
+    th_test = torch.tanh(_f32(th, qb) / torch.sqrt(total / count - 4.0))
+    t_pair = torch.maximum(t_x[:, None], tn)  # (nt, y)
+    ix = torch.arange(d, device=qb.device)
+    dg = deg[:, None, None]
+    bad = (
+        (ix[None, :, None] >= dg)
+        | (ix[:, None] == ix[None, :])[None]
+        | (tn[:, :, None] > t_pair[:, None, :])
+        | (ix[None, None, :] >= dg)
+    )
+    margin = rho - th_test
+    margin = torch.where(bad | ~torch.isfinite(margin), MARGIN_BIG, margin)
+    return margin.amin(1)
+
+
+def _hetcor_pair_margin(Cb, qb, Nbv, Nbc, nrv, nrc, tn, t_x, deg, t_hi: int,
+                        y_excl: int, base, th: float, lvl: int):
+    """Min hetcor margin over pairs s < t < min(deg, t_hi), per slot y.
+
+    Batched `cigwas_tpu.ops.pcorr._hetcor_pair_margin`. Cb/qb: the level-|B|
+    conditioned panel and row; the ESS and time terms use the raw masked N
+    (Nbv/Nbc, nrv/nrc) and tn. base = (sum0, cnt0 (nt,), sum_y, cnt_y,
+    sum_v, cnt_v (nt, d), t_base (nt,)): the base element's ESS terms and
+    time index, or None for an empty base (level 2). The ten ESS terms add
+    in the JAX order."""
+    nt, d = qb.shape
+    dev = qb.device
+    t_cap = torch.clamp(deg, max=t_hi)
+    n_t = int(t_cap.max()) if nt else 0
+    ct = max(1, min(d, PLAIN_ELEMS // max(1, nt * d * d)))
+    ix = torch.arange(d, device=dev)
+    y3 = ix[None, :, None, None]
+    s3 = ix[None, None, None, :]
+    zero = torch.zeros((nt, 1), device=dev)
+    if base is None:
+        base = (zero[:, 0], zero[:, 0], zero, zero, zero, zero,
+                torch.full((nt,), -1.0, device=dev))
+    sum0, cnt0, sum_y, cnt_y, sum_v, cnt_v, t_base = base
+    sum_v, cnt_v = sum_v.expand(nt, d), cnt_v.expand(nt, d)
+    th_t = _f32(th, qb)
+    out = torch.full((nt, d), MARGIN_BIG, device=dev)
+    t_pair = torch.maximum(t_x[:, None], tn)[:, :, None, None]  # (nt, y, 1, 1)
+    for t0 in range(0, n_t, ct):
+        t1 = min(t0 + ct, d)
+        Ct = Cb[:, t0:t1, :]  # (nt, t, s)
+        qt = qb[:, t0:t1]
+        Rt = _rinv(Ct)
+        q2 = (qb[:, None, :] - qt[:, :, None] * Ct) * (_rinv(qt)[:, :, None] * Rt)
+        CtT = Ct.transpose(1, 2)
+        RtT = Rt.transpose(1, 2)
+        T2 = (Cb[:, :, None, :] - CtT[..., None] * Ct[:, None]) * (
+            RtT[..., None] * Rt[:, None]
+        )
+        rho = torch.abs(q2.transpose(1, 2)[..., None] - q2[:, None] * T2) * (
+            _rinv(q2)[:, None] * _rinv(T2)
+        )  # (nt, y, t, s)
+        t3 = torch.arange(t0, t1, device=dev)[None, None, :, None]
+        bad = (
+            (s3 >= t3)
+            | (t3 >= t_cap.reshape(-1, 1, 1, 1))
+            | (y3 >= deg.reshape(-1, 1, 1, 1))
+            | (y3 == s3)
+            | (y3 == t3)
+            | (y3 == y_excl)
+        )
+        rho = torch.where(bad | ~torch.isfinite(rho), RHO_BIG, rho)
+
+        def terms(row, pan, b0, b_y, b_v):
+            return (
+                row[:, :, None, None]  # (x, y)
+                + row[:, None, None, :]  # (x, s)
+                + row[:, None, t0:t1, None]  # (x, t)
+                + pan[:, :, None, :]  # (y, s)
+                + pan[:, :, t0:t1, None]  # (y, t)
+                + pan[:, None, t0:t1, :]  # (t, s)
+                + b0[:, None, None, None]
+                + b_y[:, :, None, None]  # (y, u)
+                + b_v[:, None, None, :]  # (s, u)
+                + b_v[:, None, t0:t1, None]  # (t, u)
+            )
+
+        mean_ess = terms(nrv, Nbv, sum0, sum_y, sum_v) / terms(nrc, Nbc, cnt0, cnt_y, cnt_v)
+        th_test = torch.tanh(th_t / torch.sqrt(mean_ess - float(lvl) - 3.0))
+        t_set = torch.maximum(
+            torch.maximum(tn[:, None, None, :], tn[:, None, t0:t1, None]),
+            t_base[:, None, None, None],
+        )
+        margin = torch.where(
+            (t_set > t_pair) | ~torch.isfinite(th_test) | (rho >= RHO_BIG),
+            MARGIN_BIG, rho - th_test,
+        )
+        out = torch.minimum(out, margin.reshape(nt, d, -1).amin(2))
+    return out
+
+
+def hetcor2_local_sweep_pre(Cb, qb, Nb_raw, nr_raw, tn, t_x, deg, th: float):
+    """Hetcor level 2 on gathered panels: min margin over all pairs, (nt, d)."""
+    d = qb.shape[1]
+    Nbv, Nbc = _ess_masked(Nb_raw)
+    nrv, nrc = _ess_masked(nr_raw)
+    return _hetcor_pair_margin(Cb, qb, Nbv, Nbc, nrv, nrc, tn, t_x, deg, d, d,
+                               None, th, 2)
+
+
+def hetcor3_local_sweep_pre(Cb, qb, Nb_raw, nr_raw, tn, t_x, deg, th: float):
+    """Hetcor level 3: for each largest element u condition the panel on u
+    and run the pair margin over s < t < u; the base element's ESS terms come
+    from column u of the raw N (`cigwas_tpu.ops.pcorr._hetcor3_local_core`)."""
+    nt, d = qb.shape
+    Nbv, Nbc = _ess_masked(Nb_raw)
+    nrv, nrc = _ess_masked(nr_raw)
+    out = torch.full((nt, d), MARGIN_BIG, device=qb.device)
+    for u in range(2, int(deg.max()) if nt else 0):
+        cu = Cb[:, u, :]
+        qu = qb[:, u]
+        Ru = _rinv(cu)
+        T1 = (Cb - cu[:, :, None] * cu[:, None, :]) * (Ru[:, :, None] * Ru[:, None, :])
+        q1 = (qb - qu[:, None] * cu) * (_rinv(qu)[:, None] * Ru)
+        base = (nrv[:, u], nrc[:, u], Nbv[:, :, u], Nbc[:, :, u],
+                Nbv[:, :, u], Nbc[:, :, u], tn[:, u])
+        m_u = _hetcor_pair_margin(T1, q1, Nbv, Nbc, nrv, nrc, tn, t_x, deg, u, u,
+                                  base, th, 3)
+        out = torch.where((u < deg)[:, None], torch.minimum(out, m_u), out)
+    return out
+
+
+def hetcor_local_sweep_plain(C, N, t_ix, node_ixs, nbrs, deg, th: float, l: int):
+    """Plain version of the hetcor levels 1-3 kernel: the minimum margin
+    |rho_{xy|S}| - tanh(th / sqrt(mean_ess - l - 3)) over the conditioning
+    sets S of size l allowed by the time index, (nt, d) f32; MARGIN_BIG where
+    no test is valid and at pad slots y >= deg. N is the per-pair ESS the
+    levels use (raw, or :func:`trunc_ref_ess` of it); t_ix (vp,) integer."""
+    nt, d = nbrs.shape
+    step = max(1, PLAIN_ELEMS // max(1, d * d * (d if l > 1 else 1)))
+    sweep = {1: hetcor1_local_sweep_pre, 2: hetcor2_local_sweep_pre,
+             3: hetcor3_local_sweep_pre}[l]
+    out = [
+        sweep(*hetcor_local_gather(C, N, t_ix, node_ixs[i : i + step].long(),
+                                   nbrs[i : i + step].long()),
+              deg[i : i + step].long(), th)
+        for i in range(0, nt, step)
+    ]
+    if not out:
+        return torch.empty((0, d), dtype=torch.float32, device=C.device)
+    return torch.cat(out)
+
+
+def level_scan_hetcor(C, N, t_ix, node_ixs, nbrs, deg, combos_seq, left_seq,
+                      th: float, l: int):
+    """Hetcor level-l chunks (`cigwas_tpu.ops.pcorr.level_scan_hetcor`): the
+    gather of both local panels (pad slots read as the node itself), then
+    :func:`level_scan_hetcor_pre`."""
+    C_x, c_row, N_x, n_row = gather_local_panels2(C, N, node_ixs, nbrs, deg)
+    return level_scan_hetcor_pre(
+        C_x, c_row, N_x, n_row, t_ix[nbrs.long()].float(),
+        t_ix[node_ixs.long()].float(), deg, combos_seq, left_seq, th, l,
+    )
+
+
+def level_scan_hetcor_pre(C_x, c_row, N_x_raw, n_row_raw, t_nbrs, t_x, deg,
+                          combos_seq, left_seq, th: float, l: int):
+    """`level_scan_hetcor` on gathered panels: the minimum margin over every
+    scanned conditioning set, (nt, d). A test of (x, y | S) compares |rho| with
+    tanh(th / sqrt(mean_ess({x, y} u S) - l - 3)), the mean taken over all
+    variable pairs of the test ignoring NaNs, and S may hold no variable later
+    in time than max(t_x, t_y). NaNs of N ride a parallel 0/1 panel so the
+    one-hot selections stay NaN-safe; every selected sum has one non-zero
+    term, so it is exact."""
+    nt, d = c_row.shape
+    nch, K, _ = combos_seq.shape
+    dev = c_row.device
+    N_x = torch.nan_to_num(N_x_raw)
+    N_x_nan = torch.isnan(N_x_raw).float()
+    n_row = torch.nan_to_num(n_row_raw)
+    n_row_nan = torch.isnan(n_row_raw).float()
+    th_t = _f32(th, c_row)
+    nan_xy = n_row_nan > 0.5  # (nt, d)
+    s_xy = torch.where(nan_xy, 0.0, n_row)[:, None, :]
+    c_xy = torch.where(nan_xy, 0.0, 1.0)[:, None, :]
+    t_pair = torch.maximum(t_x[:, None], t_nbrs)  # (nt, d)
+    margin_min = torch.full((nt, d), MARGIN_BIG, device=dev)
+    for ci in range(nch):
+        combos = combos_seq[ci]
+        sel = _combo_onehots(combos, d, l)
+        rho = _pcorr_rho_local(C_x, c_row, deg, left_seq[ci], sel, combos, l)
+        rowsN = [torch.matmul(sel[i], N_x) for i in range(l)]  # l x (nt, K, d)
+        rowsNaN = [torch.matmul(sel[i], N_x_nan) for i in range(l)]
+        s_SS = torch.zeros((nt, K), device=dev)
+        c_SS = torch.zeros((nt, K), device=dev)
+        for i in range(l):
+            for j in range(i):
+                vij = torch.sum(rowsN[i] * sel[j], dim=2)
+                nanij = torch.sum(rowsNaN[i] * sel[j], dim=2) > 0.5
+                s_SS = s_SS + torch.where(nanij, 0.0, vij)
+                c_SS = c_SS + torch.where(nanij, 0.0, 1.0)
+        s_xS = torch.zeros((nt, K), device=dev)
+        c_xS = torch.zeros((nt, K), device=dev)
+        for i in range(l):
+            vi = torch.sum(sel[i] * n_row[:, None, :], dim=2)
+            nani = torch.sum(sel[i] * n_row_nan[:, None, :], dim=2) > 0.5
+            s_xS = s_xS + torch.where(nani, 0.0, vi)
+            c_xS = c_xS + torch.where(nani, 0.0, 1.0)
+        s_yS = torch.zeros((nt, K, d), device=dev)
+        c_yS = torch.zeros((nt, K, d), device=dev)
+        for i in range(l):
+            nan_i = rowsNaN[i] > 0.5
+            s_yS = s_yS + torch.where(nan_i, 0.0, rowsN[i])
+            c_yS = c_yS + torch.where(nan_i, 0.0, 1.0)
+        total = s_SS[:, :, None] + s_xS[:, :, None] + s_yS + s_xy
+        count = c_SS[:, :, None] + c_xS[:, :, None] + c_yS + c_xy
+        th_test = torch.tanh(th_t / torch.sqrt(total / count - l - 3.0))
+        tS_max = torch.sum(sel[0] * t_nbrs[:, None, :], dim=2)
+        for i in range(1, l):
+            tS_max = torch.maximum(tS_max, torch.sum(sel[i] * t_nbrs[:, None, :], dim=2))
+        time_bad = tS_max[:, :, None] > t_pair[:, None, :]
+        margin = torch.where(time_bad | ~torch.isfinite(th_test), MARGIN_BIG,
+                             rho - th_test)
+        margin = torch.where(rho >= RHO_BIG, MARGIN_BIG, margin)
+        margin_min = torch.minimum(margin_min, margin.amin(1))
+    return margin_min

@@ -14,21 +14,17 @@ import numpy as np
 import torch
 
 from cigwas_tpu_torch.device import resolve
-from cigwas_tpu_torch.host import (
-    ML,
+from cigwas_tpu_torch.constants import ML
+from cigwas_tpu_torch.io import (
     BedDims,
     BfilesBase,
     BimInfo,
-    check_path,
-    check_prepped_bed_path,
-    fisher_z,
     load_phen,
     make_path,
-    read_block_from_bed,
     read_blocks_from_file,
     read_floats_from_line_range,
-    threshold_array,
 )
+from cigwas_tpu_torch.io.bed import check_path, check_prepped_bed_path, read_block_from_bed
 from cigwas_tpu_torch.ops.corr import (
     corr_panel_device,
     corr_panel_device_tiled,
@@ -36,6 +32,7 @@ from cigwas_tpu_torch.ops.corr import (
     marker_phen_sums,
 )
 from cigwas_tpu_torch.skeleton import reduce_gcs, skeleton, subset_variables
+from cigwas_tpu_torch.utils.stats import fisher_z, threshold_array
 
 # largest block built by the single-pass panel; larger ones go through stripes
 FUSED_PANEL_MAX = 4096

@@ -1,4 +1,6 @@
-"""Level-wise PC-stable skeleton search (`cigwas_tpu.skeleton.cupc.skeleton`).
+"""Level-wise PC-stable skeleton search (`cigwas_tpu.skeleton.cupc`):
+:func:`skeleton` over a correlation panel and :func:`hetcor_skeleton` over
+summary statistics (correlations plus per-pair effective sample sizes).
 
 * level 0 is the Fisher-z screen of the whole panel, on the device;
 * levels 1-3 run per degree bucket through the local-sweep kernel
@@ -7,9 +9,19 @@
   returns, per neighbour slot, the min |rho| over all conditioning sets and
   its positions; only the hits ``rho < tanh(Th[l])`` and their positions
   leave the device;
-* levels >= 4 stream colex chunks of conditioning sets through
-  :func:`cigwas_tpu_torch.ops.pcorr.level_scan_minrho`, in the JAX package's
-  waves, so a node stops at the same point and its sepset is the same.
+* levels >= 4 gather each node tile's local panels with the gather kernel
+  (:mod:`cigwas_tpu_torch.ops.kernels.panel_gather`) and stream colex chunks
+  of conditioning sets through
+  :func:`cigwas_tpu_torch.ops.pcorr.level_scan_minrho_pre`, in the JAX
+  package's waves, so a node stops at the same point and its sepset is the
+  same.
+
+The hetcor skeleton has the same levels with per-test thresholds
+tanh(th / sqrt(mean_ess - l - 3)) and a time constraint on the conditioning
+sets: levels 1-3 through
+:func:`cigwas_tpu_torch.ops.kernels.hetcor_sweep.hetcor_local_sweep`, levels
+>= 4 through the two-panel gather and
+:func:`cigwas_tpu_torch.ops.pcorr.level_scan_hetcor_pre`. It keeps no sepsets.
 
 Deletions apply between levels (PC-stable). The separation set of a deleted
 ordered pair (x, y) is the argmin-|rho| set from x's side, the lowest colex
@@ -26,9 +38,16 @@ import numpy as np
 import torch
 
 from cigwas_tpu_torch.device import require_full_f32, resolve
-from cigwas_tpu_torch.host import ML, PANEL_ALIGN, colex_combinations_chunk, colex_unrank
+from cigwas_tpu_torch.constants import ML, PANEL_ALIGN
 from cigwas_tpu_torch.ops import pcorr
+from cigwas_tpu_torch.ops.kernels.checks import check_index_range
+from cigwas_tpu_torch.ops.kernels.hetcor_sweep import hetcor_local_sweep
 from cigwas_tpu_torch.ops.kernels.local_sweep import local_sweep
+from cigwas_tpu_torch.ops.kernels.panel_gather import (
+    gather_local_panels,
+    gather_local_panels2,
+)
+from cigwas_tpu_torch.utils.combinatorics import colex_combinations_chunk, colex_unrank
 
 # combos per chunk of the level >= 4 scan
 CHUNK = 512
@@ -41,7 +60,7 @@ ELEM_BUDGET = 1 << 26
 @dataclass
 class SkeletonResult:
     G: np.ndarray  # (n, n) int32 adjacency
-    sepset: np.ndarray  # (n, n, depth) int32, -1 padded
+    sepset: np.ndarray | None  # (n, n, depth) int32, -1 padded; None for hetcor
     final_level: int
 
 
@@ -70,12 +89,50 @@ def _degree_buckets(deg_all: np.ndarray, active: np.ndarray):
     return [(int(d), active[d_pad == d].astype(np.int32)) for d in np.unique(d_pad)]
 
 
+def _upload_lists(nodes: np.ndarray, nbrs: np.ndarray, deg: np.ndarray, vp: int, dev):
+    """(nodes, nbrs, deg) as device tensors, their index range checked here
+    on the host so that the kernel launches they feed need not wait for the
+    device to check it."""
+    check_index_range("skeleton", vp, nbrs.shape[1], nodes, nbrs, deg)
+    return tuple(torch.from_numpy(a).to(dev) for a in (nodes, nbrs, deg))
+
+
 def panel_from_numpy(C: np.ndarray, v_real: int, device) -> torch.Tensor:
     """A host panel as a device tensor, zero-padded to a PANEL_ALIGN multiple
     (pads have corr 0 with everything, so level 0 isolates them)."""
     C = np.asarray(C, dtype=np.float32)[:v_real, :v_real]
     pad = (-v_real) % PANEL_ALIGN
     return torch.from_numpy(np.pad(C, ((0, pad), (0, pad)))).to(device)
+
+
+def _level_buckets(G: np.ndarray, l: int, dev, stats: dict | None):
+    """The launches of a level l <= 3: for each degree bucket of the nodes
+    with more than l neighbours, yields (nodes, nbrs, (nodes, nbrs, deg) on
+    the device with their index range checked, det). det = {compact_s,
+    sweep_s} accumulates the host compaction, check and upload here; the
+    caller adds its sweep time. stats, if given, collects ``launches`` and
+    ``level_detail`` of the level."""
+    deg_all = G.sum(axis=1)
+    active = np.where(deg_all >= l + 1)[0]
+    det = {"compact_s": 0.0, "sweep_s": 0.0}
+    if stats is not None:
+        stats.setdefault("level_detail", {})[l] = det
+    for d_pad, nodes in _degree_buckets(deg_all, active):
+        t0 = time.perf_counter()
+        nbrs, deg = _compact_neighbors(G, nodes, d_pad)
+        on_dev = _upload_lists(nodes, nbrs, deg, G.shape[0], dev)
+        det["compact_s"] += time.perf_counter() - t0
+        if stats is not None:
+            stats.setdefault("launches", {}).setdefault(l, []).append(
+                (int(d_pad), int(len(nodes)))
+            )
+        yield nodes, nbrs, on_dev, det
+
+
+def _hits(stat: torch.Tensor, cut: float, deg_t: torch.Tensor):
+    """(row, slot) of the live slots whose statistic is below cut, on the device."""
+    slot_ok = torch.arange(stat.shape[1], device=stat.device)[None, :] < deg_t[:, None]
+    return torch.nonzero((stat < cut) & slot_ok, as_tuple=True)
 
 
 def _run_level_local(C: torch.Tensor, G: np.ndarray, l: int, rho_threshold: float,
@@ -85,33 +142,17 @@ def _run_level_local(C: torch.Tensor, G: np.ndarray, l: int, rho_threshold: floa
     Returns (removed (n, n) bool, xs, ys, sep (k, l)): the ordered pairs
     condemned from x's side and their minimizing conditioning variables."""
     n = G.shape[0]
-    deg_all = G.sum(axis=1)
-    active = np.where(deg_all >= l + 1)[0]
-    dev = C.device
     xs_l, ys_l, sep_l = [], [], []
-    det = {"compact_s": 0.0, "sweep_s": 0.0}
-    for d_pad, nodes in _degree_buckets(deg_all, active):
-        t0 = time.perf_counter()
-        nbrs, deg = _compact_neighbors(G, nodes, d_pad)
-        nbrs_t = torch.from_numpy(nbrs).to(dev)
-        deg_t = torch.from_numpy(deg).to(dev)
+    for nodes, nbrs, on_dev, det in _level_buckets(G, l, C.device, stats):
         t1 = time.perf_counter()
-        rho, pos = local_sweep(C, torch.from_numpy(nodes).to(dev), nbrs_t, deg_t, l)
-        slot_ok = torch.arange(d_pad, device=dev)[None, :] < deg_t[:, None]
-        ri, ci = torch.nonzero((rho < rho_threshold) & slot_ok, as_tuple=True)
+        rho, pos = local_sweep(C, *on_dev, l, index_range_checked=True)
+        ri, ci = _hits(rho, rho_threshold, on_dev[2])
         pos_h = pos[ri, ci].cpu().numpy()
         ri, ci = ri.cpu().numpy(), ci.cpu().numpy()
-        det["compact_s"] += t1 - t0
         det["sweep_s"] += time.perf_counter() - t1  # ends in the hits' fetch
         xs_l.append(nodes[ri])
         ys_l.append(nbrs[ri, ci])
         sep_l.append(nbrs[ri[:, None], pos_h])  # positions -> variable indices
-        if stats is not None:
-            stats.setdefault("launches", {}).setdefault(l, []).append(
-                (int(d_pad), int(len(nodes)))
-            )
-    if stats is not None:
-        stats.setdefault("level_detail", {})[l] = det
     xs = np.concatenate(xs_l) if xs_l else np.empty(0, np.int64)
     ys = np.concatenate(ys_l) if ys_l else np.empty(0, np.int64)
     sep = np.concatenate(sep_l) if sep_l else np.empty((0, l), np.int32)
@@ -121,9 +162,38 @@ def _run_level_local(C: torch.Tensor, G: np.ndarray, l: int, rho_threshold: floa
     return removed, xs, ys, sep
 
 
-def _run_level(C: torch.Tensor, G: np.ndarray, l: int, rho_threshold: float):
+def _run_level_local_hetcor(C: torch.Tensor, N: torch.Tensor, t_ix: torch.Tensor,
+                            G: np.ndarray, l: int, th: float,
+                            stats: dict | None = None) -> np.ndarray:
+    """All hetcor level-l tests (l <= 3) as one kernel launch per degree
+    bucket; returns the symmetric removal mask (margin < 0 from either side).
+
+    Only the hits leave the device. Several nodes' pad slots may point at the
+    same variable, so the hits alone are written (an idempotent scatter), never
+    the misses."""
+    cond = np.zeros(G.shape, dtype=bool)
+    for nodes, nbrs, on_dev, det in _level_buckets(G, l, C.device, stats):
+        t1 = time.perf_counter()
+        margin = hetcor_local_sweep(C, N, t_ix, *on_dev, th, l,
+                                    index_range_checked=True)
+        ri, ci = (t.cpu().numpy() for t in _hits(margin, 0.0, on_dev[2]))
+        det["sweep_s"] += time.perf_counter() - t1  # ends in the hits' fetch
+        cond[nodes[ri], nbrs[ri, ci]] = True
+    cond &= G
+    return cond | cond.T
+
+
+def _run_level(C: torch.Tensor, G: np.ndarray, l: int, rho_threshold: float | None,
+               hetcor_args=None):
     """All level-l tests (l >= 4) over colex chunks; returns (removed,
     rho_min_full, rank_full) like `cigwas_tpu.skeleton.cupc._run_level`.
+
+    rho_threshold is tanh(Th[l]) for the plain skeleton. For hetcor it is
+    None and hetcor_args = (N, t_ix, th): the scan returns margins, removal
+    is margin < 0, and there are no ranks.
+
+    Each node tile's local panels come from the gather kernel (one panel, or
+    two matched panels for hetcor) and feed the scan on gathered panels.
 
     Waves: every bucket scans its next CHUNK * n_chunks combos, then nodes
     whose combos are exhausted or whose edges are all condemned stop. The
@@ -136,6 +206,7 @@ def _run_level(C: torch.Tensor, G: np.ndarray, l: int, rho_threshold: float):
     if active.size == 0:
         return removed, None, None
     dev = C.device
+    cut = 0.0 if hetcor_args is not None else rho_threshold
     stat_full = np.full((n, n), np.inf, dtype=np.float32)
     total_combos = {int(x): math.comb(int(deg_all[x]), l) for x in active}
     rank_dtype = (
@@ -167,24 +238,36 @@ def _run_level(C: torch.Tensor, G: np.ndarray, l: int, rho_threshold: float):
                     dtype=np.int64,
                 )
                 bases = CHUNK * np.arange(n_chunks, dtype=np.int64)[:, None]
-                left_seq = np.clip(totals[None, :] - bases, 0, CHUNK)
-                rho_t, rank_t = pcorr.level_scan_minrho(
-                    C, torch.from_numpy(tile).long().to(dev),
-                    torch.from_numpy(nbrs).long().to(dev),
-                    torch.from_numpy(deg).long().to(dev), combos_seq,
-                    torch.from_numpy(left_seq).to(dev), l,
-                )
+                left_seq = torch.from_numpy(np.clip(totals[None, :] - bases, 0, CHUNK)).to(dev)
+                tile_t, nbrs_t, deg_t = _upload_lists(tile, nbrs, deg, n, dev)
+                if hetcor_args is None:
+                    Cb, qb = gather_local_panels(C, tile_t, nbrs_t, deg_t,
+                                                  index_range_checked=True)
+                    rho_t, rank_t = pcorr.level_scan_minrho_pre(
+                        Cb, qb, deg_t.long(), combos_seq, left_seq, l
+                    )
+                    rank_c = rank_t.cpu().numpy().astype(rank_dtype) + offset
+                else:
+                    N, t_ix, th = hetcor_args
+                    Cb, qb, Nb, nr = gather_local_panels2(
+                        C, N, tile_t, nbrs_t, deg_t, index_range_checked=True)
+                    rho_t = pcorr.level_scan_hetcor_pre(
+                        Cb, qb, Nb, nr, t_ix[nbrs_t.long()].float(),
+                        t_ix[tile_t.long()].float(), deg_t.long(), combos_seq,
+                        left_seq, th, l,
+                    )
+                    rank_c = None
                 rho_c = rho_t.cpu().numpy()
-                rank_c = rank_t.cpu().numpy().astype(rank_dtype) + offset
                 valid = np.arange(d_pad)[None, :] < deg[:, None]
                 x_idx = np.repeat(tile, d_pad).reshape(len(tile), d_pad)[valid]
                 y_idx = nbrs[valid]
                 vals = rho_c[valid]
                 better = vals < stat_full[x_idx, y_idx]
                 stat_full[x_idx[better], y_idx[better]] = vals[better]
-                rank_full[x_idx[better], y_idx[better]] = rank_c[valid][better]
+                if rank_c is not None:
+                    rank_full[x_idx[better], y_idx[better]] = rank_c[valid][better]
             next_work.append((d_pad, remaining, offset + CHUNK * n_chunks))
-        cond = (stat_full < rho_threshold) & G
+        cond = (stat_full < cut) & G
         live_edge = G & ~(cond | cond.T)
         work = []
         for d_pad, remaining, offset in next_work:
@@ -194,7 +277,7 @@ def _run_level(C: torch.Tensor, G: np.ndarray, l: int, rho_threshold: float):
             ]
             if nxt:
                 work.append((d_pad, nxt, offset))
-    cond = (stat_full < rho_threshold) & G
+    cond = (stat_full < cut) & G
     return cond | cond.T, stat_full, rank_full
 
 
@@ -274,4 +357,85 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
         G=G[:v_real, :v_real].astype(np.int32),
         sepset=sepset[:v_real, :v_real],
         final_level=final_level,
+    )
+
+
+def _as_panel(M, device) -> torch.Tensor:
+    if isinstance(M, torch.Tensor):
+        return M.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.ascontiguousarray(M, dtype=np.float32)).to(device)
+
+
+def hetcor_skeleton(C, G: np.ndarray, N, threshold: float, max_level: int,
+                    time_index: np.ndarray | None = None, device="cuda",
+                    verbose: bool = False, ess_mode: str = "reference",
+                    stats: dict | None = None) -> SkeletonResult:
+    """Skeleton with per-pair effective sample sizes and time constraints
+    (`cigwas_tpu.skeleton.cupc.hetcor_skeleton`; `hetcor-cuPC-S.cu:75-341`):
+    honours the incoming adjacency (level 0 only deletes), uses per-test
+    thresholds th / sqrt(mean_ess - l - 3), and returns the adjacency only.
+
+    C, N: (v, v) numpy panels or tensors; they live on ``device`` from here
+    on. Both are padded to a PANEL_ALIGN multiple, C with 0 and N with 10.0
+    (inert: corr 0, finite ESS, no incoming edges).
+
+    ess_mode selects the mean_ess of levels >= 1: ``"reference"`` truncates
+    each pairwise ESS toward zero with NaN -> 0 and counts every pair (the
+    reference's int conversion); ``"float"`` keeps full precision and leaves
+    NaN pairs out of the mean. Level 0 always reads the raw per-pair N.
+
+    stats, if given, collects ``l0_wall_s``, ``level_wall_s`` {level: s}, the
+    per-bucket ``launches`` {level: [(d_pad, nodes)]} and ``level_detail`` of
+    levels 1-3.
+    """
+    if ess_mode not in ("reference", "float"):
+        raise ValueError(f"unknown ess_mode: {ess_mode!r}")
+    device = resolve(device)
+    require_full_f32()  # the level >= 4 one-hot selections must be exact
+    C = _as_panel(C, device)
+    N_raw = _as_panel(N, device)
+    v_real = C.shape[0]
+    pad = (-v_real) % PANEL_ALIGN
+    if pad:
+        C = torch.nn.functional.pad(C, (0, pad, 0, pad))
+        N_raw = torch.nn.functional.pad(N_raw, (0, pad, 0, pad), value=10.0)
+    n = v_real + pad
+    G = np.pad(np.asarray(G).astype(bool), ((0, pad), (0, pad)))
+    if time_index is None:
+        time_index = np.zeros(n, dtype=np.int32)
+    else:
+        time_index = np.pad(np.asarray(time_index, dtype=np.int32), (0, pad))
+    t_ix = torch.from_numpy(time_index).to(device)
+
+    t_mark = time.perf_counter()
+    G &= ~pcorr.hetcor_l0_delete(C, N_raw, threshold).cpu().numpy()
+    np.fill_diagonal(G, False)
+    N_lvl = pcorr.trunc_ref_ess(N_raw) if ess_mode == "reference" else N_raw
+    del N_raw
+    if stats is not None:
+        stats["l0_wall_s"] = time.perf_counter() - t_mark
+
+    final_level = min(ML, max_level)
+    for l in range(1, min(ML, max_level) + 1):
+        nprime = int(G.sum(axis=1).max()) if n else 0
+        if nprime - 1 < l:
+            final_level = l - 1
+            break
+        if verbose:
+            print(f"[hetcor_skeleton] level {l}: max degree {nprime}")
+        t_level = time.perf_counter()
+        if l <= 3:  # the hetcor sweep kernel
+            removed = _run_level_local_hetcor(
+                C, N_lvl, t_ix, G, l, float(threshold), stats
+            )
+        else:
+            removed, _, _ = _run_level(
+                C, G, l, None, hetcor_args=(N_lvl, t_ix, float(threshold))
+            )
+        G = G & ~removed
+        if stats is not None:
+            stats.setdefault("level_wall_s", {})[l] = time.perf_counter() - t_level
+
+    return SkeletonResult(
+        G=G[:v_real, :v_real].astype(np.int32), sepset=None, final_level=final_level
     )

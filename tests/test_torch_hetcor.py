@@ -1,0 +1,260 @@
+"""The port's hetcor (summary-statistic) tests against the JAX package's, on
+the CPU: level 0, the ESS transform, the levels 1-3 margin sweeps (the plain
+version of ``csrc/hetcor_sweep.cu``), the level >= 4 scan, the plain panel
+gathers (of ``csrc/panel_gather.cu``) against the Pallas kernels in
+interpret mode, and the whole hetcor skeleton.
+
+Tolerance of the margins: atol 1e-6 (the parity contract's; XLA:CPU's rsqrt,
+tanh and FMA contraction differ from torch's by ulps), with identical signs
+wherever |margin| > 1e-6. Decisions (adjacency) are compared exactly.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import (
+    ATOL,
+    hetcor_case,
+    hetcor_inputs_to_torch,
+    hetcor_neighbours,
+    set_threads,
+)
+
+from cigwas_tpu.utils.stats import hetcor_threshold
+
+set_threads()
+
+TH = hetcor_threshold(1e-3)
+BIG = 3.0e38
+
+
+def _assert_margins(got: np.ndarray, exp: np.ndarray):
+    """Same sentinel positions, finite margins within ATOL, signs identical
+    outside it."""
+    assert got.shape == exp.shape
+    big_g, big_e = got >= BIG, exp >= BIG
+    np.testing.assert_array_equal(big_g, big_e)
+    ok = ~big_e
+    np.testing.assert_allclose(got[ok], exp[ok], rtol=0, atol=ATOL)
+    firm = ok & (np.abs(exp) > ATOL)
+    np.testing.assert_array_equal(got[firm] < 0, exp[firm] < 0)
+    assert ok.any() and (exp[ok] < 0).any() and (exp[ok] > 0).any()
+
+
+def test_hetcor_l0_and_trunc_ref_ess_exact():
+    import jax.numpy as jnp
+
+    from cigwas_tpu.ops import pcorr as jp
+    from cigwas_tpu_torch.ops import pcorr as tp
+
+    _, N, _ = hetcor_case(0, 40)
+    rng = np.random.default_rng(0)
+    C = (0.06 * rng.normal(size=(40, 40))).astype(np.float32)
+    C = ((C + C.T) / 2).astype(np.float32)  # some pairs below, some above
+    np.fill_diagonal(C, 1.0)
+    N[3, 5] = N[5, 3] = 2.5  # N - 3 < 0: NaN threshold keeps the edge
+    Ct, Nt, _, _ = hetcor_inputs_to_torch(C, N, np.ones((40, 40)), np.zeros(40))
+    exp = np.unpackbits(
+        np.asarray(jp.hetcor_l0_packed(jnp.asarray(C), jnp.asarray(N), jnp.float32(TH))),
+        axis=1, count=40,
+    ).astype(bool)
+    got = tp.hetcor_l0_delete(Ct, Nt, TH).numpy()
+    np.testing.assert_array_equal(got, exp)
+    assert exp.any() and not exp.all() and not got[3, 5]
+    np.testing.assert_array_equal(
+        tp.trunc_ref_ess(Nt).numpy(), np.asarray(jp.trunc_ref_ess(jnp.asarray(N)))
+    )
+    assert np.isnan(N).any() and not np.isnan(tp.trunc_ref_ess(Nt).numpy()).any()
+
+
+@pytest.mark.parametrize("ess_mode", ["float", "reference"])
+@pytest.mark.parametrize("l", [1, 2, 3])
+def test_hetcor_local_sweep_plain_matches_jax(l, ess_mode):
+    """15% NaN ESS, time indices in {0, 1, 2}, ragged degrees, d = 24."""
+    import jax.numpy as jnp
+
+    from cigwas_tpu.ops import pcorr as jp
+    from cigwas_tpu_torch.ops.kernels import hetcor_sweep as hs
+
+    v, nt, d = 60, 9, 24
+    C, N, t_ix = hetcor_case(10 + l, v, t_max=2)
+    if ess_mode == "reference":
+        N = np.trunc(np.nan_to_num(N, nan=0.0)).astype(np.float32)
+    node_ixs, nbrs, deg = hetcor_neighbours(l, v, nt, d)
+    args = [jnp.asarray(a) for a in (C, N, t_ix, node_ixs, nbrs, deg)]
+    if l == 1:
+        exp = jp.hetcor1_local_sweep(*args, jnp.float32(TH))
+    else:
+        fn = jp.hetcor2_local_sweep if l == 2 else jp.hetcor3_local_sweep
+        exp = fn(*args, jnp.float32(TH), 8)
+    exp = np.asarray(exp)
+    Ct, Nt, _, tt = hetcor_inputs_to_torch(C, N, np.zeros((v, v)), t_ix)
+    hs.reset_launches()
+    got = hs.hetcor_local_sweep(
+        Ct, Nt, tt, torch.from_numpy(node_ixs), torch.from_numpy(nbrs),
+        torch.from_numpy(deg), TH, l,
+    ).numpy()
+    assert hs.launches == {1: 0, 2: 0, 3: 0}  # CPU tensors: the plain version
+    valid = np.arange(d)[None, :] < deg[:, None]
+    assert (got[~valid] >= BIG).all()  # the port's pad slots are the sentinel
+    exp = np.where(valid, exp, np.float32(BIG))
+    _assert_margins(got, exp)
+
+
+def test_level_scan_hetcor_l4_matches_jax():
+    import jax.numpy as jnp
+
+    from cigwas_tpu.ops import pcorr as jp
+    from cigwas_tpu.utils.combinatorics import colex_combinations_chunk
+    from cigwas_tpu_torch.ops import pcorr as tp
+
+    v, nt, d, l, K, nch = 40, 6, 16, 4, 128, 4
+    C, N, t_ix = hetcor_case(21, v, t_max=2)
+    node_ixs, nbrs, deg = hetcor_neighbours(4, v, nt, d)
+    combos = colex_combinations_chunk(0, K * nch, l).reshape(nch, K, l)
+    totals = np.array([min(K * nch, math.comb(int(g), l)) for g in deg])
+    left = np.clip(totals[None, :] - K * np.arange(nch)[:, None], 0, K).astype(np.int32)
+    exp = np.asarray(jp.level_scan_hetcor(
+        jnp.asarray(C), jnp.asarray(N), jnp.asarray(t_ix), jnp.asarray(node_ixs),
+        jnp.asarray(nbrs), jnp.asarray(deg), jnp.asarray(combos.astype(np.int32)),
+        jnp.asarray(left), jnp.float32(TH), l,
+    ))
+    Ct, Nt, _, tt = hetcor_inputs_to_torch(C, N, np.zeros((v, v)), t_ix)
+    got = tp.level_scan_hetcor(
+        Ct, Nt, tt, torch.from_numpy(node_ixs).long(), torch.from_numpy(nbrs).long(),
+        torch.from_numpy(deg).long(), torch.from_numpy(combos.astype(np.int64)),
+        torch.from_numpy(left).long(), TH, l,
+    ).numpy()
+    _assert_margins(got, exp)
+
+
+def _bits(a) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(a, dtype=np.float32)).view(np.int32)
+
+
+def test_plain_gather_matches_pallas_window_kernel():
+    """`gather_local_panels(..., interpret=True)` (the windowed Pallas kernel
+    `_window_kernel`) against the port's plain one-panel gather: bit-identical
+    everywhere, NaNs and the node-index pad slots included."""
+    import jax.numpy as jnp
+
+    from cigwas_tpu.ops.pallas.panel_gather import gather_local_panels as jax_gather
+    from cigwas_tpu_torch.ops.kernels import panel_gather as pg
+
+    vp, nt, d, span = 1024, 7, 64, 200
+    rng = np.random.default_rng(0)
+    C = rng.normal(size=(vp, vp)).astype(np.float32)
+    C[rng.random((vp, vp)) < 0.01] = np.nan
+    centers = rng.integers(0, vp, nt)
+    lo = np.clip(centers - span // 2, 0, vp - span)
+    nbrs = np.sort(lo[:, None] + rng.integers(0, span, (nt, d)), axis=1).astype(np.int32)
+    node_ixs = np.clip(centers, lo, lo + span - 1).astype(np.int32)
+    deg = rng.integers(30, d + 1, nt).astype(np.int32)
+    nbrs[np.arange(d)[None, :] >= deg[:, None]] = 0  # compaction's pad slots
+    got_j = jax_gather(jnp.asarray(C), node_ixs, nbrs, deg, interpret=True)
+    assert got_j is not None
+    pg.reset_launches()
+    Cb, qb = pg.gather_local_panels(
+        torch.from_numpy(C), torch.from_numpy(node_ixs), torch.from_numpy(nbrs),
+        torch.from_numpy(deg),
+    )
+    assert pg.launches == {"panel_gather": 0, "panel_gather2": 0}
+    np.testing.assert_array_equal(_bits(Cb.numpy()), _bits(got_j[0]))
+    np.testing.assert_array_equal(_bits(qb.numpy()), _bits(got_j[1]))
+    # and, on valid slots, the plain indexing of the raw neighbour lists
+    for i in range(nt):
+        k = deg[i]
+        nb = nbrs[i, :k]
+        np.testing.assert_array_equal(_bits(Cb[i, :k, :k].numpy()), _bits(C[np.ix_(nb, nb)]))
+
+
+def test_plain_gather2_matches_pallas_rowgather2_kernel():
+    """`_rowgather2_core(..., interpret=True)` (the two-panel row-DMA Pallas
+    kernel `_rowgather2_kernel`) against the port's plain two-panel gather on
+    scattered spans: bit-identical everywhere."""
+    import jax.numpy as jnp
+
+    from cigwas_tpu.ops.pallas import panel_gather as jpg
+    from cigwas_tpu_torch.ops.kernels import panel_gather as pg
+
+    vp, nt, d = 256, 5, 24
+    C, N, _ = hetcor_case(31, vp, n=600)
+    C[np.random.default_rng(1).random((vp, vp)) < 0.02] = np.nan
+    node_ixs, nbrs, deg = hetcor_neighbours(31, vp, nt, d)
+    scalars, nbrs2, _ = jpg._row_inputs(node_ixs, nbrs, deg)
+    exp = jpg._rowgather2_core(
+        jnp.asarray(C), jnp.asarray(N), jnp.asarray(scalars), jnp.asarray(nbrs2), True
+    )
+    got = pg.gather_local_panels2(
+        torch.from_numpy(C), torch.from_numpy(N), torch.from_numpy(node_ixs),
+        torch.from_numpy(nbrs), torch.from_numpy(deg),
+    )
+    assert np.isnan(np.asarray(exp[2])).any() and np.isnan(np.asarray(exp[0])).any()
+    for g, e in zip(got, exp):
+        np.testing.assert_array_equal(_bits(g.numpy()), _bits(e))
+
+
+def _both_skeletons(C, N, t_ix, max_level, ess_mode):
+    from cigwas_tpu.skeleton import hetcor_skeleton as jax_hetcor
+    from cigwas_tpu_torch.skeleton import hetcor_skeleton
+
+    v = C.shape[0]
+    G0 = np.ones((v, v), np.int32)
+    res_j = jax_hetcor(C, G0, N, TH, max_level, time_index=t_ix, ess_mode=ess_mode)
+    Ct, Nt, Gt, _ = hetcor_inputs_to_torch(C, N, G0, np.zeros(v))
+    res_t = hetcor_skeleton(Ct, Gt, Nt, TH, max_level, time_index=t_ix,
+                            device="cpu", ess_mode=ess_mode)
+    return res_t, res_j
+
+
+@pytest.mark.parametrize("ess_mode", ["reference", "float"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_hetcor_skeleton_matches_jax(seed, ess_mode):
+    C, N, _ = hetcor_case(seed, 12)
+    res_t, res_j = _both_skeletons(C, N, None, 3, ess_mode)
+    assert res_t.final_level == res_j.final_level
+    np.testing.assert_array_equal(res_t.G, res_j.G)
+    assert res_t.sepset is None and 0 < res_t.G.sum() < 12 * 11
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_hetcor_skeleton_time_index_matches_jax(seed):
+    C, N, t_ix = hetcor_case(seed, 12, nan_frac=0.1, t_max=2)
+    res_t, res_j = _both_skeletons(C, N, t_ix, 3, "reference")
+    assert res_t.final_level == res_j.final_level
+    np.testing.assert_array_equal(res_t.G, res_j.G)
+
+
+@pytest.mark.parametrize("ess_mode", ["reference", "float"])
+def test_hetcor_skeleton_levels_4_to_6_match_jax(ess_mode):
+    """Variables loading on shared latent factors keep degrees high, so the
+    hetcor branch of the level >= 4 scan (two-panel gather + margins) runs
+    and removes edges; stage 2 of cuskss takes the same branch."""
+    rng = np.random.default_rng(7)
+    v, n, k = 30, 900, 4
+    F = rng.normal(size=(k, n))
+    W = rng.normal(size=(v, k)) * (rng.random((v, k)) < 0.5)
+    C = np.corrcoef(W @ F + 1.5 * rng.normal(size=(v, n))).astype(np.float32)
+    _, N, t_ix = hetcor_case(8, v, n=n, nan_frac=0.1, t_max=1)
+    res_t, res_j = _both_skeletons(C, N, t_ix, 6, ess_mode)
+    assert res_j.final_level >= 4
+    assert res_t.final_level == res_j.final_level
+    np.testing.assert_array_equal(res_t.G, res_j.G)
+
+
+def test_hetcor_skeleton_honours_incoming_adjacency():
+    """Level 0 only deletes: an edge absent from the incoming G stays absent
+    (stage 2 of cuskss hands the reduced adjacency on)."""
+    from cigwas_tpu.skeleton import hetcor_skeleton as jax_hetcor
+    from cigwas_tpu_torch.skeleton import hetcor_skeleton
+
+    C, N, t_ix = hetcor_case(5, 14, t_max=1)
+    G0 = (np.random.default_rng(5).random((14, 14)) < 0.6).astype(np.int32)
+    G0 = G0 | G0.T
+    res_j = jax_hetcor(C, G0, N, TH, 3, time_index=t_ix)
+    res_t = hetcor_skeleton(C, G0, N, TH, 3, time_index=t_ix, device="cpu")
+    np.testing.assert_array_equal(res_t.G, res_j.G)
+    assert not (res_t.G & ~G0).any()

@@ -1,5 +1,5 @@
-"""Import rules of the port: no jax, no nvcc at import, no CPU fallback for
-the card."""
+"""Import rules of the port: no jax and nothing of the JAX package, no nvcc
+at import, no CPU fallback for the card."""
 
 import subprocess
 import sys
@@ -16,11 +16,11 @@ _TINY_BLOCK = textwrap.dedent(
     """
     import os, sys, tempfile
     import numpy as np
+    from cigwas_tpu_torch.constants import BED_PREFIX_COL_MAJ
+    from cigwas_tpu_torch.io import MarkerBlock, write_marker_blocks_to_file
+    from cigwas_tpu_torch.io.bed import encode_bed_values
     from cigwas_tpu_torch.pipelines import cusk
-    from cigwas_tpu_torch.host import (
-        BED_PREFIX_COL_MAJ, MarkerBlock, encode_bed_values, prep_bed,
-        write_marker_blocks_to_file,
-    )
+    from cigwas_tpu_torch.prep import prep_bed
     rng = np.random.default_rng(0)
     m, n = 12, 400
     G = (rng.random((m, n)) < 0.3).astype(np.float32) + (rng.random((m, n)) < 0.3)
@@ -42,19 +42,59 @@ _TINY_BLOCK = textwrap.dedent(
     res = cusk(stem + ".phen", stem, stem + ".blocks", 1e-3, 3, 14, 1, d, 0,
                   verbose=False, device="cpu")
     assert res is not None and res.num_markers() >= 1
-    assert "jax" not in sys.modules, sorted(k for k in sys.modules if "jax" in k)
+    """
+)
+
+# neither jax nor any module of the JAX package may have been imported
+_NO_JAX = textwrap.dedent(
+    """
+    bad = sorted(k for k in sys.modules
+                 if k == "jax" or k.startswith("jax.")
+                 or k == "cigwas_tpu" or k.startswith("cigwas_tpu."))
+    assert not bad, bad
     print("OK")
+    """
+)
+
+_TINY_CUSKSS = textwrap.dedent(
+    """
+    import os, sys, tempfile
+    from cigwas_tpu_torch.pipelines import CuskssArgs, cuskss
+    data = sys.argv[1]
+    d = tempfile.mkdtemp()
+    args = CuskssArgs.from_paths(
+        mxm=os.path.join(data, "small_mxm.bin"),
+        mxp=os.path.join(data, "marker_trait_summary_stats.txt"),
+        pxp=os.path.join(data, "trait_summary_stats.txt"),
+        marker_indices=os.path.join(data, "marker_indices.bin"),
+        alpha=1e-4, num_samples=500000, max_level_one=3, max_level_two=1,
+        max_depth=1, outdir=d,
+    )
+    res = cuskss(args, verbose=False, device="cpu")
+    assert res.num_markers() >= 1 and os.path.getsize(os.path.join(d, "cuskss_merged.adj")) > 0
     """
 )
 
 
 def test_port_never_imports_jax():
     """A fresh interpreter runs a tiny block through the port's cusk on the
-    CPU without importing jax (the JAX package's own __init__ would, unless
-    the port sets CIGWAS_TPU_NO_COMPILE_CACHE first)."""
+    CPU and ends with neither jax nor any `cigwas_tpu` module imported."""
     proc = subprocess.run(
-        [sys.executable, "-c", _TINY_BLOCK], capture_output=True, text=True,
+        [sys.executable, "-c", _TINY_BLOCK + _NO_JAX], capture_output=True, text=True,
         timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_port_cuskss_never_imports_jax():
+    """The same for a tiny summary-statistic run through the port's cuskss."""
+    import os
+
+    data = os.path.join(os.path.dirname(__file__), "data", "test_files")
+    proc = subprocess.run(
+        [sys.executable, "-c", _TINY_CUSKSS + _NO_JAX, data], capture_output=True,
+        text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
@@ -66,8 +106,11 @@ def test_kernel_modules_import_without_building():
     proc = subprocess.run(
         [sys.executable, "-c",
          "import cigwas_tpu_torch.ops.kernels.local_sweep as ls, "
+         "cigwas_tpu_torch.ops.kernels.hetcor_sweep as hs, "
+         "cigwas_tpu_torch.ops.kernels.panel_gather as pg, "
          "cigwas_tpu_torch.ops.kernels.build as b; "
-         "assert b._loaded == {} and ls.launches == {1: 0, 2: 0, 3: 0}; print('OK')"],
+         "assert b._loaded == {} and ls.launches == hs.launches == {1: 0, 2: 0, 3: 0}; "
+         "assert pg.launches == {'panel_gather': 0, 'panel_gather2': 0}; print('OK')"],
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
@@ -98,3 +141,36 @@ def test_cpu_path_counts_no_launches():
     assert ls.launches == {1: 0, 2: 0, 3: 0}
     assert rho.shape == (1, 8) and pos.shape == (1, 8, 2)
     assert np.all(np.isfinite(rho.numpy()))
+
+
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["numpy", "tensor"])
+@pytest.mark.parametrize(
+    "fault", [None, "nbrs_high", "nbrs_negative", "node_high", "deg_high", "deg_negative"])
+def test_check_index_range(as_tensor, fault):
+    """The range check every launch's lists pass, on host arrays (the
+    skeleton, before upload) or on tensors (the wrappers, otherwise)."""
+    import numpy as np
+
+    from cigwas_tpu_torch.ops.kernels.checks import check_index_range
+
+    vp, d = 32, 8
+    node_ixs = np.array([3, 31], np.int32)
+    nbrs = np.tile(np.arange(d, dtype=np.int32), (2, 1))
+    deg = np.array([0, d], np.int32)
+    if fault == "nbrs_high":
+        nbrs[1, 7] = vp
+    elif fault == "nbrs_negative":
+        nbrs[0, 0] = -1
+    elif fault == "node_high":
+        node_ixs[0] = vp
+    elif fault == "deg_high":
+        deg[1] = d + 1
+    elif fault == "deg_negative":
+        deg[0] = -1
+    lists = [torch.from_numpy(a) if as_tensor else a for a in (node_ixs, nbrs, deg)]
+    if fault is None:
+        check_index_range("test", vp, d, *lists)
+        check_index_range("test", vp, 0, lists[0], lists[1][:, :0], lists[2])  # empty
+    else:
+        with pytest.raises(ValueError, match="index out of range"):
+            check_index_range("test", vp, d, *lists)

@@ -89,3 +89,61 @@ def torch_local_sweep(C, node_ixs, nbrs, deg, l: int):
         torch.from_numpy(deg), l,
     )
     return rho.numpy(), pos.numpy()
+
+
+# --- summary-statistic (hetcor) inputs ---------------------------------------
+
+
+def hetcor_panel(rng, v: int, n: int = 4000) -> np.ndarray:
+    """Correlation panel of data sampled from a random sparse linear model
+    (the generator of tests/test_hetcor_property.py)."""
+    X = np.zeros((v, n))
+    X[0] = rng.normal(size=n)
+    for i in range(1, v):
+        ps = rng.choice(i, size=min(i, 2), replace=False)
+        X[i] = sum(0.55 * X[p] for p in ps) + rng.normal(size=n)
+    return np.corrcoef(X).astype(np.float32)
+
+
+def hetcor_ess(rng, v: int, n: int, nan_frac: float = 0.15) -> np.ndarray:
+    """Fractional symmetric per-pair ESS with a share of NaN holes."""
+    E = rng.uniform(0.3 * n, 1.2 * n, size=(v, v))
+    E = (E + E.T) / 2
+    nan_mask = np.triu(rng.random((v, v)) < nan_frac, 1)
+    E[nan_mask | nan_mask.T] = np.nan
+    np.fill_diagonal(E, n)
+    return E.astype(np.float32)
+
+
+def hetcor_case(seed: int, v: int, n: int = 4000, nan_frac: float = 0.15,
+                t_max: int = 0):
+    """(C, N, time_index) from a seed; time indices in [0, t_max]."""
+    rng = np.random.default_rng(seed)
+    C = hetcor_panel(rng, v, n)
+    N = hetcor_ess(rng, v, n, nan_frac)
+    t_ix = rng.integers(0, t_max + 1, size=v).astype(np.int32)
+    return C, N, t_ix
+
+
+def hetcor_neighbours(seed: int, v: int, nt: int, d: int):
+    """Distinct ascending neighbour lists that leave out the node, ragged
+    degrees in [d // 2, d], pad slots 0 (the compaction's convention)."""
+    rng = np.random.default_rng(seed)
+    node_ixs = rng.choice(v, nt, replace=False).astype(np.int32)
+    deg = rng.integers(d // 2, d + 1, nt).astype(np.int32)
+    nbrs = np.zeros((nt, d), np.int32)
+    for i, x in enumerate(node_ixs):
+        pool = np.delete(np.arange(v), x)
+        nbrs[i, : deg[i]] = np.sort(rng.choice(pool, deg[i], replace=False))
+    return node_ixs, nbrs, deg
+
+
+def hetcor_inputs_to_torch(C, N, G, time_index, device="cpu"):
+    """The numpy arrays the JAX functions take, as the port's state: panels
+    and time index as tensors on device, the adjacency as host int32."""
+    return (
+        torch.from_numpy(np.asarray(C, np.float32)).to(device),
+        torch.from_numpy(np.asarray(N, np.float32)).to(device),
+        np.asarray(G, np.int32),
+        torch.from_numpy(np.asarray(time_index, np.int32)).to(device),
+    )
