@@ -8,14 +8,21 @@ and the script exits non-zero:
 1. environment: versions, the card's name and power limit (nvidia-smi);
    fails without a CUDA device;
 2. build: compiles the three CUDA sources under ``cigwas_tpu_torch/csrc`` in
-   parallel and prints ptxas' register and spill lines;
+   parallel and prints ptxas' registers and spills per kernel; then reads
+   each sweep kernel's inner loop out of ``cuobjdump -sass`` (instructions
+   per test, for ``issue_ms``);
 3. kernels, each against its plain PyTorch version on the card, on seeded
    8192-variable panels with NaNs, LD-clustered and scattered neighbour
-   lists, ragged degrees across the shared-memory limits:
+   lists, ragged degrees (one node with level + 1 neighbours, one with
+   level: no test) on both sides of every route's shared-memory limit, and
+   on panels of repeated variables, whose tied minima must resolve to the
+   lowest colex rank:
    the levels 1-3 sweep (``local_sweep``; rho and positions bit-identical),
    the one- and two-panel gathers (``panel_gather``; int32 views equal),
    the hetcor levels 1-3 sweep (``hetcor_sweep``; margins bit-identical,
-   both ``ess_mode``s, a time index);
+   both ``ess_mode``s, a time index), with one launch the size of a
+   level-2 and level-3 bucket (1024 nodes x width 48) timed beside its
+   bound and beside the one-thread-per-slot route it replaced;
 4. the ``cusk`` slice: a small block on the card and on the CPU (plain
    versions) must write the same decisions; then the reference's default
    block (11,000 markers x 16,384 individuals x 8 traits, AR(1) LD, planted
@@ -28,7 +35,11 @@ and the script exits non-zero:
    stages, with the launches counted and the largest launch per kernel
    re-run through the plain version;
 6. a second, warm run of each slice under torch.profiler for the device
-   time by kernel and the idle share.
+   time by kernel, the idle share, and ``total_ms``: the device time of all
+   launches of each sweep level on its slice.
+
+Both slices print the sha256 of their decision files, so two runs (or two
+versions of the kernels) can be held to the same decisions.
 
 Every kernel's line gives its time beside ``bound_ms``, the least time the
 card could take for the same work: the larger of the bytes the function must
@@ -36,7 +47,11 @@ move (every distinct panel entry that the launch's lists address read once,
 however many nodes share it; the lists read once; outputs written once) over
 3.35 TB/s and its float32 operations over 67 TFLOP/s (NVIDIA's H100 SXM data
 sheet). ``max_abs_err`` is the NaN-aware largest |kernel - plain| measured on
-that launch.
+that launch. The sweeps also carry ``issue_ms``, a second yardstick that an
+IEEE sqrt and division can be held to: tests x SASS instructions of the
+inner loop per test over 132 SMs x 128 lanes x the maximum SM clock.
+
+``--kernels-only`` stops after phase 3.
 
 The last lines are the kernel summary (JSON), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -45,9 +60,11 @@ power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -84,7 +101,7 @@ MSS, PSS, NSS = 10000, 8, 5.0e5
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
                         "test_files")
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor cores
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+PEAK_BYTES, PEAK_F32, SMS = 3.35e12, 67e12, 132
 # float32 operations per test, read off the kernels' inner loops (a sqrt, a
 # division and a tanh count as one each): the rho recursion and the compare
 # for local_sweep; plus validity and time checks, the ESS sums and counts
@@ -103,6 +120,132 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> list:
+    """[{kernel, registers, spill_stores, spill_loads}] from nvcc -Xptxas=-v."""
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = re.search(r"\d((?:h?sweep|panel)\w*?_kernel(?:I(?:L[ib]\d+E)+)?)", m.group(1))
+            out.append({"kernel": name.group(1) if name else m.group(1)})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and out:
+            out[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_of(lib) -> str:
+    """The machine code of a built library, as `cuobjdump -sass` prints it
+    (the CUDA toolkit's tool, beside nvcc)."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+
+
+_SASS_INSTR = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(.*?);")
+_SASS_BRANCH = re.compile(r"\bBRA\s+(?:\w+,\s*)?0x([0-9a-f]+)")
+
+
+def sass_functions(text: str) -> dict:
+    """{mangled kernel name: [(address, instruction), ...]} of a SASS dump."""
+    out: dict = {}
+    cur = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = out.setdefault(line.split("Function :")[1].strip(), [])
+        elif cur is not None:
+            m = _SASS_INSTR.match(line)
+            if m:
+                cur.append((int(m.group(1), 16), m.group(2).strip()))
+    return out
+
+
+def test_loop(instrs: list, load_op: str) -> dict:
+    """The loop over the conditioning sets of one kernel, found in its SASS:
+    the innermost loop (a backward branch with no other inside it) that takes
+    square roots (MUFU.RSQ) and stores, synchronises and reduces nothing;
+    where the compiler made several copies, the one with the most roots.
+    Every test makes exactly one load of kind load_op (its panel entry from
+    global memory at level 1, its 128-bit table entry at levels 2-3), which
+    counts the tests of one pass. Returns the static count of instructions
+    in the loop's body (the rarely taken fallbacks for operands outside the
+    fast paths of sqrt and division included) and the instructions per
+    test."""
+    loops = []
+    for addr, text in instrs:
+        m = _SASS_BRANCH.search(text)
+        if m and int(m.group(1), 16) <= addr:
+            loops.append((int(m.group(1), 16), addr))
+    best = None
+    for lo, hi in loops:
+        if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in loops):
+            continue
+        body = [t for a, t in instrs if lo <= a <= hi]
+        ops = [re.sub(r"^@!?U?P\d+\s+", "", t).split()[0] for t in body]
+        roots = sum(o.startswith("MUFU.RSQ") for o in ops)
+        if roots and not any(o.startswith(("STS", "STG", "ST.", "BAR", "ATOM", "RED"))
+                             for o in ops) and (best is None or roots > best["roots"]):
+            tests = sum(o.startswith(load_op) for o in ops)
+            assert tests > 0, f"no {load_op} in the loop at {lo:#x}"
+            best = {"roots": roots, "loop_instructions": len(body), "loop": f"{lo:#x}-{hi:#x}",
+                    "tests_per_pass": tests, "instructions_per_test": len(body) / tests}
+    assert best is not None, "no test loop found in the SASS"
+    return best
+
+
+def inner_loops(libs: dict) -> dict:
+    """{(kernel, level): test_loop} of the kernels the main-path widths run:
+    the level-1 direct kernels and the level 2-3 table kernels."""
+    out = {}
+    for kernel, prefix in (("local_sweep", "sweep"), ("hetcor_sweep", "hsweep")):
+        fns = sass_functions(sass_of(libs[kernel]))
+        for l in (1, 2, 3):
+            want = f"{prefix}1_direct_kernelE" if l == 1 else f"{prefix}_table_kernelILi{l}E"
+            (name,) = [n for n in fns if re.search(rf"\d{want}", n)]
+            out[(kernel, l)] = {"function": name,
+                                **test_loop(fns[name], "LDG" if l == 1 else "LDS.128")}
+    return out
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def issue_bound(tests: int, loop: dict, clock_hz: float) -> dict:
+    """The second yardstick: the time to issue the inner loop's instructions
+    for every test at one instruction per lane and cycle on 132 SMs x 128
+    lanes, at the card's maximum SM clock."""
+    return {"issue_ms": tests * loop["instructions_per_test"] / (SMS * 128 * clock_hz) * 1e3,
+            "instructions_per_test": loop["instructions_per_test"],
+            "loop_instructions": loop["loop_instructions"],
+            "tests_per_pass": loop["tests_per_pass"], "sm_clock_mhz": clock_hz / 1e6}
+
+
+def level_totals(totals: dict, prefix: str) -> dict:
+    """{level: (device ms of all launches, launches)} of the sweep kernels
+    named <prefix>1_direct_kernel, <prefix>_table_kernel<L> and
+    <prefix>_rows_kernel<L, ..> in a profiled run."""
+    out = {1: [0.0, 0], 2: [0.0, 0], 3: [0.0, 0]}
+    for key, v in totals.items():
+        m = re.search(r"::(\w+_kernel)(?:<(\d))?", key)
+        if not m:
+            continue
+        if m.group(1) == f"{prefix}1_direct_kernel":
+            l = 1
+        elif m.group(1) in (f"{prefix}_table_kernel", f"{prefix}_rows_kernel"):
+            l = int(m.group(2))
+        else:
+            continue
+        out[l][0] += v["total_ms"]
+        out[l][1] += v["launches"]
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -245,12 +388,18 @@ def check_panels():
             torch.from_numpy(t_ix).cuda())
 
 
-def neighbour_lists(rng, vp: int, nt: int, d: int, clustered: bool, distinct: bool = True):
+def neighbour_lists(rng, vp: int, nt: int, d: int, clustered: bool, distinct: bool = True,
+                    level: int | None = None, lo: int | None = None):
     """Ragged ascending neighbour lists on the card: clustered in a window of
-    2d + 1 variables around the node, or scattered over the panel."""
+    2d + 1 variables around the node, or scattered over the panel. Degrees
+    are uniform in [lo, d] (lo = d // 2 unless given), the first node's is d;
+    with a level, the second node has level + 1 neighbours (one set per slot)
+    and the third has level (no test: every slot returns the sentinel)."""
     node_ixs = rng.choice(vp, nt, replace=False).astype(np.int32)
-    deg = rng.integers(max(1, d // 2), d + 1, nt).astype(np.int32)
+    deg = rng.integers(max(1, d // 2) if lo is None else lo, d + 1, nt).astype(np.int32)
     deg[0] = d
+    if level is not None and nt >= 3:
+        deg[1], deg[2] = min(d, level + 1), min(d, level)
     nbrs = np.zeros((nt, d), np.int32)
     for i, x in enumerate(node_ixs):
         if clustered:
@@ -263,28 +412,77 @@ def neighbour_lists(rng, vp: int, nt: int, d: int, clustered: bool, distinct: bo
     return [torch.from_numpy(a).cuda() for a in (node_ixs, nbrs, deg)]
 
 
+def tied_panels(Cd, Nd, td):
+    """1024-variable panels in which every variable stands four times
+    (variable i is variable i // 4 of the source panels): conditioning sets
+    that differ only in which copy they hold give bitwise equal statistics,
+    so a minimum is attained by several sets at once and the one of lowest
+    colex rank has to win."""
+    ix = torch.arange(1024, device=Cd.device) // 4
+    return Cd[ix][:, ix].contiguous(), Nd[ix][:, ix].contiguous(), td[ix].contiguous()
+
+
+def scratch_plan(module, d: int) -> dict:
+    """The plan of the route that keeps its per-slot rows in global scratch,
+    forced at a width the card can hold against the plain version (the
+    wrappers' own plans reach it only past d = 19370 / 10777 at level 1)."""
+    threads, per_node = ls.split_slots(d)
+    return {"route": ls.ROUTE_ROWS_SCRATCH, "threads": threads, "nodes_per_cta": 1,
+            "ctas_per_node": per_node, "smem_bytes": 0,
+            "scratch_floats_per_node": per_node * module.WORK_ROWS * d}
+
+
+def rows_plan(module, l: int, d: int, panels: int) -> dict:
+    """The plan of the one-thread-per-slot route with the panel(s) staged in
+    shared memory, forced at a width whose own plan is the table route: the
+    design the table route replaced, timed beside it."""
+    threads, per_node = ls.split_slots(d)
+    return {"route": ls.ROUTE_ROWS_STAGED, "threads": threads, "nodes_per_cta": 1,
+            "ctas_per_node": per_node,
+            "smem_bytes": 4 * (module.WORK_ROWS * d + panels * d * (d + 1)),
+            "scratch_floats_per_node": 0}
+
+
 def phase_kernels(rho_th: dict, panels) -> None:
-    """local_sweep vs plain at d in {8, 40, 64, 136, 240, 256, 300} (both
-    sides of the shared-memory limit), levels 1-3, clustered and scattered
-    lists; plus level-1 nodes of width 6600 (per-slot rows in global
-    scratch)."""
+    """local_sweep vs plain, levels 1-3, clustered and scattered lists, ragged
+    degrees with a node of level + 1 and a node of level neighbours, at d in
+    {8, 40, 64, 112, 120, 136, 144, 232, 240, 256, 300}: both sides of the
+    table route's limits (d = 138 at level 2, 119 at level 3) and of the
+    staged panel's (d = 236); level-1 nodes of width 6600 (52 CTAs a node),
+    the same through the global-scratch route; and panels of repeated
+    variables, where tied minima must resolve to the lowest colex rank."""
     t0 = time.perf_counter()
-    rng, vp, Cd, _, _ = panels
-    cases = [(d, l) for d in (8, 40, 64, 136, 240, 256, 300) for l in (1, 2, 3)]
-    cases.append((6600, 1))
-    n_cmp, max_err = 0, 0.0
+    rng, vp, Cd, Nd, td = panels
+    cases = [(d, l, None) for d in (8, 40, 64, 112, 120, 136, 144, 232, 240, 256, 300)
+             for l in (1, 2, 3)]
+    cases += [(6600, 1, None), (6600, 1, scratch_plan(ls, 6600))]
+    n_cmp, max_err, routes = 0, 0.0, set()
     for clustered in (True, False):
-        for d, l in cases:
+        for d, l, forced in cases:
             if clustered and 2 * d + 1 > vp:
                 continue
-            args = neighbour_lists(rng, vp, 2 if d > 1000 else 6, d, clustered)
-            rho_k, pos_k = ls.local_sweep(Cd, *args, l)
+            args = neighbour_lists(rng, vp, 2 if d > 1000 else (3 if d > 144 else 6), d,
+                                   clustered, level=l)
+            rho_k, pos_k = ls.local_sweep(Cd, *args, l, launch_plan=forced)
             rho_p, pos_p = pcorr.local_sweep_plain(Cd, *args, l)
             torch.cuda.synchronize()
             tag = f"{'clustered' if clustered else 'scattered'} d={d} l={l}"
             max_err = max(max_err, compare(tag, rho_k, pos_k, rho_p, pos_p, args[2], rho_th[l]))
+            routes.add((l, (forced or ls.plan(l, d))["route"]))
             n_cmp += 1
-    emit("kernels_local_sweep", t0, cases=n_cmp, bit_identical=True, max_abs_err=max_err)
+    Ct = tied_panels(Cd, Nd, td)[0]
+    n_tied = 0
+    for d, l in [(d, l) for d in (8, 24, 48) for l in (1, 2, 3)] + [(144, 2), (120, 3)]:
+        args = neighbour_lists(rng, 1024, 6, d, False, level=l)
+        rho_k, pos_k = ls.local_sweep(Ct, *args, l)
+        rho_p, pos_p = pcorr.local_sweep_plain(Ct, *args, l)
+        max_err = max(max_err, compare(f"ties d={d} l={l}", rho_k, pos_k, rho_p, pos_p,
+                                       args[2], rho_th[l]))
+        n_tied += int((rho_p < pcorr.RHO_BIG).sum())
+        n_cmp += 1
+    assert n_tied > 0, "the panels of repeated variables gave no valid test"
+    emit("kernels_local_sweep", t0, cases=n_cmp, bit_identical=True, max_abs_err=max_err,
+         routes=sorted(routes), tied_slots=n_tied)
 
 
 def phase_gather_kernel(panels) -> None:
@@ -329,39 +527,71 @@ def phase_gather_kernel(panels) -> None:
          })
 
 
-def phase_hetcor_kernel(panels) -> None:
-    """hetcor_sweep vs plain at d in {8, 40, 64, 136, 240, 300} (both sides of
-    the two-panel shared-memory limit, d = 166), levels 1-3, clustered and
-    scattered lists, ESS with 15% NaNs as it is ("float") and truncated
-    ("reference"), time indices in {0, 1, 2}; plus level-1 nodes of width
-    4600 (per-slot rows in global scratch). The two widest sizes alternate
-    the ESS mode between the clustered and the scattered lists."""
+def phase_hetcor_kernel(panels) -> list:
+    """hetcor_sweep vs plain, levels 1-3, clustered and scattered lists,
+    ragged degrees with a node of level + 1 and a node of level neighbours,
+    ESS with 15% NaNs as it is ("float") and truncated ("reference"), time
+    indices in {0, 1, 2}, at d in {8, 40, 64, 104, 112, 120} and {160, 168,
+    240, 300}: both sides of the table route's limits (d = 119 at level 2,
+    106 at level 3) and of the staged panels' (d = 166); the four widest
+    sizes alternate the ESS mode between the clustered and the scattered
+    lists. Level-1 nodes of width 4600 (36 CTAs a node), the same through the
+    global-scratch route, and panels of repeated variables (tied margins).
+    Then one launch the size of a level-2 or level-3 bucket, 1024 nodes x
+    width 48 with degrees 24-48, the whole launch against the plain version,
+    timed beside its bound and beside the one-thread-per-slot route."""
     t0 = time.perf_counter()
     rng, vp, Cd, Nd, td = panels
     N_mode = {"float": Nd, "reference": pcorr.trunc_ref_ess(Nd)}
     th = hetcor_threshold(ALPHA)
-    n_cmp, n_all, n_hits, max_err = 0, 0, 0, 0.0
+    n_cmp, n_all, n_hits, max_err, routes = 0, 0, 0, 0.0, set()
+
+    def check(tag, C, N, t, args, l, forced=None):
+        nonlocal n_cmp, n_all, n_hits, max_err
+        m_k = hs.hetcor_local_sweep(C, N, t, *args, th, l, launch_plan=forced)
+        m_p = pcorr.hetcor_local_sweep_plain(C, N, t, *args, th, l)
+        torch.cuda.synchronize()
+        count, err = compare_margin(tag, m_k, m_p)
+        n_all, max_err = n_all + count, max(max_err, err)
+        n_hits += int((m_k < 0).sum())
+        routes.add((l, (forced or hs.plan(l, args[1].shape[1]))["route"]))
+        n_cmp += 1
+
     for clustered in (True, False):
-        cases = [(d, l, m) for d in (8, 40, 64, 136) for l in (1, 2, 3)
+        cases = [(d, l, m, None) for d in (8, 40, 64, 104, 112, 120) for l in (1, 2, 3)
                  for m in ("float", "reference")]
-        cases += [(d, l, "float" if clustered else "reference")
-                  for d in (240, 300) for l in (1, 2, 3)]
+        cases += [(d, l, "float" if clustered else "reference", None)
+                  for d in (160, 168, 240, 300) for l in (1, 2, 3)]
         if not clustered:
-            cases.append((4600, 1, "float"))
-        for d, l, mode in cases:
-            args = neighbour_lists(rng, vp, 2 if d > 1000 else (4 if d > 200 else 6), d,
-                                   clustered)
-            m_k = hs.hetcor_local_sweep(Cd, N_mode[mode], td, *args, th, l)
-            m_p = pcorr.hetcor_local_sweep_plain(Cd, N_mode[mode], td, *args, th, l)
-            torch.cuda.synchronize()
-            tag = f"{'clustered' if clustered else 'scattered'} d={d} l={l} {mode}"
-            count, err = compare_margin(tag, m_k, m_p)
-            n_all, max_err = n_all + count, max(max_err, err)
-            n_hits += int((m_k < 0).sum())
-            n_cmp += 1
+            cases += [(4600, 1, "float", None), (4600, 1, "float", scratch_plan(hs, 4600))]
+        for d, l, mode, forced in cases:
+            args = neighbour_lists(rng, vp, 2 if d > 1000 else (3 if d > 120 else 4), d,
+                                   clustered, level=l)
+            check(f"{'clustered' if clustered else 'scattered'} d={d} l={l} {mode}",
+                  Cd, N_mode[mode], td, args, l, forced)
+    Ct, Nt, tt = tied_panels(Cd, Nd, td)
+    for d, l in [(d, l) for d in (8, 24, 48) for l in (1, 2, 3)]:
+        check(f"ties d={d} l={l}", Ct, Nt, tt,
+              neighbour_lists(rng, 1024, 6, d, False, level=l), l)
     assert 0 < n_hits < n_all, f"degenerate cases: {n_hits} hits of {n_all} margins"
+
+    bucket = []
+    for l in (2, 3):
+        args = neighbour_lists(rng, vp, 1024, 48, True, lo=24)
+        full = (Cd, Nd, td, *args, th, l)
+        count, err = compare_margin(f"bucket-sized l={l}", hs.hetcor_local_sweep(*full),
+                                    pcorr.hetcor_local_sweep_plain(*full))
+        bucket.append({
+            "level": l, "nodes": 1024, "width": 48, "margins_bit_identical": count,
+            "max_abs_err": err, **sweep_bound(*args, vp, l, 2, HETCOR_OPS),
+            "ms": cuda_ms(lambda: hs.hetcor_local_sweep(
+                *full, index_range_checked=True), reps=5),
+            "rows_route_ms": cuda_ms(lambda: hs.hetcor_local_sweep(
+                *full, index_range_checked=True, launch_plan=rows_plan(hs, l, 48, 2)), reps=5),
+        })
     emit("kernels_hetcor_sweep", t0, cases=n_cmp, bit_identical=True, max_abs_err=max_err,
-         margins=n_all, hits=n_hits)
+         margins=n_all, hits=n_hits, routes=sorted(routes), bucket_sized=bucket)
+    return bucket
 
 
 def write_block(d: str, G: np.ndarray, Y: np.ndarray) -> tuple[str, str]:
@@ -413,6 +643,12 @@ def ar1_block(m: int, n: int, p: int, seed: int):
             planted.append(int(k))
     Y = (Y - Y.mean(1, keepdims=True)) / Y.std(1, keepdims=True)
     return G, Y, planted
+
+
+def file_hashes(base: str, exts) -> dict:
+    """sha256 of the decision files base + ext: two runs that decide alike
+    print the same digests."""
+    return {ext: hashlib.sha256(open(base + ext, "rb").read()).hexdigest() for ext in exts}
 
 
 def block_files(outdir: str) -> dict:
@@ -507,8 +743,9 @@ def reset_all_launches() -> None:
 
 
 def kernel_entry(name: str, module, replaces: str, launches: int, err: float, ms: float,
-                 plain_ms: float, bnd: dict, library_ms, shape: dict) -> dict:
+                 plain_ms: float, bnd: dict, library_ms, shape: dict, **more) -> dict:
     return {
+        **more,
         "name": name, "route": "cuda", "source": module.SOURCE, "replaces": REPLACES[replaces],
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"], "library_ms": library_ms,
@@ -546,7 +783,7 @@ def gather_entries(rec: Recorder, launches: dict) -> list:
     return out
 
 
-def phase_slice(tmp: str, rho_th: dict):
+def phase_slice(tmp: str, rho_th: dict, loops: dict, clock_hz: float):
     t0 = time.perf_counter()
     G, Y, planted = ar1_block(M11K, N11K, P11K, seed=0)
     b11k = os.path.join(tmp, "b11k")
@@ -599,6 +836,7 @@ def phase_slice(tmp: str, rho_th: dict):
         retained_markers=stats["retained_markers"], final_level=stats["final_level"],
         final_level_two=stats["final_level_two"], planted_recovered=recovered,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+        sha256=file_hashes(base, (".adj", ".ixs", ".mdim", ".sep")),
     )
 
     # the largest launch of each kernel, kernel vs plain on the card
@@ -609,13 +847,19 @@ def phase_slice(tmp: str, rho_th: dict):
         rho_k, pos_k = ls.local_sweep(C, node_ixs, nbrs, deg, l)
         rho_p, pos_p = pcorr.local_sweep_plain(C, node_ixs, nbrs, deg, l)
         err = compare(f"11k level {l}", rho_k, pos_k, rho_p, pos_p, deg, rho_th[l])
+        bnd = sweep_bound(node_ixs, nbrs, deg, C.shape[0], l, 1, SWEEP_OPS)
+        more = {"plan": ls.plan(l, nbrs.shape[1]),
+                **issue_bound(bnd["tests"], loops[("local_sweep", l)], clock_hz)}
+        if l > 1:  # the design the table route replaced, in the same call
+            forced = rows_plan(ls, l, nbrs.shape[1], 1)
+            more["rows_route_ms"] = cuda_ms(lambda: ls.local_sweep(
+                C, node_ixs, nbrs, deg, l, index_range_checked=True, launch_plan=forced), reps=5)
         kernels.append(kernel_entry(
             f"local_sweep_l{l}", ls, "local_sweep", launches[f"local_sweep_l{l}"], err,
             cuda_ms(lambda: ls.local_sweep(C, node_ixs, nbrs, deg, l,
                                            index_range_checked=True), reps=5),
             cuda_ms(lambda: pcorr.local_sweep_plain(C, node_ixs, nbrs, deg, l), reps=2),
-            sweep_bound(node_ixs, nbrs, deg, C.shape[0], l, 1, SWEEP_OPS), None,
-            {"nodes": int(nbrs.shape[0]), "width": int(nbrs.shape[1])},
+            bnd, None, {"nodes": int(nbrs.shape[0]), "width": int(nbrs.shape[1])}, **more,
         ))
     kernels += gather_entries(rec, launches)
     emit("largest_launch_cusk", t0, kernels=kernels)
@@ -705,7 +949,7 @@ def phase_small_cuskss(tmp: str) -> None:
     emit("small_cuskss", t0, files=sorted(outs["cpu"]), cuda_equals_cpu=True)
 
 
-def phase_cuskss(tmp: str):
+def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list):
     t0 = time.perf_counter()
     ss = os.path.join(tmp, "ss")
     out = os.path.join(tmp, "out_ss")
@@ -756,6 +1000,7 @@ def phase_cuskss(tmp: str):
         final_level=s1["final_level"], final_level_two=s2["final_level"],
         retained_markers=res.num_markers(), planted_recovered=recovered,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+        sha256=file_hashes(base, (".adj", ".ixs", ".mdim")),
     )
 
     # the largest launch of each kernel, kernel vs plain on the card
@@ -766,13 +1011,21 @@ def phase_cuskss(tmp: str):
         C, node_ixs, nbrs, deg = args[0], args[3], args[4], args[5]
         count, err = compare_margin(f"cuskss level {l}", hs.hetcor_local_sweep(*args),
                                     pcorr.hetcor_local_sweep_plain(*args))
+        bnd = sweep_bound(node_ixs, nbrs, deg, C.shape[0], l, 2, HETCOR_OPS)
+        loop = loops[("hetcor_sweep", l)]
+        more = {"plan": hs.plan(l, nbrs.shape[1]), **issue_bound(bnd["tests"], loop, clock_hz)}
+        if l > 1:
+            # this input's launches at levels 2-3 are a few nodes wide: the
+            # bucket-sized launch of the kernel checks stands beside them
+            more["bucket_sized"] = [
+                {**b, **issue_bound(b["tests"], loop, clock_hz)} for b in bucket
+                if b["level"] == l][0]
         kernels.append(kernel_entry(
             f"hetcor_sweep_l{l}", hs, "hetcor_sweep", launches[f"hetcor_sweep_l{l}"], err,
             cuda_ms(lambda: hs.hetcor_local_sweep(*args, index_range_checked=True), reps=5),
             cuda_ms(lambda: pcorr.hetcor_local_sweep_plain(*args), reps=2),
-            sweep_bound(node_ixs, nbrs, deg, C.shape[0], l, 2, HETCOR_OPS), None,
-            {"nodes": int(nbrs.shape[0]), "width": int(nbrs.shape[1]),
-             "margins_bit_identical": count},
+            bnd, None, {"nodes": int(nbrs.shape[0]), "width": int(nbrs.shape[1]),
+                        "margins_bit_identical": count}, **more,
         ))
     kernels += gather_entries(rec, launches)
     emit("largest_launch_cuskss", t0, kernels=kernels)
@@ -797,19 +1050,24 @@ def profile_run(tag: str, run, unprofiled_wall_s: float) -> None:
         run()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    rows = sorted(
-        ((e.key, e.self_device_time_total) for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-        key=lambda r: -r[1],
-    )
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = sorted(((e.key, e.self_device_time_total) for e in events), key=lambda r: -r[1])
     busy_s = sum(us for _, us in rows) / 1e6
+    # device time of all launches of each hand-written kernel on the slice
+    totals = {e.key[:80]: {"total_ms": e.self_device_time_total / 1e3, "launches": e.count}
+              for e in events if re.search(r"sweep\w*_kernel|gather", e.key)}
     emit("profile_" + tag, t0, profiled_wall_s=wall, unprofiled_wall_s=unprofiled_wall_s,
          device_busy_s=busy_s, device_idle_share=1.0 - busy_s / unprofiled_wall_s,
-         top=[{"name": k[:80], "ms": us / 1e3} for k, us in rows[:10]])
+         top=[{"name": k[:80], "ms": us / 1e3} for k, us in rows[:10]], kernel_totals=totals)
+    return totals
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the build and the kernel checks (prints no result line)")
+    opts = ap.parse_args()
     t0 = time.perf_counter()
     require_cuda()
     smi = nvidia_smi()
@@ -823,27 +1081,41 @@ def main() -> int:
         libs = list(pool.map(build.build, names))
     for name, lib in zip(names, libs):
         log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
-        emit("build", t0, source=name, library=lib.name,
-             ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln])
+        emit("build", t0, source=name, library=lib.name, ptxas=ptxas_summary(log))
+    t0 = time.perf_counter()
+    loops = inner_loops(dict(zip(names, libs)))
+    clock_hz = sm_clock_hz()
+    emit("inner_loops", t0, sm_clock_mhz=clock_hz / 1e6,
+         loops={f"{k}_l{l}": v for (k, l), v in loops.items()})
 
     th = threshold_array(N11K, ALPHA)
     rho_th = {l: float(np.float32(np.tanh(float(th[l])))) for l in (1, 2, 3)}
     panels = check_panels()
     phase_kernels(rho_th, panels)
     phase_gather_kernel(panels)
-    phase_hetcor_kernel(panels)
+    bucket = phase_hetcor_kernel(panels)
+    if opts.kernels_only:
+        return 1
     del panels
     torch.cuda.empty_cache()
 
     tmp = tempfile.mkdtemp(prefix="cigwas_chip_smoke_")
     try:
         phase_small_reference(tmp)
-        kernels, cusk_again, wall = phase_slice(tmp, rho_th)
+        kernels, cusk_again, wall = phase_slice(tmp, rho_th, loops, clock_hz)
         phase_small_cuskss(tmp)
-        kernels_ss, cuskss_again, wall_ss = phase_cuskss(tmp)
+        kernels_ss, cuskss_again, wall_ss = phase_cuskss(tmp, loops, clock_hz, bucket)
         kernels += kernels_ss
-        profile_run("cusk", cusk_again, wall)
-        profile_run("cuskss", cuskss_again, wall_ss)
+        # device time of all launches of each sweep level on its slice, from
+        # the profiled second run, whose launches must repeat the first's
+        per_level = {"local_sweep": level_totals(profile_run("cusk", cusk_again, wall), "sweep"),
+                     "hetcor_sweep": level_totals(
+                         profile_run("cuskss", cuskss_again, wall_ss), "hsweep")}
+        for k in kernels:
+            m = re.fullmatch(r"(local_sweep|hetcor_sweep)_l(\d)", k["name"])
+            if m:
+                k["total_ms"], n = per_level[m.group(1)][int(m.group(2))]
+                assert n == k["launches"], (k["name"], n, k["launches"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "cigwas_tpu"))

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds). Libraries go to ``build/cigwas_tpu_torch/`` at the root of
-the checkout, keyed by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads the cached file. Nothing here runs
+the checkout, keyed by a hash of the source, of every header under ``csrc``
+it includes and of the flags, so an edited source or header rebuilds and an
+unchanged one loads the cached file. Nothing here runs
 at import: a machine without ``nvcc`` can import every module of the port.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -45,10 +47,31 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and, transitively, every file under ``csrc`` that it
+    includes with quotes, each once, in the order met."""
+    found: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = (path.parent / inc.decode()).resolve()
+            if CSRC in header.parents and header.is_file():
+                todo.append(header)
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -21,6 +21,7 @@ from torch_parity import (
     hetcor_inputs_to_torch,
     hetcor_neighbours,
     set_threads,
+    tied_case,
 )
 
 from cigwas_tpu.utils.stats import hetcor_threshold
@@ -102,6 +103,100 @@ def test_hetcor_local_sweep_plain_matches_jax(l, ess_mode):
     assert (got[~valid] >= BIG).all()  # the port's pad slots are the sentinel
     exp = np.where(valid, exp, np.float32(BIG))
     _assert_margins(got, exp)
+
+
+def _brute_force_margin(Cb, q, Nb, nr, tn, t_x, dx, l):
+    """The hetcor margin of every test of one node, one test at a time in
+    colex order with a strict <, on float32 torch scalars in the sweeps'
+    association order; returns (margin (dx,), ties (dx,) = tests equal to
+    the minimum)."""
+    one, th = torch.tensor(1.0), torch.tensor(TH, dtype=torch.float32)
+    rinv = lambda x: one / torch.sqrt(torch.abs(one - x * x))  # noqa: E731
+    out = torch.full((dx,), BIG)
+    seen = [[] for _ in range(dx)]
+
+    def pair_rho(P, r, y, t, s):
+        rqt = rinv(r[t])
+        cts, cty = P[t, s], P[t, y]
+        rts, rty = rinv(cts), rinv(cty)
+        q2s = (r[s] - r[t] * cts) * (rqt * rts)
+        q2y = (r[y] - r[t] * cty) * (rqt * rty)
+        T2 = (P[y, s] - cty * cts) * (rty * rts)
+        return torch.abs(q2y - q2s * T2) * (rinv(q2s) * rinv(T2))
+
+    def offer(y, rho, ess, times):
+        if max(times) > max(t_x, tn[y]):
+            return
+        tot, cnt = torch.tensor(0.0), torch.tensor(0.0)
+        for i, n in enumerate(ess):
+            v, c = (torch.tensor(0.0),) * 2 if torch.isnan(n) else (n, one)
+            tot, cnt = (v, c) if i == 0 else (tot + v, cnt + c)
+        mean = tot / cnt
+        th_test = torch.tanh(th / torch.sqrt(mean - 4.0 if l == 1 else (mean - float(l)) - 3.0))
+        m = rho - th_test
+        if l == 1:
+            ok = bool(torch.isfinite(m))
+        else:
+            ok = bool(rho < 2.0) and bool(torch.isfinite(th_test))
+        if ok:
+            seen[y].append(float(m))
+            if m < out[y]:
+                out[y] = m
+
+    for y in range(dx):
+        if l == 1:
+            for s in range(dx):
+                if s != y:
+                    c = Cb[s, y]
+                    rc, rs = rinv(c), rinv(q[s])
+                    rho = torch.abs(q[y] * (rs * rc) - (q[s] * rs) * (c * rc))
+                    offer(y, rho, [nr[y], nr[s], Nb[y, s]], [tn[s]])
+        elif l == 2:
+            for t in range(1, dx):
+                for s in range(t):
+                    if y not in (s, t):
+                        offer(y, pair_rho(Cb, q, y, t, s),
+                              [nr[y], nr[s], nr[t], Nb[y, s], Nb[y, t], Nb[t, s]],
+                              [tn[s], tn[t]])
+        else:
+            for u in range(2, dx):
+                cu = Cb[u, :]
+                Ru = rinv(cu)
+                T1 = (Cb - cu[:, None] * cu[None, :]) * (Ru[:, None] * Ru[None, :])
+                q1 = (q - q[u] * cu) * (rinv(q[u]) * Ru)
+                for t in range(1, u):
+                    for s in range(t):
+                        if y not in (s, t, u):
+                            offer(y, pair_rho(T1, q1, y, t, s),
+                                  [nr[y], nr[s], nr[t], Nb[y, s], Nb[y, t], Nb[t, s],
+                                   nr[u], Nb[y, u], Nb[s, u], Nb[t, u]],
+                                  [tn[s], tn[t], tn[u]])
+    ties = np.array([sum(m == float(o) for m in ms) for ms, o in zip(seen, out)])
+    return out.numpy(), ties
+
+
+@pytest.mark.parametrize("l", [1, 2, 3])
+def test_hetcor_local_sweep_ties_match_brute_force(l):
+    """On panels of repeated variables many sets give bitwise equal margins;
+    the sweep's minimum equals, bit for bit, that of a loop over the tests
+    one at a time. A minimum over floats does not depend on the order, so
+    this pins what a kernel that splits the sets over threads must return."""
+    from cigwas_tpu_torch.ops.kernels import hetcor_sweep as hs
+
+    C, N, t_ix, node_ixs, nbrs, deg = tied_case(11, hetcor=True)
+    t = torch.from_numpy
+    got = hs.hetcor_local_sweep(t(C), t(N), t(t_ix), t(node_ixs), t(nbrs), t(deg), TH, l).numpy()
+    tied_slots = 0
+    for i, x in enumerate(node_ixs):
+        dx = int(deg[i])
+        nb = nbrs[i, :dx]
+        exp, ties = _brute_force_margin(
+            t(C[np.ix_(nb, nb)]), t(C[x, nb]), t(N[np.ix_(nb, nb)]), t(N[x, nb]),
+            t_ix[nb].astype(np.float32), float(t_ix[x]), dx, l)
+        assert np.array_equal(got[i, :dx].view(np.int32), exp.view(np.int32))
+        assert (got[i, dx:] >= BIG).all()
+        tied_slots += int(((ties > 1) & (exp < BIG)).sum())
+    assert tied_slots >= 6, f"only {tied_slots} slots with a tied minimum"
 
 
 def test_level_scan_hetcor_l4_matches_jax():

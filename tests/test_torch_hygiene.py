@@ -174,3 +174,31 @@ def test_check_index_range(as_tensor, fault):
     else:
         with pytest.raises(ValueError, match="index out of range"):
             check_index_range("test", vp, d, *lists)
+
+
+def test_build_key_covers_included_headers(tmp_path, monkeypatch):
+    """An edited header under csrc changes the library's key, as an edited
+    source does, so a stale library is never loaded; a source that includes
+    nothing keeps a key of its own."""
+    import shutil
+
+    from cigwas_tpu_torch.ops.kernels import build
+
+    for name in ("local_sweep", "hetcor_sweep"):
+        assert [p.name for p in build.source_files(name)] == [f"{name}.cu", "sweep_common.cuh"]
+    assert [p.name for p in build.source_files("panel_gather")] == ["panel_gather.cu"]
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {n: build.library_path(n).name
+              for n in ("local_sweep", "hetcor_sweep", "panel_gather")}
+    with open(csrc / "sweep_common.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: build.library_path(n).name for n in before}
+    assert after["local_sweep"] != before["local_sweep"]
+    assert after["hetcor_sweep"] != before["hetcor_sweep"]
+    assert after["panel_gather"] == before["panel_gather"]
+    with open(csrc / "panel_gather.cu", "a") as f:
+        f.write("// edited\n")
+    assert build.library_path("panel_gather").name != before["panel_gather"]

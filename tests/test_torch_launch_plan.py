@@ -1,0 +1,131 @@
+"""The launch plans of the two sweep kernels, checked without a card.
+
+``local_sweep.plan(l, d)`` and ``hetcor_sweep.plan(l, d)`` choose, in Python,
+everything a launch of ``csrc/local_sweep.cu`` / ``csrc/hetcor_sweep.cu``
+is shaped by: the route, the threads per CTA, how many nodes share a CTA or
+how many CTAs share a node, the dynamic shared memory and the global
+scratch. The C launchers take the plan as it is and refuse one that does not
+fit its route, so a plan that is wrong here is a refused launch on the card.
+For every level and every bucket width d in 1..7000 (and a few far beyond)
+the plan must be launchable on sm_90 (threads a multiple of 32 and at most
+1024, shared memory within the 232,448-byte opt-in limit and at least what
+the route's layout needs), cover every slot y < d, and change route exactly
+at the stated widths.
+"""
+
+import pytest
+
+from cigwas_tpu_torch.ops.kernels import hetcor_sweep as hs
+from cigwas_tpu_torch.ops.kernels import local_sweep as ls
+from cigwas_tpu_torch.ops.kernels.local_sweep import (
+    ROUTE_DIRECT,
+    ROUTE_ROWS_L2,
+    ROUTE_ROWS_SCRATCH,
+    ROUTE_ROWS_STAGED,
+    ROUTE_TABLE,
+    SMEM_OPT_IN,
+)
+
+KERNELS = {"local_sweep": (ls, 1), "hetcor_sweep": (hs, 2)}
+# route -> last width d it serves, per kernel and level (the widths the
+# kernel notes and the plans' docstrings state)
+LIMITS = {
+    ("local_sweep", 1): [(ROUTE_DIRECT, 19370), (ROUTE_ROWS_SCRATCH, None)],
+    ("local_sweep", 2): [(ROUTE_TABLE, 138), (ROUTE_ROWS_STAGED, 236), (ROUTE_ROWS_L2, 6456),
+                         (ROUTE_ROWS_SCRATCH, None)],
+    ("local_sweep", 3): [(ROUTE_TABLE, 119), (ROUTE_ROWS_STAGED, 236), (ROUTE_ROWS_L2, 6456),
+                         (ROUTE_ROWS_SCRATCH, None)],
+    ("hetcor_sweep", 1): [(ROUTE_DIRECT, 10777), (ROUTE_ROWS_SCRATCH, None)],
+    ("hetcor_sweep", 2): [(ROUTE_TABLE, 119), (ROUTE_ROWS_STAGED, 166), (ROUTE_ROWS_L2, 4470),
+                          (ROUTE_ROWS_SCRATCH, None)],
+    ("hetcor_sweep", 3): [(ROUTE_TABLE, 106), (ROUTE_ROWS_STAGED, 166), (ROUTE_ROWS_L2, 4470),
+                          (ROUTE_ROWS_SCRATCH, None)],
+}
+RANGES = [(1, 64), (65, 256), (257, 1024), (1025, 3000), (3001, 5000), (5001, 7000)]
+
+
+def _needed(module, panels: int, l: int, d: int, p: dict) -> int:
+    """Shared memory the route's layout takes, as the C launcher counts it."""
+    if p["route"] == ROUTE_DIRECT:
+        tiles = p["threads"] // 32 * hs.TILE if panels == 2 else 0
+        return 4 * (p["nodes_per_cta"] * module.DIRECT_ROWS * d + tiles)
+    if p["route"] == ROUTE_TABLE:
+        return module.table_bytes(l, d)
+    if p["route"] == ROUTE_ROWS_STAGED:
+        return 4 * (module.WORK_ROWS * d + panels * d * (d + 1))
+    if p["route"] == ROUTE_ROWS_L2:
+        return 4 * module.WORK_ROWS * d
+    return 0
+
+
+def _check(kernel: str, l: int, d: int) -> None:
+    module, panels = KERNELS[kernel]
+    p = module.plan(l, d)
+    where = f"{kernel} l={l} d={d}: {p}"
+    assert 32 <= p["threads"] <= 1024 and p["threads"] % 32 == 0, where
+    assert 0 <= p["smem_bytes"] <= SMEM_OPT_IN, where
+    assert p["smem_bytes"] >= _needed(module, panels, l, d, p), where
+    assert p["nodes_per_cta"] >= 1 and p["ctas_per_node"] >= 1, where
+    # every slot y < d has a thread (the table route loops over them)
+    if p["route"] == ROUTE_TABLE:
+        assert l > 1 and p["ctas_per_node"] == 1 and p["nodes_per_cta"] == 1 and d < 1024, where
+    elif p["nodes_per_cta"] > 1:
+        assert p["route"] == ROUTE_DIRECT and p["ctas_per_node"] == 1, where
+        assert p["nodes_per_cta"] * d <= p["threads"], where
+    else:
+        assert p["ctas_per_node"] * p["threads"] >= d, where
+        assert (p["ctas_per_node"] - 1) * p["threads"] < d, where  # no CTA without a slot
+    if p["route"] == ROUTE_DIRECT:
+        assert l == 1, where
+    if p["route"] == ROUTE_ROWS_STAGED:
+        assert l > 1, where  # level 1 never stages a (d, d) panel
+    assert (p["scratch_floats_per_node"] > 0) == (p["route"] == ROUTE_ROWS_SCRATCH), where
+    if p["route"] == ROUTE_ROWS_SCRATCH:
+        assert p["scratch_floats_per_node"] == p["ctas_per_node"] * module.WORK_ROWS * d, where
+    lo = 1
+    for route, last in LIMITS[(kernel, l)]:
+        if last is None or d <= last:
+            assert p["route"] == route, f"{where}: expected route {route} for d in [{lo}, {last}]"
+            break
+        lo = last + 1
+
+
+@pytest.mark.parametrize("d_range", RANGES, ids=[f"d{a}-{b}" for a, b in RANGES])
+@pytest.mark.parametrize("l", [1, 2, 3])
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_plan_is_launchable_for_every_width(kernel, l, d_range):
+    for d in range(d_range[0], d_range[1] + 1):
+        _check(kernel, l, d)
+
+
+@pytest.mark.parametrize("l", [1, 2, 3])
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_plan_switches_route_exactly_at_the_limits(kernel, l):
+    module, _ = KERNELS[kernel]
+    for (route, last), (next_route, _) in zip(LIMITS[(kernel, l)], LIMITS[(kernel, l)][1:]):
+        assert module.plan(l, last)["route"] == route
+        assert module.plan(l, last + 1)["route"] == next_route
+        _check(kernel, l, last)
+        _check(kernel, l, last + 1)
+    for d in (12000, 20000, 40000):  # wider than any block: still launchable
+        _check(kernel, l, d)
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_narrow_level1_buckets_share_a_cta(kernel):
+    """Bucket widths are multiples of 8: up to d = 64 at least two nodes share
+    a CTA at level 1 and no more than a warp's worth of its lanes is idle."""
+    module, _ = KERNELS[kernel]
+    for d in range(8, 129, 8):
+        p = module.plan(1, d)
+        assert p["nodes_per_cta"] == 128 // d
+        assert p["threads"] - p["nodes_per_cta"] * d < 32
+    assert module.plan(1, 40)["nodes_per_cta"] == 3 and module.plan(1, 40)["threads"] == 128
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_plan_refuses_what_the_kernel_does_not_serve(kernel):
+    module, _ = KERNELS[kernel]
+    for l, d in ((0, 8), (4, 8), (1, 0), (2, -3)):
+        with pytest.raises(ValueError):
+            module.plan(l, d)

@@ -21,7 +21,14 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import ATOL, RTOL, jax_local_sweep, set_threads, torch_local_sweep
+from torch_parity import (
+    ATOL,
+    RTOL,
+    jax_local_sweep,
+    set_threads,
+    tied_case,
+    torch_local_sweep,
+)
 
 set_threads()
 
@@ -123,6 +130,81 @@ def test_level0_screen_matches_jax():
     G_t = tp.level0_screen(torch.from_numpy(C), th0).numpy()
     assert np.array_equal(G_j, G_t)
     assert G_t[np.isnan(C) & ~np.eye(200, dtype=bool)].all()
+
+
+def _rinv(x):
+    return np.float32(1.0) / np.sqrt(np.abs(np.float32(1.0) - x * x))
+
+
+def _pair_rho(Cb, q, y, t, s):
+    """|pcorr(x, y | B t s)| from the level-|B| panel and row, in float32 and
+    in the sweeps' association order."""
+    rqt = _rinv(q[t])
+    cts, cty = Cb[t, s], Cb[t, y]
+    rts, rty = _rinv(cts), _rinv(cty)
+    q2s = (q[s] - q[t] * cts) * (rqt * rts)
+    q2y = (q[y] - q[t] * cty) * (rqt * rty)
+    T2 = (Cb[y, s] - cty * cts) * (rty * rts)
+    return np.abs(q2y - q2s * T2) * (_rinv(q2s) * _rinv(T2))
+
+
+def _brute_force_sweep(Cb, q, dx, l):
+    """Every test of one node in colex order (u, then t, then s ascending),
+    one at a time, a strict < keeping the first of equal minima; returns
+    (rho (dx,), pos (dx, l), ties (dx,) = tests equal to the minimum)."""
+    rho = np.full(dx, 2.0, np.float32)
+    pos = np.zeros((dx, l), np.int32)
+    seen = [[] for _ in range(dx)]
+
+    def offer(y, r, where):
+        seen[y].append(r)
+        if r < rho[y]:
+            rho[y], pos[y] = r, where
+
+    with np.errstate(all="ignore"):
+        for y in range(dx):
+            if l == 1:
+                for s in range(dx):
+                    if s != y:
+                        c = Cb[s, y]
+                        rc = _rinv(c)
+                        rs = _rinv(q[s])
+                        offer(y, np.abs(q[y] * (rs * rc) - (q[s] * rs) * (c * rc)), [s])
+            elif l == 2:
+                for t in range(1, dx):
+                    for s in range(t):
+                        if y not in (s, t):
+                            offer(y, _pair_rho(Cb, q, y, t, s), [s, t])
+            else:
+                for u in range(2, dx):
+                    cu = Cb[u, :]
+                    Ru = _rinv(cu)
+                    T1 = (Cb - cu[:, None] * cu[None, :]) * (Ru[:, None] * Ru[None, :])
+                    q1 = (q - q[u] * cu) * (_rinv(q[u]) * Ru)
+                    for t in range(1, u):
+                        for s in range(t):
+                            if y not in (s, t, u):
+                                offer(y, _pair_rho(T1, q1, y, t, s), [s, t, u])
+    ties = np.array([sum(r == m for r in rs) for rs, m in zip(seen, rho)])
+    return rho, pos, ties
+
+
+@pytest.mark.parametrize("l", [1, 2, 3])
+def test_local_sweep_ties_take_lowest_colex_rank(l):
+    """On a panel of repeated variables many sets give bitwise equal rho; the
+    sweep returns the set of lowest colex rank among the equal minima, as a
+    loop over the tests in colex order with a strict < does. This is the
+    rule a kernel that splits the sets over threads has to keep."""
+    C, node_ixs, nbrs, deg = tied_case(7)
+    rho_t, pos_t = torch_local_sweep(C, node_ixs, nbrs, deg, l)
+    tied_slots = 0
+    for i, x in enumerate(node_ixs):
+        nb = nbrs[i, : deg[i]]
+        rho_b, pos_b, ties = _brute_force_sweep(C[np.ix_(nb, nb)], C[x, nb], int(deg[i]), l)
+        assert np.array_equal(rho_t[i, : deg[i]].view(np.int32), rho_b.view(np.int32))
+        assert np.array_equal(pos_t[i, : deg[i]], pos_b)
+        tied_slots += int(((ties > 1) & (rho_b < 2.0)).sum())
+    assert tied_slots >= 6, f"only {tied_slots} slots with a tied minimum"
 
 
 @pytest.mark.cuda

@@ -147,3 +147,29 @@ def hetcor_inputs_to_torch(C, N, G, time_index, device="cpu"):
         np.asarray(G, np.int32),
         torch.from_numpy(np.asarray(time_index, np.int32)).to(device),
     )
+
+
+# --- exact ties: panels of repeated variables --------------------------------
+
+
+def tied_case(seed: int, hetcor: bool = False):
+    """A 12-variable panel in which every variable stands twice (variable i
+    is base variable i // 2), and three nodes at width d = 10 whose lists
+    hold both copies of several base variables: conditioning sets that
+    differ only in the copy they hold give bitwise equal statistics. The
+    lists leave out the node and its own copy. Returns (C, node_ixs, nbrs,
+    deg), or (C, N, t_ix, node_ixs, nbrs, deg) for hetcor."""
+    rng = np.random.default_rng(seed)
+    ix = np.arange(12) // 2
+    C = np.corrcoef(rng.normal(size=(6, 40))).astype(np.float32)[ix][:, ix].copy()
+    lists = [(0, list(range(2, 12))), (2, list(range(4, 12))), (5, [0, 1, 6, 7, 8, 9])]
+    node_ixs = np.array([x for x, _ in lists], np.int32)
+    deg = np.array([len(nb) for _, nb in lists], np.int32)
+    nbrs = np.zeros((3, 10), np.int32)
+    for i, (_, nb) in enumerate(lists):
+        nbrs[i, : len(nb)] = nb
+    if not hetcor:
+        return C, node_ixs, nbrs, deg
+    N = hetcor_ess(rng, 6, 4000, nan_frac=0.2)[ix][:, ix].copy()
+    t_ix = rng.integers(0, 2, 6).astype(np.int32)[ix].copy()
+    return C, N, t_ix, node_ixs, nbrs, deg
