@@ -24,12 +24,13 @@ and the script exits non-zero:
    level-2 and level-3 bucket (1024 nodes x width 48) timed beside its
    bound and beside the one-thread-per-slot route it replaced;
 4. the ``cusk`` slice: a small block on the card and on the CPU (plain
-   versions) must write the same decisions; then the reference's default
+   versions) must write the same decisions, with every kernel launch of the
+   card's run held bitwise to its plain version; then the reference's default
    block (11,000 markers x 16,384 individuals x 8 traits, AR(1) LD, planted
    marker->trait effects) on the card with the kernel launches counted, and
    its largest launch per kernel re-run through the plain version;
 5. the ``cuskss`` slice: the fixture inputs on the card and on the CPU must
-   write the same files; then a 10,000-marker x 8-trait summary-statistic
+   write the same files (every launch checked likewise); then a 10,000-marker x 8-trait summary-statistic
    input (AR(1) mxm as a binary triangle, planted mxp effects, SE files for
    a per-entry ESS in [3e5, 5e5]) through ``cuskss`` on the card, both
    stages, with the launches counted and the largest launch per kernel
@@ -655,34 +656,89 @@ def block_files(outdir: str) -> dict:
     return {f: open(os.path.join(outdir, f), "rb").read() for f in sorted(os.listdir(outdir))}
 
 
-def assert_same_outputs(tag: str, cuda: dict, cpu: dict) -> None:
-    """Decision files byte-identical, .corr within 1e-6."""
+def assert_same_outputs(tag: str, cuda: dict, cpu: dict) -> float:
+    """Decision files byte-identical, .corr within 1e-6; returns the largest
+    |difference| of the .corr files. The decision files are held first, so
+    that a run that kept other variables says so and not that their
+    correlations differ; a .corr beyond the tolerance says where and by how
+    much."""
     assert cuda.keys() == cpu.keys() and cpu, (tag, sorted(cuda), sorted(cpu))
+    differ = [f for f, data in cpu.items() if not f.endswith(".corr") and cuda[f] != data]
+    assert not differ, f"{tag}: {differ} differ between cuda and cpu"
+    worst = 0.0
     for f, data in cpu.items():
         if f.endswith(".corr"):
             a, b = np.frombuffer(cuda[f], np.float32), np.frombuffer(data, np.float32)
-            assert np.allclose(a, b, rtol=0, atol=1e-6), f"{tag}: {f}"
-        else:
-            assert cuda[f] == data, f"{tag}: {f} differs between cuda and cpu"
+            assert a.shape == b.shape, f"{tag}: {f} holds {a.size} values on cuda, {b.size} on cpu"
+            diff = np.abs(a - b)
+            k = int(np.argmax(np.where(np.isnan(diff), np.inf, diff)))
+            assert np.allclose(a, b, rtol=0, atol=1e-6), (
+                f"{tag}: {f} entry {k} of {a.size}: cuda {float(a[k])!r}, cpu {float(b[k])!r}; "
+                f"{int((~(diff <= 1e-6)).sum())} entries beyond 1e-6, "
+                f"NaNs {int(np.isnan(a).sum())} / {int(np.isnan(b).sum())}")
+            worst = max(worst, float(diff.max()))
+    return worst
+
+
+class EveryLaunchChecked:
+    """While it is open, every levels 1-3 launch the skeleton makes on the
+    card is held bitwise against its plain version on the same tensors (the
+    small runs are cheap enough for that), so that a cuda run that decides
+    otherwise than the cpu run is traced to the launch at fault, if one is."""
+
+    def __init__(self):
+        self.checked = 0
+        self.saved = {n: getattr(cupc, n) for n in ("local_sweep", "hetcor_local_sweep")}
+
+    def __enter__(self):
+        saved = self.saved
+
+        def local_sweep(C, node_ixs, nbrs, deg, l, **kw):
+            rho, pos = saved["local_sweep"](C, node_ixs, nbrs, deg, l, **kw)
+            if C.is_cuda:
+                rho_p, pos_p = pcorr.local_sweep_plain(C, node_ixs, nbrs, deg, l)
+                compare(f"launch {self.checked}: local_sweep l={l} {tuple(nbrs.shape)}",
+                        rho, pos, rho_p, pos_p, deg, math.nan)
+                self.checked += 1
+            return rho, pos
+
+        def hetcor_local_sweep(C, N, t_ix, node_ixs, nbrs, deg, th, l, **kw):
+            m = saved["hetcor_local_sweep"](C, N, t_ix, node_ixs, nbrs, deg, th, l, **kw)
+            if C.is_cuda:
+                compare_margin(f"launch {self.checked}: hetcor_sweep l={l} {tuple(nbrs.shape)}", m,
+                               pcorr.hetcor_local_sweep_plain(C, N, t_ix, node_ixs, nbrs, deg, th, l))
+                self.checked += 1
+            return m
+
+        cupc.local_sweep, cupc.hetcor_local_sweep = local_sweep, hetcor_local_sweep
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(cupc, n, fn)
 
 
 def phase_small_reference(tmp: str) -> None:
     """A 1,500-marker block through cusk on the card and on the CPU (plain
-    versions throughout): identical decisions, .corr within 1e-6."""
+    versions throughout): identical decisions, .corr within 1e-6; every
+    kernel launch of the card's run bit-identical to its plain version."""
     t0 = time.perf_counter()
     G, Y, _ = ar1_block(1500, 2000, 3, seed=1)
     small = os.path.join(tmp, "small")
     os.makedirs(small)
     stem, blocks = write_block(small, G, Y)
     outs = {}
-    for dev in ("cuda", "cpu"):
-        out = os.path.join(tmp, f"small_{dev}")
-        os.makedirs(out)
-        cusk(stem + ".phen", stem, blocks, ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH,
-             out, 0, verbose=False, device=dev)
-        outs[dev] = block_files(out)
-    assert_same_outputs("small block", outs["cuda"], outs["cpu"])
-    emit("small_reference", t0, files=sorted(outs["cpu"]), cuda_equals_cpu=True)
+    with EveryLaunchChecked() as chk:
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"small_{dev}")
+            os.makedirs(out)
+            cusk(stem + ".phen", stem, blocks, ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH,
+                 out, 0, verbose=False, device=dev)
+            outs[dev] = block_files(out)
+    assert chk.checked > 0, "the small block launched no kernel"
+    worst = assert_same_outputs("small block", outs["cuda"], outs["cpu"])
+    emit("small_reference", t0, files=sorted(outs["cpu"]), cuda_equals_cpu=True,
+         corr_max_abs_diff=worst, launches_bit_identical=chk.checked)
 
 
 class Recorder:
@@ -934,19 +990,23 @@ def phase_small_cuskss(tmp: str) -> None:
             for line in lines[1:]:
                 fields = line.split()
                 f.write(" ".join(fields[:lead] + ["0.00001"] * (len(fields) - lead)) + "\n")
+    worst, checked = {}, {}
     for tag, extra in (("pearson", {}), ("hetcor", se)):
         outs = {}
-        for dev in ("cuda", "cpu"):
-            out = os.path.join(tmp, f"ss_small_{tag}_{dev}")
-            os.makedirs(out)
-            cuskss(CuskssArgs.from_paths(
-                mxm=p("small_mxm.bin"), mxp=p("marker_trait_summary_stats.txt"),
-                pxp=p("trait_summary_stats.txt"), marker_indices=p("marker_indices.bin"),
-                alpha=ALPHA, num_samples=500000, max_level_one=3, max_level_two=1,
-                max_depth=1, outdir=out, **extra), verbose=False, device=dev)
-            outs[dev] = block_files(out)
-        assert_same_outputs(f"small cuskss {tag}", outs["cuda"], outs["cpu"])
-    emit("small_cuskss", t0, files=sorted(outs["cpu"]), cuda_equals_cpu=True)
+        with EveryLaunchChecked() as chk:
+            for dev in ("cuda", "cpu"):
+                out = os.path.join(tmp, f"ss_small_{tag}_{dev}")
+                os.makedirs(out)
+                cuskss(CuskssArgs.from_paths(
+                    mxm=p("small_mxm.bin"), mxp=p("marker_trait_summary_stats.txt"),
+                    pxp=p("trait_summary_stats.txt"), marker_indices=p("marker_indices.bin"),
+                    alpha=ALPHA, num_samples=500000, max_level_one=3, max_level_two=1,
+                    max_depth=1, outdir=out, **extra), verbose=False, device=dev)
+                outs[dev] = block_files(out)
+        worst[tag] = assert_same_outputs(f"small cuskss {tag}", outs["cuda"], outs["cpu"])
+        checked[tag] = chk.checked
+    emit("small_cuskss", t0, files=sorted(outs["cpu"]), cuda_equals_cpu=True,
+         corr_max_abs_diff=worst, launches_bit_identical=checked)
 
 
 def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list):
