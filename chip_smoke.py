@@ -18,7 +18,11 @@ and the script exits non-zero:
    on panels of repeated variables, whose tied minima must resolve to the
    lowest colex rank:
    the levels 1-3 sweep (``local_sweep``; rho and positions bit-identical),
-   the one- and two-panel gathers (``panel_gather``; int32 views equal),
+   the one- and two-panel gathers (``panel_gather``; int32 views equal, with
+   the lists staged and read through the cache), with the main paths'
+   8-node launches and bucket-sized launches (2048 nodes at widths 128, 48
+   and 50) timed beside their bound, the sectors their lists address, the
+   indexing call and an empty kernel's launch;
    the hetcor levels 1-3 sweep (``hetcor_sweep``; margins bit-identical,
    both ``ess_mode``s, a time index), with one launch the size of a
    level-2 and level-3 bucket (1024 nodes x width 48) timed beside its
@@ -37,10 +41,31 @@ and the script exits non-zero:
    re-run through the plain version;
 6. a second, warm run of each slice under torch.profiler for the device
    time by kernel, the idle share, and ``total_ms``: the device time of all
-   launches of each sweep level on its slice.
+   launches of each sweep level on its slice;
+7. the shell entry points, each through ``cigwas_tpu_torch.cli.main``:
+   ``prep-bed``, ``block``, ``cusk-all``, ``merge-block-outputs`` and
+   ``sepselect`` over a small fileset (600 markers on 3 chromosomes x 2,000
+   individuals) with ``--device cuda`` and with ``--device cpu``, which must
+   leave the same ``.blocks`` bytes, block decision files and merged files
+   (correlations within 1e-6), every kernel launch checked; then over one
+   chromosome of 50,000 markers x 16,384 individuals x 8 traits with the
+   CLI's defaults (the streaming route of ``block``, every block through
+   ``cusk-all``), with each command's wall, the blocks, the int8 products'
+   device time beside their bound, per-block walls and device memory, the
+   launches of every kernel over the whole path, the files' sha256, and how
+   many of the 40 planted markers are adjacent to their trait. With the
+   planted markers uniform over the chromosome, as the generator gives
+   them, no trait has the five marker neighbours that take stage 2 to level
+   4, so ``cusk-all``, ``merge-block-outputs`` and ``sepselect`` then run
+   again over the same blocks with a phenotype file whose planted markers
+   share a locus per trait (a coverage input, shaped to reach the gather):
+   that run's launches are counted apart, and the largest launch of each
+   kernel on it is held bitwise to its plain version and timed beside its
+   bound, as on the older slices.
 
-Both slices print the sha256 of their decision files, so two runs (or two
-versions of the kernels) can be held to the same decisions.
+Both older slices print the sha256 of their decision files beside those of
+the commit before the gather's redesign, so two versions of the kernels can
+be held to the same decisions.
 
 Every kernel's line gives its time beside ``bound_ms``, the least time the
 card could take for the same work: the larger of the bytes the function must
@@ -50,7 +75,15 @@ however many nodes share it; the lists read once; outputs written once) over
 sheet). ``max_abs_err`` is the NaN-aware largest |kernel - plain| measured on
 that launch. The sweeps also carry ``issue_ms``, a second yardstick that an
 IEEE sqrt and division can be held to: tests x SASS instructions of the
-inner loop per test over 132 SMs x 128 lanes x the maximum SM clock.
+inner loop per test over 132 SMs x 128 lanes x the maximum SM clock. The
+gathers carry ``sector_ms`` (the distinct 32-byte sectors their lists
+address, since a 4-byte read moves a sector, plus lists and outputs, over
+3.35 TB/s), ``launch_floor_ms`` (an empty kernel timed the same way) and
+``device_ms`` (the kernel's own time from the profiler's records, with how
+many of the timed launches it kept a record of). The kernels of the
+chromosome's path carry its launches (``launches_chr50k``, and
+``launches_chr50k_uniform`` for the uniform phenotypes) and, under
+``chr50k``, the same measurements on its largest launch.
 
 ``--kernels-only`` stops after phase 3.
 
@@ -61,7 +94,9 @@ power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
+import io
 import json
 import math
 import os
@@ -77,18 +112,27 @@ import numpy as np
 import torch
 
 from cigwas_tpu_torch import require_cuda
+from cigwas_tpu_torch.cli import main as cli_main
 from cigwas_tpu_torch.constants import BED_PREFIX_COL_MAJ
-from cigwas_tpu_torch.io import MarkerBlock, ReducedGC, ReducedGCS, write_marker_blocks_to_file
+from cigwas_tpu_torch.io import (
+    MarkerBlock,
+    ReducedGC,
+    ReducedGCS,
+    read_blocks_from_file,
+    write_marker_blocks_to_file,
+)
 from cigwas_tpu_torch.io.bed import encode_bed_values
 from cigwas_tpu_torch.ops import pcorr
+from cigwas_tpu_torch.ops.corr import PANEL_ROW_TILE as ROW_TILE
 from cigwas_tpu_torch.ops.kernels import build
 from cigwas_tpu_torch.ops.kernels import hetcor_sweep as hs
 from cigwas_tpu_torch.ops.kernels import local_sweep as ls
 from cigwas_tpu_torch.ops.kernels import panel_gather as pg
-from cigwas_tpu_torch.pipelines import CuskssArgs, cusk, cuskss
+from cigwas_tpu_torch.merge import merge_block_outputs
+from cigwas_tpu_torch.pipelines import CuskssArgs, cusk, cuskss, make_blocks
 from cigwas_tpu_torch.prep import prep_bed
 from cigwas_tpu_torch.skeleton import cupc
-from cigwas_tpu_torch.utils.stats import hetcor_threshold, threshold_array
+from cigwas_tpu_torch.utils.stats import fisher_z, hetcor_threshold, threshold_array
 
 # file:line of the function that reaches pl.pallas_call, per kernel
 PALLAS = "cigwas_tpu/ops/pallas/panel_gather.py"
@@ -101,8 +145,25 @@ ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH = 1e-4, 3, 14, 1
 MSS, PSS, NSS = 10000, 8, 5.0e5
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
                         "test_files")
-# NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor cores
-PEAK_BYTES, PEAK_F32, SMS = 3.35e12, 67e12, 132
+# the chromosome of the shell entry points: `block`'s defaults (`cli.py`)
+MCHR, MAX_BLOCK, CORR_WIDTH = 50000, 11000, 2000
+# markers within which a trait's five planted markers lie in that chromosome's
+# coverage phenotypes (`sim_locus.phen`)
+LOCUS = 3000
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor
+# cores, dense int8 operations/s in them
+PEAK_BYTES, PEAK_F32, PEAK_INT8, SMS = 3.35e12, 67e12, 1979e12, 132
+# sha256 of the two older slices' decision files at the commit before the
+# gather's redesign (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+PARENT_SHA256 = {
+    "cusk": {".adj": "0410412a33cf945cf2085f27ef12932869a5bc06e543b27ae07883b146ee4086",
+             ".ixs": "bd4c8da12abf1ca6c689b4dd11c644879b526286c3cd4b4cc4bc191909a8e407",
+             ".mdim": "e5e89faa00a9fa70b58ecb32b13b7a24ce8c24894af0f17d4d184f4ec53714de",
+             ".sep": "7e6802f0c0b69bf3335c367a034bbc080c2f7eb4f9ead6284d983d6815d42021"},
+    "cuskss": {".adj": "dd8726c43ce6c5a1eda98c9f5ecf5c64be0ac670db861a4fbf02bca59c8b0ed6",
+               ".ixs": "ae50a24e2dd5ea43fa670fa68b3797d26f8889bb6de3e380a01abf85bef7bd3a",
+               ".mdim": "780b845574304e5b44ffde556510b7a81ddba11354bb7d315a9ed20dbe547ab2"},
+}
 # float32 operations per test, read off the kernels' inner loops (a sqrt, a
 # division and a tanh count as one each): the rho recursion and the compare
 # for local_sweep; plus validity and time checks, the ESS sums and counts
@@ -262,6 +323,31 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_device_ms(fn, reps: int, pattern: str) -> dict:
+    """Mean device milliseconds of the kernels whose name matches pattern
+    over reps runs of fn(), from torch.profiler's kernel records: the time
+    on the card alone, where `cuda_ms` of a short kernel measures how fast
+    the host can enqueue it. `device_records` is how many of the reps
+    launches the profiler kept a record of: the mean is over those."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and re.search(pattern, e.key)]
+    # the profiler drops some records of launches this close together (as few
+    # as 5 of 20 were seen kept): the mean is over those it kept
+    count = sum(e.count for e in events)
+    assert 0 < count <= reps, (pattern, [(e.key, e.count) for e in events])
+    return {"device_ms": sum(e.self_device_time_total for e in events) / 1e3 / count,
+            "device_records": count, "device_reps": reps}
+
+
 def bound(n_bytes: float, n_ops: float) -> dict:
     """The least time the card could take: bytes over the memory rate or
     operations over the float32 rate, whichever is larger."""
@@ -270,13 +356,14 @@ def bound(n_bytes: float, n_ops: float) -> dict:
             "bytes": n_bytes, "operations": n_ops}
 
 
-def addressed(node_ixs, nbrs, deg, vp: int, pads_read_node: bool) -> tuple[int, int]:
+def addressed(node_ixs, nbrs, deg, vp: int, pads_read_node: bool) -> tuple[int, int, int]:
     """What a launch's lists address in a (vp, vp) panel, counted on the card:
     the distinct (row, col) entries among every node's (nb_j, nb_k) and
-    (x, nb_k), and the distinct variables. An entry or variable that many
-    nodes share (overlapping LD neighbourhoods) counts once. Slots j >= deg
-    are left out (the sweeps never read them) or read as the node itself
-    (the gathers)."""
+    (x, nb_k), the distinct variables, and the distinct 32-byte sectors
+    (runs of 8 entries from the panel's start) that hold those entries. An
+    entry, variable or sector that many nodes share (overlapping LD
+    neighbourhoods) counts once. Slots j >= deg are left out (the sweeps
+    never read them) or read as the node itself (the gathers)."""
     dev = nbrs.device
     nt, d = nbrs.shape
     entry = torch.zeros(vp * vp, dtype=torch.bool, device=dev)
@@ -294,7 +381,9 @@ def addressed(node_ixs, nbrs, deg, vp: int, pads_read_node: bool) -> tuple[int, 
         entry[(x * vp + nb)[live]] = True
         var[nb[live]] = True
         var[x[:, 0]] = True
-    return int(entry.sum()), int(var.sum())
+    whole = entry.numel() // 8 * 8
+    sectors = int(entry[:whole].view(-1, 8).any(1).sum()) + int(entry[whole:].any())
+    return int(entry.sum()), int(var.sum()), sectors
 
 
 def sweep_bound(node_ixs, nbrs, deg, vp: int, l: int, panels: int, ops: dict) -> dict:
@@ -306,7 +395,7 @@ def sweep_bound(node_ixs, nbrs, deg, vp: int, l: int, panels: int, ops: dict) ->
     dg = deg.cpu().numpy().astype(np.int64)
     nt, d = nbrs.shape
     tests = int(sum(int(g) * math.comb(int(g) - 1, l) for g in dg))
-    entries, variables = addressed(node_ixs, nbrs, deg, vp, pads_read_node=False)
+    entries, variables, _ = addressed(node_ixs, nbrs, deg, vp, pads_read_node=False)
     n_in = 4 * panels * entries + 4 * (nt * d + 2 * nt) + (4 * variables if panels == 2 else 0)
     n_out = 4 * nt * d * ((1 + l) if panels == 1 else 1)
     return {**bound(n_in + n_out, tests * ops[l]), "tests": tests, "distinct_entries": entries}
@@ -315,11 +404,15 @@ def sweep_bound(node_ixs, nbrs, deg, vp: int, l: int, panels: int, ops: dict) ->
 def gather_bound(node_ixs, nbrs, deg, vp: int, panels: int) -> dict:
     """Bound of a gather launch: nothing but bytes, the distinct panel
     entries the lists address read once from each panel, the index lists
-    once, and (d^2 + d) entries per node and panel written once."""
+    once, and (d^2 + d) entries per node and panel written once. sector_ms
+    counts 32 bytes for every distinct sector instead of 4 for every entry:
+    what the memory system moves for scattered 4-byte reads."""
     nt, d = nbrs.shape
-    entries, _ = addressed(node_ixs, nbrs, deg, vp, pads_read_node=True)
-    n_bytes = 4 * panels * (entries + nt * (d * d + d)) + 4 * (nt * d + 2 * nt)
-    return {**bound(n_bytes, 0), "distinct_entries": entries}
+    entries, _, sectors = addressed(node_ixs, nbrs, deg, vp, pads_read_node=True)
+    rest = 4 * panels * nt * (d * d + d) + 4 * (nt * d + 2 * nt)
+    return {**bound(4 * panels * entries + rest, 0), "distinct_entries": entries,
+            "distinct_sectors": sectors,
+            "sector_ms": (32 * panels * sectors + rest) / PEAK_BYTES * 1e3}
 
 
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -486,46 +579,89 @@ def phase_kernels(rho_th: dict, panels) -> None:
          routes=sorted(routes), tied_slots=n_tied)
 
 
+def launch_floor_ms() -> float:
+    """Device milliseconds between launches of a kernel that does nothing,
+    timed as every kernel here is: what a launch alone costs."""
+    return cuda_ms(pg.launch_empty, reps=200)
+
+
+def gather_timing(tag: str, panels_d: tuple, args: list, vp: int, reps: int) -> dict:
+    """One gather launch, bit-identical to the plain version, timed as the
+    skeleton launches it, beside the bound, the sectors and the
+    advanced-indexing call that computes the same panels. `ms` is by CUDA
+    events around the calls, so for a launch shorter than the wrapper's host
+    work it is the enqueue rate; `device_ms` is the kernel's own time from
+    the profiler's records."""
+    two = len(panels_d) == 2
+    kern = pg.gather_local_panels2 if two else pg.gather_local_panels
+    plain = pg.gather_local_panels2_plain if two else pg.gather_local_panels_plain
+    node_ixs, nbrs, deg = args
+    nt, d = nbrs.shape
+    err = compare_bits(tag, kern(*panels_d, *args), plain(*panels_d, *args))
+    nb = pg.remap_pad_slots(*args).long()
+    x = node_ixs.long()[:, None]
+    run = lambda: kern(*panels_d, *args, index_range_checked=True)  # noqa: E731
+    return {
+        "nodes": int(nt), "width": int(d), "panels": len(panels_d), "max_abs_err": err,
+        "plan": pg.plan(d, len(panels_d)), **gather_bound(*args, vp, len(panels_d)),
+        "ms": cuda_ms(run, reps), **kernel_device_ms(run, 20, "panel_rows_kernel"),
+        "library_ms": cuda_ms(
+            lambda: [(P[nb[:, :, None], nb[:, None, :]], P[x, nb]) for P in panels_d], reps),
+    }
+
+
 def phase_gather_kernel(panels) -> None:
-    """panel_gather vs plain, one and two panels, at d in {1, 8, 40, 136, 256,
-    300, 1000}, clustered and scattered, ragged degrees; plus one node of
-    width 13000 with repeated neighbours (indices read through the cache
-    instead of shared memory)."""
+    """panel_gather vs plain, one and two panels, at d in {1, 3, 8, 40, 50,
+    136, 256, 300, 1000}, clustered and scattered, ragged degrees, in the
+    row design and the same with its lists read through the cache; one node
+    of width 13000 with repeated neighbours
+    (a 52 KB list: shared memory by opt-in, and through the cache). Then the
+    timed launches: the main paths' 8 x 8 one-panel and 8 x 16 two-panel
+    launches and bucket-sized two-panel launches of 2048 nodes at widths
+    128, 48 and 50 (d % 4 != 0: scalar stores)."""
     t0 = time.perf_counter()
     rng, vp, Cd, Nd, _ = panels
     n_cmp, max_err = 0, 0.0
+
+    def unstaged(d, n_panels):
+        return {**pg.plan(d, n_panels), "staged": 0, "smem_bytes": 0}
+
     for clustered in (True, False):
-        for d in (1, 8, 40, 136, 256, 300, 1000):
+        for d in (1, 3, 8, 40, 50, 136, 256, 300, 1000):
             args = neighbour_lists(rng, vp, 3 if d >= 1000 else 6, d, clustered)
             tag = f"{'clustered' if clustered else 'scattered'} d={d}"
-            max_err = max(
-                max_err,
-                compare_bits(tag + " one panel", pg.gather_local_panels(Cd, *args),
-                             pg.gather_local_panels_plain(Cd, *args)),
-                compare_bits(tag + " two panels", pg.gather_local_panels2(Cd, Nd, *args),
-                             pg.gather_local_panels2_plain(Cd, Nd, *args)))
-            torch.cuda.synchronize()
-            n_cmp += 2
+            one, two = (pg.gather_local_panels_plain(Cd, *args),
+                        pg.gather_local_panels2_plain(Cd, Nd, *args))
+            for name, plan1, plan2 in (("rows", None, None),
+                                       ("unstaged", unstaged(d, 1), unstaged(d, 2))):
+                max_err = max(
+                    max_err,
+                    compare_bits(f"{tag} one panel {name}",
+                                 pg.gather_local_panels(Cd, *args, launch_plan=plan1), one),
+                    compare_bits(f"{tag} two panels {name}",
+                                 pg.gather_local_panels2(Cd, Nd, *args, launch_plan=plan2), two))
+                torch.cuda.synchronize()
+                n_cmp += 2
     args = neighbour_lists(rng, vp, 1, 13000, False, distinct=False)
-    max_err = max(max_err, compare_bits(
-        "scattered d=13000", pg.gather_local_panels(Cd, *args),
-        pg.gather_local_panels_plain(Cd, *args)))
-    torch.cuda.synchronize()
-    # beyond the main path's few-node tiles: one launch the size of a level-1
-    # bucket, against its bound and the advanced-indexing call; launched as
-    # the skeleton does, with the lists' range checked beforehand
-    args = neighbour_lists(rng, vp, 2048, 128, True)
-    nb = pg.remap_pad_slots(*args).long()
-    x = args[0].long()[:, None]
-    emit("kernels_panel_gather", t0, cases=n_cmp + 1, bit_identical=True, max_abs_err=max_err,
-         bucket_sized={
-             "nodes": 2048, "width": 128, "panels": 2, **gather_bound(*args, vp, 2),
-             "ms": cuda_ms(lambda: pg.gather_local_panels2(
-                 Cd, Nd, *args, index_range_checked=True), reps=20),
-             "library_ms": cuda_ms(
-                 lambda: [(P[nb[:, :, None], nb[:, None, :]], P[x, nb]) for P in (Cd, Nd)],
-                 reps=20),
-         })
+    expect = pg.gather_local_panels_plain(Cd, *args)
+    for name, forced in (("rows", None), ("unstaged", unstaged(13000, 1))):
+        max_err = max(max_err, compare_bits(
+            f"scattered d=13000 {name}", pg.gather_local_panels(Cd, *args, launch_plan=forced),
+            expect))
+        torch.cuda.synchronize()
+        n_cmp += 1
+    del expect
+    timed = [
+        gather_timing("8 x 8 one panel", (Cd,), neighbour_lists(rng, vp, 8, 8, True), vp, 200),
+        gather_timing("8 x 16 two panels", (Cd, Nd), neighbour_lists(rng, vp, 8, 16, True),
+                      vp, 200),
+    ]
+    # beyond the main paths' few-node tiles: launches the size of a bucket
+    for d in (128, 48, 50):
+        timed.append(gather_timing(f"2048 x {d} two panels", (Cd, Nd),
+                                   neighbour_lists(rng, vp, 2048, d, True), vp, 20))
+    emit("kernels_panel_gather", t0, cases=n_cmp + len(timed), bit_identical=True,
+         max_abs_err=max_err, launch_floor_ms=launch_floor_ms(), timed=timed)
 
 
 def phase_hetcor_kernel(panels) -> list:
@@ -652,6 +788,12 @@ def file_hashes(base: str, exts) -> dict:
     return {ext: hashlib.sha256(open(base + ext, "rb").read()).hexdigest() for ext in exts}
 
 
+def hashes_beside_parent(which: str, got: dict) -> dict:
+    """This run's digests, the parent's, and whether they are equal."""
+    return {"sha256": got, "parent_sha256": PARENT_SHA256[which],
+            "sha256_equal_to_parent": got == PARENT_SHA256[which]}
+
+
 def block_files(outdir: str) -> dict:
     return {f: open(os.path.join(outdir, f), "rb").read() for f in sorted(os.listdir(outdir))}
 
@@ -681,14 +823,15 @@ def assert_same_outputs(tag: str, cuda: dict, cpu: dict) -> float:
 
 
 class EveryLaunchChecked:
-    """While it is open, every levels 1-3 launch the skeleton makes on the
-    card is held bitwise against its plain version on the same tensors (the
-    small runs are cheap enough for that), so that a cuda run that decides
-    otherwise than the cpu run is traced to the launch at fault, if one is."""
+    """While it is open, every levels 1-3 launch and every gather launch the
+    skeleton makes on the card is held bitwise against its plain version on
+    the same tensors (the small runs are cheap enough for that), so that a
+    cuda run that decides otherwise than the cpu run is traced to the launch
+    at fault, if one is."""
 
     def __init__(self):
         self.checked = 0
-        self.saved = {n: getattr(cupc, n) for n in ("local_sweep", "hetcor_local_sweep")}
+        self.saved = {n: getattr(cupc, n) for n in Recorder.NAMES}
 
     def __enter__(self):
         saved = self.saved
@@ -710,7 +853,26 @@ class EveryLaunchChecked:
                 self.checked += 1
             return m
 
-        cupc.local_sweep, cupc.hetcor_local_sweep = local_sweep, hetcor_local_sweep
+        def gather_local_panels(C, node_ixs, nbrs, deg, **kw):
+            out = saved["gather_local_panels"](C, node_ixs, nbrs, deg, **kw)
+            if C.is_cuda:
+                compare_bits(f"launch {self.checked}: panel_gather {tuple(nbrs.shape)}", out,
+                             pg.gather_local_panels_plain(C, node_ixs, nbrs, deg))
+                self.checked += 1
+            return out
+
+        def gather_local_panels2(C, N, node_ixs, nbrs, deg, **kw):
+            out = saved["gather_local_panels2"](C, N, node_ixs, nbrs, deg, **kw)
+            if C.is_cuda:
+                compare_bits(f"launch {self.checked}: panel_gather2 {tuple(nbrs.shape)}", out,
+                             pg.gather_local_panels2_plain(C, N, node_ixs, nbrs, deg))
+                self.checked += 1
+            return out
+
+        for n, fn in (("local_sweep", local_sweep), ("hetcor_local_sweep", hetcor_local_sweep),
+                      ("gather_local_panels", gather_local_panels),
+                      ("gather_local_panels2", gather_local_panels2)):
+            setattr(cupc, n, fn)
         return self
 
     def __exit__(self, *exc):
@@ -806,11 +968,40 @@ def kernel_entry(name: str, module, replaces: str, launches: int, err: float, ms
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"], "library_ms": library_ms,
         "shape": {**shape, **{k: v for k, v in bnd.items()
-                              if k in ("tests", "bytes", "operations", "distinct_entries")}},
+                              if k in ("tests", "bytes", "operations", "distinct_entries",
+                                       "distinct_sectors")}},
     }
 
 
-def gather_entries(rec: Recorder, launches: dict) -> list:
+def sweep_entries(tag: str, rec: Recorder, launches: dict, rho_th: dict, loops: dict,
+                  clock_hz: float) -> list:
+    """The largest local_sweep launch of a run at each level 1-3, kernel vs
+    plain (bit-identical) on the same tensors, timed beside its bound, its
+    issue bound and, at levels 2-3, the one-thread-per-slot route."""
+    kernels = []
+    for l in (1, 2, 3):
+        C, node_ixs, nbrs, deg, _ = rec.largest[("local_sweep", l)][1]
+        rho_k, pos_k = ls.local_sweep(C, node_ixs, nbrs, deg, l)
+        rho_p, pos_p = pcorr.local_sweep_plain(C, node_ixs, nbrs, deg, l)
+        err = compare(f"{tag} level {l}", rho_k, pos_k, rho_p, pos_p, deg, rho_th[l])
+        bnd = sweep_bound(node_ixs, nbrs, deg, C.shape[0], l, 1, SWEEP_OPS)
+        more = {"plan": ls.plan(l, nbrs.shape[1]),
+                **issue_bound(bnd["tests"], loops[("local_sweep", l)], clock_hz)}
+        if l > 1:  # the design the table route replaced, in the same call
+            forced = rows_plan(ls, l, nbrs.shape[1], 1)
+            more["rows_route_ms"] = cuda_ms(lambda: ls.local_sweep(
+                C, node_ixs, nbrs, deg, l, index_range_checked=True, launch_plan=forced), reps=5)
+        kernels.append(kernel_entry(
+            f"local_sweep_l{l}", ls, "local_sweep", launches[f"local_sweep_l{l}"], err,
+            cuda_ms(lambda: ls.local_sweep(C, node_ixs, nbrs, deg, l,
+                                           index_range_checked=True), reps=5),
+            cuda_ms(lambda: pcorr.local_sweep_plain(C, node_ixs, nbrs, deg, l), reps=2),
+            bnd, None, {"nodes": int(nbrs.shape[0]), "width": int(nbrs.shape[1])}, **more,
+        ))
+    return kernels
+
+
+def gather_entries(tag: str, rec: Recorder, launches: dict) -> list:
     """The largest gather launch of a run, kernel vs plain (bit-identical)
     and vs the advanced-indexing call that computes the same panels."""
     out = []
@@ -820,7 +1011,7 @@ def gather_entries(rec: Recorder, launches: dict) -> list:
         args = rec.largest[(name,)][1]
         kern = pg.gather_local_panels if panels == 1 else pg.gather_local_panels2
         plain = pg.gather_local_panels_plain if panels == 1 else pg.gather_local_panels2_plain
-        err = compare_bits(f"largest {name}", kern(*args), plain(*args))
+        err = compare_bits(f"{tag} largest {name}", kern(*args), plain(*args))
         node_ixs, nbrs, deg = args[-3:]
         nb = pg.remap_pad_slots(node_ixs, nbrs, deg).long()
         x = node_ixs.long()[:, None]
@@ -829,12 +1020,15 @@ def gather_entries(rec: Recorder, launches: dict) -> list:
             return [(P[nb[:, :, None], nb[:, None, :]], P[x, nb]) for P in args[:panels]]
 
         nt, d = nbrs.shape
+        bnd = gather_bound(node_ixs, nbrs, deg, args[0].shape[0], panels)
+        run = lambda: kern(*args, index_range_checked=True)  # noqa: E731
         out.append(kernel_entry(
-            name, pg, name, launches[name], err,
-            cuda_ms(lambda: kern(*args, index_range_checked=True), reps=20),
-            cuda_ms(lambda: plain(*args), reps=20),
-            gather_bound(node_ixs, nbrs, deg, args[0].shape[0], panels),
+            name, pg, name, launches[name], err, cuda_ms(run, reps=200),
+            cuda_ms(lambda: plain(*args), reps=20), bnd,
             cuda_ms(indexing, reps=20), {"nodes": int(nt), "width": int(d)},
+            plan=pg.plan(int(d), panels), sector_ms=bnd["sector_ms"],
+            launch_floor_ms=launch_floor_ms(),
+            **kernel_device_ms(run, 20, "panel_rows_kernel"),
         ))
     return out
 
@@ -892,32 +1086,13 @@ def phase_slice(tmp: str, rho_th: dict, loops: dict, clock_hz: float):
         retained_markers=stats["retained_markers"], final_level=stats["final_level"],
         final_level_two=stats["final_level_two"], planted_recovered=recovered,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
-        sha256=file_hashes(base, (".adj", ".ixs", ".mdim", ".sep")),
+        **hashes_beside_parent("cusk", file_hashes(base, (".adj", ".ixs", ".mdim", ".sep"))),
     )
 
     # the largest launch of each kernel, kernel vs plain on the card
     t0 = time.perf_counter()
-    kernels = []
-    for l in (1, 2, 3):
-        C, node_ixs, nbrs, deg, _ = rec.largest[("local_sweep", l)][1]
-        rho_k, pos_k = ls.local_sweep(C, node_ixs, nbrs, deg, l)
-        rho_p, pos_p = pcorr.local_sweep_plain(C, node_ixs, nbrs, deg, l)
-        err = compare(f"11k level {l}", rho_k, pos_k, rho_p, pos_p, deg, rho_th[l])
-        bnd = sweep_bound(node_ixs, nbrs, deg, C.shape[0], l, 1, SWEEP_OPS)
-        more = {"plan": ls.plan(l, nbrs.shape[1]),
-                **issue_bound(bnd["tests"], loops[("local_sweep", l)], clock_hz)}
-        if l > 1:  # the design the table route replaced, in the same call
-            forced = rows_plan(ls, l, nbrs.shape[1], 1)
-            more["rows_route_ms"] = cuda_ms(lambda: ls.local_sweep(
-                C, node_ixs, nbrs, deg, l, index_range_checked=True, launch_plan=forced), reps=5)
-        kernels.append(kernel_entry(
-            f"local_sweep_l{l}", ls, "local_sweep", launches[f"local_sweep_l{l}"], err,
-            cuda_ms(lambda: ls.local_sweep(C, node_ixs, nbrs, deg, l,
-                                           index_range_checked=True), reps=5),
-            cuda_ms(lambda: pcorr.local_sweep_plain(C, node_ixs, nbrs, deg, l), reps=2),
-            bnd, None, {"nodes": int(nbrs.shape[0]), "width": int(nbrs.shape[1])}, **more,
-        ))
-    kernels += gather_entries(rec, launches)
+    kernels = sweep_entries("11k", rec, launches, rho_th, loops, clock_hz)
+    kernels += gather_entries("11k", rec, launches)
     emit("largest_launch_cusk", t0, kernels=kernels)
 
     def again():
@@ -1060,7 +1235,7 @@ def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list):
         final_level=s1["final_level"], final_level_two=s2["final_level"],
         retained_markers=res.num_markers(), planted_recovered=recovered,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
-        sha256=file_hashes(base, (".adj", ".ixs", ".mdim")),
+        **hashes_beside_parent("cuskss", file_hashes(base, (".adj", ".ixs", ".mdim"))),
     )
 
     # the largest launch of each kernel, kernel vs plain on the card
@@ -1087,7 +1262,7 @@ def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list):
             bnd, None, {"nodes": int(nbrs.shape[0]), "width": int(nbrs.shape[1]),
                         "margins_bit_identical": count}, **more,
         ))
-    kernels += gather_entries(rec, launches)
+    kernels += gather_entries("10k input", rec, launches)
     emit("largest_launch_cuskss", t0, kernels=kernels)
 
     def again():
@@ -1098,7 +1273,318 @@ def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list):
     return kernels, again, wall
 
 
-def profile_run(tag: str, run, unprofiled_wall_s: float) -> None:
+def pack_bed_rows(G: np.ndarray) -> np.ndarray:
+    """(rows, n) uint8 genotypes in {0, 1, 2} -> packed .bed bytes, the
+    layout of `encode_bed_values` without its float and int64 passes."""
+    codes = np.array([3, 2, 0], np.uint8)[G]
+    pad = (-codes.shape[1]) % 4
+    if pad:
+        codes = np.concatenate([codes, np.zeros((len(codes), pad), np.uint8)], axis=1)
+    c = codes.reshape(len(codes), -1, 4)
+    return c[:, :, 0] | (c[:, :, 1] << 2) | (c[:, :, 2] << 4) | (c[:, :, 3] << 6)
+
+
+def write_ar1_fileset(d: str, chr_sizes: list, n: int, p: int, seed: int, chunk: int = 2000,
+                      locus: int | None = None):
+    """The generator of `ar1_block` (AR(1) LD 0.92, genotypes from a logistic
+    allele frequency, 5 planted markers per trait at effect 0.2) in row
+    chunks that carry the AR(1) state and write the `.bed` as they go, so
+    that no (m, n) array is ever held; markers spread over the chromosomes
+    of chr_sizes. The planted markers are uniform over all markers
+    (`sim.phen`). With a locus, a second phenotype file over the same
+    genotypes and the same trait noise (`sim_locus.phen`) plants each trait's
+    five markers within one window of that many markers whose start is
+    uniform, so that they mostly share a block, as all planted markers of
+    the 11k block do: a trait with five marker neighbours is what takes
+    stage 2 to level 4, and so to the gather. That file is a coverage input,
+    shaped for the kernel; the uniform one is what the generator gives.
+    Returns (stem, {"uniform" | "locus": (phen path, planted [(trait,
+    marker)], Y)}, the planted markers' genotype rows)."""
+    m = sum(chr_sizes)
+    rng = np.random.default_rng(seed)
+    noise_y = rng.normal(size=(p, n)).astype(np.float32)
+    if locus is None:
+        planted = {"uniform": [(t, int(k)) for t in range(p) for k in rng.integers(0, m, 5)]}
+    else:  # the uniform set from a generator of its own: the genotypes do not depend on it
+        planted = {"locus": [(t, int(k)) for t in range(p) for k in
+                             rng.integers(0, m - locus) + rng.choice(locus, 5, replace=False)]}
+        rng_u = np.random.default_rng([seed, 1])
+        planted["uniform"] = [(t, int(k)) for t in range(p) for k in rng_u.integers(0, m, 5)]
+    wanted = {k for pairs in planted.values() for _, k in pairs}
+    rows_of = {}
+    ar, scale = np.float32(0.92), np.float32(np.sqrt(1 - 0.92**2))
+    stem = os.path.join(d, "sim")
+    acc = None
+    with open(stem + ".bed", "wb") as f:
+        f.write(BED_PREFIX_COL_MAJ)
+        for r0 in range(0, m, chunk):
+            noise = rng.standard_normal((min(chunk, m - r0), n), dtype=np.float32)
+            for i in range(len(noise)):
+                acc = noise[i] if acc is None else ar * acc + scale * noise[i]
+                noise[i] = acc
+            pfreq = 1 / (1 + np.exp(-noise * np.float32(0.8)))
+            G = (rng.random(noise.shape, dtype=np.float32) < pfreq).astype(np.uint8)
+            G += rng.random(noise.shape, dtype=np.float32) < pfreq
+            for k in wanted:
+                if r0 <= k < r0 + len(G):
+                    rows_of[k] = G[k - r0].astype(np.float32)
+            f.write(pack_bed_rows(G).tobytes())
+    chrom = np.repeat(np.arange(1, len(chr_sizes) + 1), chr_sizes)
+    with open(stem + ".bim", "w") as f:
+        f.writelines(f"{chrom[i]}\trs{i}\t0\t{100 * i}\tA\tG\n" for i in range(m))
+    with open(stem + ".fam", "w") as f:
+        f.writelines(f"F{i} I{i} 0 0 0 -9\n" for i in range(n))
+    sets = {}
+    for name, pairs in planted.items():
+        Y = noise_y.copy()
+        for t, k in pairs:
+            Y[t] += 0.2 * (rows_of[k] - rows_of[k].mean()) / rows_of[k].std()
+        Y = (Y - Y.mean(1, keepdims=True)) / Y.std(1, keepdims=True)
+        phen = stem + (".phen" if name == "uniform" else f"_{name}.phen")
+        with open(phen, "w") as f:
+            f.write("FID\tIID\t" + "\t".join(f"T{t}" for t in range(p)) + "\n")
+            body = np.char.mod("%.6f", Y.T)
+            f.writelines(f"F{i}\tI{i}\t" + "\t".join(body[i]) + "\n" for i in range(n))
+        sets[name] = (phen, pairs, Y)
+    return stem, sets, rows_of
+
+
+COMMANDS = ("prep-bed", "block", "cusk-all", "merge-block-outputs", "sepselect")
+
+
+def five_commands(stem: str, out: str, max_block: int, corr_width: int, alpha: float, n: int,
+                  device: str, phen: str | None = None,
+                  only: tuple = COMMANDS) -> tuple[dict, str, str]:
+    """prep-bed, block, cusk-all, merge-block-outputs and sepselect through
+    the CLI (or those of them that `only` names), with its defaults for the
+    levels and `stem.phen` unless another phenotype file is given; returns
+    each command's wall (ending in a device synchronisation), the `.blocks`
+    path and what cusk-all printed."""
+    blocks = f"{stem}_m{max_block}.blocks"
+    dev = ["--device", device]
+    argv_of = {
+        "prep-bed": ["prep-bed", stem],
+        "block": ["block", stem, str(max_block), "10", str(corr_width), *dev],
+        "cusk-all": ["cusk-all", blocks, stem, phen or stem + ".phen", str(alpha),
+                     str(MAX_LEVEL), str(MAX_LEVEL_TWO), str(DEPTH), out, *dev],
+        "merge-block-outputs": ["merge-block-outputs", out, blocks],
+        "sepselect": ["sepselect", os.path.join(out, "merged_blocks"), str(alpha), str(n)],
+    }
+    walls, printed = {}, io.StringIO()
+    for name in COMMANDS:
+        if name not in only:
+            continue
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(printed if name == "cusk-all" else sys.stdout):
+            cli_main(argv_of[name])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+    return walls, blocks, printed.getvalue()
+
+
+def assert_same_text_matrix(tag: str, a: bytes, b: bytes) -> float:
+    """Two MatrixMarket files of correlations: the same header, the same
+    (row, col) in the same order, values within 1e-6; returns the largest
+    |difference|."""
+    la, lb = a.decode().splitlines(), b.decode().splitlines()
+    assert la[:2] == lb[:2] and len(la) == len(lb), f"{tag}: headers or lengths differ"
+    worst = 0.0
+    for x, y in zip(la[2:], lb[2:]):
+        (i, j, u), (k, l, v) = x.split(), y.split()
+        assert (i, j) == (k, l), f"{tag}: entry {x!r} against {y!r}"
+        diff = abs(float(u) - float(v))
+        assert diff <= 1e-6, f"{tag}: entry ({i}, {j}): {u} against {v}"
+        worst = max(worst, diff)
+    return worst
+
+
+def phase_small_commands(tmp: str) -> None:
+    """The five commands over 600 markers on 3 chromosomes x 2,000
+    individuals x 3 traits (blocks of at most 64 markers, band width 16: the
+    two-step route of `block`) with --device cuda and with --device cpu, each
+    on its own copy of the fileset: the same `.blocks` bytes, block decision
+    files and merged and sepselect files, every correlation within 1e-6;
+    every kernel launch of the card's run bit-identical to its plain
+    version."""
+    t0 = time.perf_counter()
+    src = os.path.join(tmp, "cmd_small")
+    os.makedirs(src)
+    write_ar1_fileset(src, [250, 200, 150], 2000, 3, seed=3, chunk=256)
+    files, walls, blocks_bytes = {}, {}, {}
+    with EveryLaunchChecked() as chk:
+        for dev in ("cuda", "cpu"):
+            d = os.path.join(tmp, f"cmd_small_{dev}")
+            shutil.copytree(src, d)
+            out = os.path.join(d, "out")
+            os.makedirs(out)
+            walls[dev], blocks, _ = five_commands(os.path.join(d, "sim"), out, 64, 16, ALPHA,
+                                                  2000, dev)
+            blocks_bytes[dev] = open(blocks, "rb").read()
+            files[dev] = block_files(out)
+    assert chk.checked > 0, "the small fileset launched no kernel"
+    assert blocks_bytes["cuda"] == blocks_bytes["cpu"], ".blocks differ between cuda and cpu"
+    n_blocks = blocks_bytes["cpu"].count(b"\n")
+    assert n_blocks >= 9 and len({line.split()[0] for line in
+                                  blocks_bytes["cpu"].decode().splitlines()}) == 3
+    text = [f for f in files["cpu"] if f.endswith("_scm.mtx")]
+    assert sorted(text) == ["max_sep_min_pc_scm.mtx", "merged_blocks_scm.mtx"], sorted(files["cpu"])
+    worst = assert_same_outputs(
+        "small five commands", {f: b for f, b in files["cuda"].items() if f not in text},
+        {f: b for f, b in files["cpu"].items() if f not in text})
+    for f in text:
+        worst = max(worst, assert_same_text_matrix(f, files["cuda"][f], files["cpu"][f]))
+    emit("small_commands", t0, blocks=n_blocks, files=len(files["cpu"]), cuda_equals_cpu=True,
+         corr_max_abs_diff=worst, launches_bit_identical=chk.checked, wall_s_by_command=walls)
+
+
+def profile_block(stem: str, blocks: str, out_path: str, unprofiled_wall_s: float) -> dict:
+    """A second run of `block`'s work (`make_blocks` into another file, which
+    must come out the same) under torch.profiler: device time of the int8
+    products beside their bound, and the idle share against the unprofiled
+    wall of the command."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        make_blocks(stem, MAX_BLOCK, CORR_WIDTH, out_path=out_path, verbose=False, device="cuda")
+        torch.cuda.synchronize()
+    assert open(out_path, "rb").read() == open(blocks, "rb").read(), "a second block run differs"
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in events),
+                  key=lambda r: -r[1])
+    busy_s = sum(us for _, us, _ in rows) / 1e6
+    gemm = [r for r in rows if re.search(r"(?i)gemm|cutlass|xmma|cublas|imma|i8", r[0])]
+    tiles = -(-MCHR // ROW_TILE)
+    ops = tiles * 9 * ROW_TILE * (ROW_TILE + CORR_WIDTH) * N11K * 2
+    # what the band alone needs: every marker against the `width` after it;
+    # the rest of each tile's rectangle, and the last tile's pad rows, are
+    # computed and thrown away
+    band_ops = MCHR * CORR_WIDTH * 9 * N11K * 2
+    return {
+        "int8_products": {"kernels": [{"name": k[:80], "ms": us / 1e3, "launches": c}
+                                      for k, us, c in gemm],
+                          "device_ms": sum(us for _, us, _ in gemm) / 1e3,
+                          "bound_ms": ops / PEAK_INT8 * 1e3, "operations": ops, "tiles": tiles,
+                          "band_operations": band_ops,
+                          "band_bound_ms": band_ops / PEAK_INT8 * 1e3,
+                          "bound_source": "NVIDIA H100 SXM data sheet, 1,979 TOP/s dense int8"},
+        "device_busy_s": busy_s, "device_idle_share": 1.0 - busy_s / unprofiled_wall_s,
+        "top": [{"name": k[:80], "ms": us / 1e3, "launches": c} for k, us, c in rows[:8]],
+    }
+
+
+_BLOCK_LINE = re.compile(
+    r"\[run_all_blocks\] \[(\S+)\] retained (\d+|no) markers, prepare ([\d.]+) s, "
+    r"finish ([\d.]+) s, device memory ([\d.]+) GiB now, ([\d.]+) GiB at most")
+
+
+def chromosome_run(tag: str, stem: str, out: str, phen_set: tuple, rows_of: dict, only: tuple,
+                   held: bool) -> tuple[dict, str, dict]:
+    """The commands `only` names over the 50,000-marker chromosome with one
+    phenotype file, the launch counts set to 0 just before and read just
+    after; checks the blocks, the per-block lines, the device memory (unless
+    the launches' tensors are held for the comparison afterwards) and the
+    merged skeleton, and prints the phase's line. Returns the launches of
+    every kernel, the `.blocks` path and the commands' walls."""
+    t0 = time.perf_counter()
+    phen, planted, Y = phen_set
+    os.makedirs(out)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    walls, blocks, printed = five_commands(stem, out, MAX_BLOCK, CORR_WIDTH, ALPHA, N11K, "cuda",
+                                           phen=phen, only=only)
+    launches = {**{f"local_sweep_l{l}": n for l, n in ls.launches.items()}, **pg.launches,
+                **{f"hetcor_sweep_l{l}": n for l, n in hs.launches.items()}}
+    sys.stdout.write(printed)
+    per_block = [
+        {"block": g[0], "retained_markers": None if g[1] == "no" else int(g[1]),
+         "prepare_s": float(g[2]), "finish_s": float(g[3]), "device_memory_gib": float(g[4]),
+         "max_device_memory_gib": float(g[5])} for g in _BLOCK_LINE.findall(printed)]
+
+    sizes = [b.block_size() for b in read_blocks_from_file(blocks)]
+    assert sum(sizes) == MCHR and max(sizes) <= MAX_BLOCK and len(sizes) >= 5, sizes
+    assert len(per_block) == len(sizes), (len(per_block), printed[-2000:])
+    # a block without a significant marker-trait correlation is skipped by design
+    assert sum(b["retained_markers"] is not None for b in per_block) >= 5, per_block
+    for name in ("local_sweep_l1", "local_sweep_l2", "local_sweep_l3"):
+        assert launches[name] > 0, f"{name} was never launched over the chromosome: {launches}"
+    if not held:  # the allocation must not grow from block to block
+        grown = per_block[-1]["device_memory_gib"] - per_block[0]["device_memory_gib"]
+        assert grown < 0.25, f"device memory grew by {grown} GiB over the blocks: {per_block}"
+
+    gm = merge_block_outputs(blocks, out)
+    sparse_of = {row: ix for ix, row in gm.gmi.items()}
+    adjacent = sum(
+        k in sparse_of and ((sparse_of[k], t + 1) in gm.sam or (t + 1, sparse_of[k]) in gm.sam)
+        for t, k in planted)
+    # what a plain threshold screen of the planted pairs' correlations gives
+    th0 = threshold_array(N11K, ALPHA)[0]
+    screen = sum(fisher_z(np.corrcoef(rows_of[k], Y[t])[0, 1]) >= th0 for t, k in planted)
+    assert adjacent > 0, "no planted marker is adjacent to its trait"
+    assert gm.num_phen == P11K and gm.num_var == P11K + sum(
+        b["retained_markers"] or 0 for b in per_block)
+    merged = {f: hashlib.sha256(data).hexdigest() for f, data in block_files(out).items()
+              if f.startswith(("merged_blocks", "max_sep_min_pc"))}
+    assert len(merged) >= 8, sorted(merged)
+    emit("chr50k_commands_" + tag, t0, phen=os.path.basename(phen), wall_s_by_command=walls,
+         blocks=len(sizes), block_sizes=sizes,
+         largest_block_within_tol=MAX_BLOCK - max(sizes) <= 100, per_block=per_block,
+         launches=launches, merged_variables=gm.num_var, merged_edges=len(gm.sam),
+         planted_adjacent=int(adjacent), planted=len(planted), planted_pass_plain_screen=int(screen),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         sha256={"blocks": hashlib.sha256(open(blocks, "rb").read()).hexdigest(), **merged})
+    return launches, blocks, walls
+
+
+def phase_chromosome(tmp: str, rho_th: dict, loops: dict, clock_hz: float) -> dict:
+    """One chromosome of 50,000 markers x 16,384 individuals x 8 traits
+    through the shell entry points on the card, with the CLI's defaults.
+    First the five commands with the generator's own phenotypes (planted
+    markers uniform over the chromosome): the walls, the blocks and the
+    launches as they come. Then `cusk-all`, `merge-block-outputs` and
+    `sepselect` again over the same blocks with the phenotypes whose planted
+    markers share a locus, the input that takes stage 2 to level 4 and so to
+    the gather: its launches are counted apart, `local_sweep` and
+    `panel_gather` must both be launched, and the largest launch of each is
+    held bitwise to its plain version on the same tensors and timed beside
+    its bound. Returns, per kernel name, what the `kernels` line carries
+    under the chromosome's keys."""
+    t0 = time.perf_counter()
+    d = os.path.join(tmp, "chr50k")
+    os.makedirs(d)
+    stem, sets, rows_of = write_ar1_fileset(d, [MCHR], N11K, P11K, seed=4, locus=LOCUS)
+    emit("chr50k_data", t0, markers=MCHR, individuals=N11K, traits=P11K,
+         bed_bytes=os.path.getsize(stem + ".bed"), locus=LOCUS)
+
+    uniform, blocks, walls = chromosome_run("uniform", stem, os.path.join(d, "out"),
+                                            sets["uniform"], rows_of, COMMANDS, held=False)
+    with Recorder() as rec:
+        locus, _, _ = chromosome_run("locus", stem, os.path.join(d, "out_locus"), sets["locus"],
+                                     rows_of, COMMANDS[2:], held=True)
+    assert locus["panel_gather"] > 0, f"the gather was never launched over the chromosome: {locus}"
+
+    # the largest launch of each kernel on this path, kernel vs plain on the card
+    t0 = time.perf_counter()
+    entries = (sweep_entries("chr50k", rec, locus, rho_th, loops, clock_hz)
+               + gather_entries("chr50k", rec, locus))
+    del rec
+    torch.cuda.empty_cache()
+    emit("largest_launch_chr50k", t0, kernels=entries)
+
+    t0 = time.perf_counter()
+    emit("profile_block", t0, unprofiled_wall_s=walls["block"],
+         **profile_block(stem, blocks, os.path.join(d, "again.blocks"), walls["block"]))
+    drop = ("name", "route", "source", "replaces", "launches")
+    return {k["name"]: {"launches_chr50k": k["launches"],
+                        "launches_chr50k_uniform": uniform[k["name"]],
+                        "chr50k": {key: v for key, v in k.items() if key not in drop}}
+            for k in entries}
+
+
+def profile_run(tag: str, run, unprofiled_wall_s: float) -> dict:
     """A second (warm) run of a slice under torch.profiler: device time by
     kernel name. The profiler slows the host, not the device, so the idle
     share is taken against the unprofiled run's wall."""
@@ -1116,7 +1602,7 @@ def profile_run(tag: str, run, unprofiled_wall_s: float) -> None:
     busy_s = sum(us for _, us in rows) / 1e6
     # device time of all launches of each hand-written kernel on the slice
     totals = {e.key[:80]: {"total_ms": e.self_device_time_total / 1e3, "launches": e.count}
-              for e in events if re.search(r"sweep\w*_kernel|gather", e.key)}
+              for e in events if re.search(r"sweep\w*_kernel|panel_\w+_kernel", e.key)}
     emit("profile_" + tag, t0, profiled_wall_s=wall, unprofiled_wall_s=unprofiled_wall_s,
          device_busy_s=busy_s, device_idle_share=1.0 - busy_s / unprofiled_wall_s,
          top=[{"name": k[:80], "ms": us / 1e3} for k, us in rows[:10]], kernel_totals=totals)
@@ -1159,6 +1645,8 @@ def main() -> int:
     del panels
     torch.cuda.empty_cache()
 
+    expected = [f"local_sweep_l{l}" for l in (1, 2, 3)] + ["panel_gather"] + [
+        f"hetcor_sweep_l{l}" for l in (1, 2, 3)] + ["panel_gather2"]
     tmp = tempfile.mkdtemp(prefix="cigwas_chip_smoke_")
     try:
         phase_small_reference(tmp)
@@ -1168,20 +1656,31 @@ def main() -> int:
         kernels += kernels_ss
         # device time of all launches of each sweep level on its slice, from
         # the profiled second run, whose launches must repeat the first's
-        per_level = {"local_sweep": level_totals(profile_run("cusk", cusk_again, wall), "sweep"),
-                     "hetcor_sweep": level_totals(
-                         profile_run("cuskss", cuskss_again, wall_ss), "hsweep")}
+        totals = {"cusk": profile_run("cusk", cusk_again, wall),
+                  "cuskss": profile_run("cuskss", cuskss_again, wall_ss)}
+        per_level = {"local_sweep": level_totals(totals["cusk"], "sweep"),
+                     "hetcor_sweep": level_totals(totals["cuskss"], "hsweep")}
+        # each slice launches one gather entry only: all its panel_rows_kernel records
+        gathers = {name: [v for key, v in totals[run].items() if "panel_rows_kernel" in key]
+                   for name, run in (("panel_gather", "cusk"), ("panel_gather2", "cuskss"))}
         for k in kernels:
             m = re.fullmatch(r"(local_sweep|hetcor_sweep)_l(\d)", k["name"])
             if m:
                 k["total_ms"], n = per_level[m.group(1)][int(m.group(2))]
                 assert n == k["launches"], (k["name"], n, k["launches"])
+            else:  # the profiler may miss a record of a kernel this short: say how many
+                k["total_ms"] = sum(v["total_ms"] for v in gathers[k["name"]])
+                k["total_records"] = sum(v["launches"] for v in gathers[k["name"]])
+                assert 0 < k["total_records"] <= k["launches"], (k["name"], k["total_records"])
+        phase_small_commands(tmp)
+        of_chr = phase_chromosome(tmp, rho_th, loops, clock_hz)
+        for k in kernels:  # the chromosome's launches and checks under keys of their own
+            k.update(of_chr.get(k["name"], {}))
+        assert sorted(of_chr) == sorted(expected[:4]), sorted(of_chr)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "cigwas_tpu"))
     assert not bad, bad
-    expected = [f"local_sweep_l{l}" for l in (1, 2, 3)] + ["panel_gather"] + [
-        f"hetcor_sweep_l{l}" for l in (1, 2, 3)] + ["panel_gather2"]
     assert [k["name"] for k in kernels] == expected, [k["name"] for k in kernels]
     assert all(k["launches"] > 0 for k in kernels)
     print(json.dumps({"kernels": kernels}))

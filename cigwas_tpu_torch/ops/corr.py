@@ -1,10 +1,14 @@
-"""Correlation panels on the device (`cigwas_tpu.ops.corr`, main path).
+"""Correlation panels on the device (`cigwas_tpu.ops.corr`).
 
 * marker–marker Kendall tau-b ("npn"): the 3x3 genotype contingency table of
   every marker pair comes from one exact int8 product ``X (3m, n) @ X.T``
   (``torch._int_mm``); tau-b maps to Pearson by sin(pi/2 * tau);
 * marker–phenotype Pearson with NaN masking and phenotype–phenotype Pearson
-  are float32 matmuls in full precision (TF32 off, asserted).
+  are float32 matmuls in full precision (TF32 off, asserted);
+* the banded variant (LD blocking) computes row tiles of the dense panel
+  against the next ``row_tile + width`` markers and gathers the width-w
+  diagonal band; at chromosome scale each tile's band is reduced to its
+  |corr| row sums on the device and one (m,) vector is fetched at the end.
 
 Panels come back as device tensors padded to a PANEL_ALIGN multiple (or a
 ``row_tile`` multiple for the striped panel) with layout [m markers,
@@ -32,6 +36,7 @@ from cigwas_tpu_torch.ops.decode import (
 # samples per decode step (bytes chunk = this / 4)
 DEFAULT_SAMPLE_CHUNK = 131072
 # marker rows per Kendall stripe of the striped panel (a PANEL_ALIGN multiple)
+# and per output tile of the full and banded Kendall panels
 PANEL_ROW_TILE = 2048
 # decode the whole (3m, n) int8 one-hot once when it fits this many bytes;
 # beyond it each stripe re-decodes its sample chunks
@@ -112,6 +117,136 @@ def _kendall_from_counts(counts: torch.Tensor, mr: int, mc: int) -> torch.Tensor
     )
     tau = (p - q) / torch.sqrt((p + q + t) * (p + q + u))
     return torch.sin(math.pi / 2 * tau)
+
+
+def _kendall_counts_block(rows_bytes: torch.Tensor, cols_bytes: torch.Tensor,
+                          n_chunks: int) -> torch.Tensor:
+    """Accumulated 3x3 contingency counts between two packed byte panels.
+
+    rows_bytes (mr, B), cols_bytes (mc, B) uint8 on one device ->
+    channel-major counts (3mr, 3mc) f32 (see `_kendall_from_counts`). Each
+    sample chunk is decoded on the fly and feeds one int8 product with exact
+    int32 accumulation."""
+    mr, B = rows_bytes.shape
+    mc = cols_bytes.shape[0]
+    cb = B // n_chunks
+    counts = torch.zeros((3 * mr, 3 * mc), dtype=torch.int32, device=rows_bytes.device)
+    for c in range(n_chunks):
+        ra = geno_onehot(unpack_bed_codes(rows_bytes[:, c * cb : (c + 1) * cb]))
+        ca = geno_onehot(unpack_bed_codes(cols_bytes[:, c * cb : (c + 1) * cb]))
+        counts += contingency_counts(ra.reshape(3 * mr, -1), ca.reshape(3 * mc, -1))
+    return counts.to(torch.float32)
+
+
+def kendall_npn_corr(bed_bytes, num_samples: int, row_tile: int | None = None,
+                     sample_chunk: int = DEFAULT_SAMPLE_CHUNK, device="cuda") -> np.ndarray:
+    """Full (m, m) marker-marker npn correlation panel, as a host array
+    (`cu_corr_pearson_npn`, `corr_host.cu:1094-1197`): the packed bytes are
+    uploaded once and each row tile is one product against all markers."""
+    device = resolve(device)
+    bed_bytes = np.asarray(bed_bytes, dtype=np.uint8)
+    m = bed_bytes.shape[0]
+    sample_chunk = _sample_chunk(bed_bytes.shape[1], sample_chunk)
+    padded, n_chunks = _prep_bytes(bed_bytes, num_samples, sample_chunk)
+    if row_tile is None:
+        row_tile = m if m <= 4096 else PANEL_ROW_TILE
+    padded = _pad_rows(padded, row_tile, PAD_BYTE)
+    mp = padded.shape[0]
+    cols = torch.tensor(padded, device=device)
+    out = np.empty((mp, m), dtype=np.float32)
+    for t0 in range(0, mp, row_tile):
+        counts = _kendall_counts_block(cols[t0 : t0 + row_tile], cols, n_chunks)
+        out[t0 : t0 + row_tile] = _kendall_from_counts(counts, row_tile, mp)[:, :m].cpu().numpy()
+    res = out[:m]
+    np.fill_diagonal(res, 1.0)
+    return res
+
+
+def _upload_banded(bed_bytes, num_samples: int, corr_width: int, row_tile: int,
+                   sample_chunk: int, device):
+    """The chromosome's packed bytes on the device, once, for the banded
+    tiles: rows padded to a ``row_tile`` multiple plus the band width with
+    all-missing markers, so every tile slices the same tensor (pad markers
+    give NaN correlations, which the band masks to 0). Returns (bytes
+    (mp + width, B) uint8, m, row_tile, n_chunks)."""
+    bed_bytes = np.asarray(bed_bytes, dtype=np.uint8)
+    m = bed_bytes.shape[0]
+    sample_chunk = _sample_chunk(bed_bytes.shape[1], sample_chunk)
+    padded, n_chunks = _prep_bytes(bed_bytes, num_samples, sample_chunk)
+    row_tile = min(row_tile, m)
+    mp = -(-m // row_tile) * row_tile
+    big = _pad_rows(padded, mp + corr_width, PAD_BYTE)[: mp + corr_width]
+    return torch.tensor(big, device=device), m, row_tile, n_chunks
+
+
+def _banded_tile(cols_all: torch.Tensor, t0: int, m: int, row_tile: int, width: int,
+                 n_chunks: int) -> torch.Tensor:
+    """The (row_tile, width) band of the tile whose first marker is t0:
+    band[i, j] = corr(t0 + i, t0 + i + 1 + j), 0 where that column falls off
+    the chromosome or the correlation is not finite."""
+    rows_bytes = cols_all[t0 : t0 + row_tile]
+    cols_bytes = cols_all[t0 : t0 + row_tile + width]
+    counts = _kendall_counts_block(rows_bytes, cols_bytes, n_chunks)
+    corr = _kendall_from_counts(counts, row_tile, row_tile + width)
+    dev = cols_all.device
+    # local column of corr(i, i + 1 + j) is i_local + 1 + j
+    gather_ix = (torch.arange(1, width + 1, device=dev)[None, :]
+                 + torch.arange(row_tile, device=dev)[:, None])
+    band = torch.gather(corr, 1, gather_ix.clamp(max=corr.shape[1] - 1))
+    return torch.where(((t0 + gather_ix) >= m) | ~torch.isfinite(band), 0.0, band)
+
+
+def kendall_npn_corr_banded(bed_bytes, num_samples: int, corr_width: int,
+                            row_tile: int = PANEL_ROW_TILE,
+                            sample_chunk: int = DEFAULT_SAMPLE_CHUNK,
+                            device="cuda") -> np.ndarray:
+    """Banded npn correlations as a host array: band[i, j] = corr(i, i+1+j),
+    zero past the end (`cal_mcorrk_banded`, `corr_host.cu:1199-1319`), as
+    row-tile x (tile + width) panel products."""
+    device = resolve(device)
+    cols_all, m, row_tile, n_chunks = _upload_banded(
+        bed_bytes, num_samples, corr_width, row_tile, sample_chunk, device)
+    band = np.zeros((m, corr_width), dtype=np.float32)
+    for t0 in range(0, m, row_tile):
+        rt = min(row_tile, m - t0)
+        tile = _banded_tile(cols_all, t0, m, row_tile, corr_width, n_chunks)
+        band[t0 : t0 + rt] = tile[:rt].cpu().numpy()
+    return band
+
+
+def banded_row_abs_sums(band: np.ndarray) -> np.ndarray:
+    """Forward-band |corr| row sums used by LD blocking (`corr_host.cu:112-128`)."""
+    return np.abs(band).sum(axis=1).astype(np.float32)
+
+
+def _banded_tile_abs_sums(cols_all: torch.Tensor, t0: int, m: int, row_tile: int,
+                          width: int, n_chunks: int) -> torch.Tensor:
+    """One banded tile reduced to its (row_tile,) |corr| row sums on the
+    device: the band never leaves it."""
+    return _banded_tile(cols_all, t0, m, row_tile, width, n_chunks).abs().sum(dim=1)
+
+
+def banded_row_abs_sums_streaming(bed_bytes, num_samples: int, corr_width: int,
+                                  row_tile: int = PANEL_ROW_TILE,
+                                  sample_chunk: int = DEFAULT_SAMPLE_CHUNK,
+                                  device="cuda") -> np.ndarray:
+    """`banded_row_abs_sums(kendall_npn_corr_banded(...))` with the band
+    reduced on the device: the tiles are queued one after the other without
+    a fetch, each writes its row sums into one (m,) tensor, and that vector
+    is fetched once at the end.
+
+    The f32 row sums reduce in torch's order instead of numpy's pairwise
+    order, so they can differ from the two-step host route in the last
+    digits (rtol 2e-5 / atol 1e-4 between the routes); `make_blocks` takes
+    this route only at chromosome scale."""
+    device = resolve(device)
+    cols_all, m, row_tile, n_chunks = _upload_banded(
+        bed_bytes, num_samples, corr_width, row_tile, sample_chunk, device)
+    sums = torch.zeros(-(-m // row_tile) * row_tile, dtype=torch.float32, device=device)
+    for t0 in range(0, m, row_tile):
+        sums[t0 : t0 + row_tile] = _banded_tile_abs_sums(
+            cols_all, t0, m, row_tile, corr_width, n_chunks)
+    return sums[:m].cpu().numpy()
 
 
 def _phen_arrays(phen: np.ndarray, n_padded: int, device):

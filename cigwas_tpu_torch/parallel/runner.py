@@ -1,0 +1,81 @@
+"""Multi-block cusk runner (`cigwas_tpu.parallel.runner`).
+
+The reference leaves block-level data parallelism to the user ("run mps cusk
+once for each block", `README.md:57`). This runner makes it first class:
+one process iterates its partition of the block list on one device; several
+processes, one per partition (`num_partitions`, `partition_index`), each take
+their load-balanced share via
+:func:`cigwas_tpu_torch.parallel.block_scheduler.partition_blocks`, and the
+merge step reads all block outputs from the shared file system, so no
+communication between them is needed.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cigwas_tpu_torch.io import read_blocks_from_file
+from cigwas_tpu_torch.parallel.block_scheduler import partition_blocks
+from cigwas_tpu_torch.pipelines.cusk import CuskContext
+from cigwas_tpu_torch.utils.timing import StageTimer
+
+
+def run_all_blocks(
+    phen_path: str,
+    bed_base_path: str,
+    block_path: str,
+    alpha: float,
+    max_level: int,
+    max_level_two: int,
+    depth: int,
+    outdir: str,
+    num_partitions: int | None = None,
+    partition_index: int | None = None,
+    verbose: bool = True,
+    device="cuda",
+) -> dict:
+    """Run cusk for every block assigned to this partition.
+
+    Returns {block_file_string: num_markers_retained | None (skipped)}.
+    With verbose, each block ends with one line: its retained markers, the
+    walls of its prepare and finish, and the card's allocated memory now and
+    at most (since the process began or the last reset of the peak
+    statistics).
+    """
+    blocks = read_blocks_from_file(block_path)
+    mine = partition_blocks(blocks, num_partitions, partition_index)
+    index_of = {b.to_file_string(): i for i, b in enumerate(blocks)}
+    timer = StageTimer(verbose=verbose, prefix="[run_all_blocks] ")
+    results: dict = {}
+    ctx = CuskContext(
+        phen_path, bed_base_path, block_path, alpha, max_level, max_level_two,
+        depth, outdir, verbose=verbose, device=device,
+    )
+
+    def prepare(b):
+        with timer.stage("prepare " + b.to_file_string()):
+            return ctx.prepare(index_of[b.to_file_string()])
+
+    # software pipeline: block i+1's host IO and the launch of its pre-screen
+    # sums happen before block i's finish, so the disk read queues device
+    # work behind the previous block's and waits for no result
+    prepared = prepare(mine[0]) if mine else None
+    for i, b in enumerate(mine):
+        stem = b.to_file_string()
+        cur, prepared = prepared, (prepare(mine[i + 1]) if i + 1 < len(mine) else None)
+        with timer.stage(stem):
+            res = ctx.finish(cur)
+        results[stem] = None if res is None else res.num_markers()
+        if verbose:
+            walls = timer.as_dict()
+            now, most = ((torch.cuda.memory_allocated(ctx.device),
+                          torch.cuda.max_memory_allocated(ctx.device))
+                         if ctx.device.type == "cuda" else (0, 0))
+            kept = "no" if res is None else results[stem]
+            print(f"[run_all_blocks] [{stem}] retained {kept} markers, "
+                  f"prepare {walls['prepare ' + stem]:.3f} s, finish {walls[stem]:.3f} s, "
+                  f"device memory {now / 2**30:.3f} GiB now, {most / 2**30:.3f} GiB at most",
+                  flush=True)
+    if verbose:
+        print(f"[run_all_blocks] processed {len(mine)} blocks in {timer.total():.2f}s")
+    return results

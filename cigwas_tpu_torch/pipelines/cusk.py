@@ -1,6 +1,8 @@
-"""Individual-level per-block skeleton pipeline (`cigwas_tpu.pipelines.cusk`).
+"""Individual-level per-block skeleton pipeline and LD blocking
+(`cigwas_tpu.pipelines.cusk`).
 
-Loads one LD block of genotypes and standardized phenotypes, builds the
+`make_blocks` tiles every chromosome into approximately unlinked marker
+blocks from the banded correlations' row sums. `cusk` loads one LD block of genotypes and standardized phenotypes, builds the
 correlation panel on the device, runs the two-stage PC-stable skeleton with
 the ancestor reduction in between, and writes the `.mdim/.ixs/.adj/.corr/.sep`
 block output — the same files as the JAX package's `cusk`.
@@ -13,6 +15,7 @@ import time
 import numpy as np
 import torch
 
+from cigwas_tpu_torch.blocking import block_chr
 from cigwas_tpu_torch.device import resolve
 from cigwas_tpu_torch.constants import ML
 from cigwas_tpu_torch.io import (
@@ -23,11 +26,20 @@ from cigwas_tpu_torch.io import (
     make_path,
     read_blocks_from_file,
     read_floats_from_line_range,
+    write_marker_blocks_to_file,
 )
-from cigwas_tpu_torch.io.bed import check_path, check_prepped_bed_path, read_block_from_bed
+from cigwas_tpu_torch.io.bed import (
+    check_path,
+    check_prepped_bed_path,
+    read_block_from_bed,
+    read_chr_from_bed,
+)
 from cigwas_tpu_torch.ops.corr import (
+    banded_row_abs_sums,
+    banded_row_abs_sums_streaming,
     corr_panel_device,
     corr_panel_device_tiled,
+    kendall_npn_corr_banded,
     marker_phen_corr_from_sums,
     marker_phen_sums,
 )
@@ -36,6 +48,54 @@ from cigwas_tpu_torch.utils.stats import fisher_z, threshold_array
 
 # largest block built by the single-pass panel; larger ones go through stripes
 FUSED_PANEL_MAX = 4096
+# chromosomes with more markers reduce the band to its row sums on the device
+STREAMING_MIN_MARKERS = 16384
+
+
+def make_blocks(
+    bed_base_path: str,
+    max_block_size: int,
+    corr_width: int,
+    out_path: str | None = None,
+    verbose: bool = True,
+    device="cuda",
+    streaming_min_markers: int = STREAMING_MIN_MARKERS,
+) -> list:
+    """Partition every chromosome into LD blocks (`make_blocks`,
+    `cli.cpp:362-411`) and append them to ``out_path`` (default
+    ``<bfiles>_m<max_block_size>.blocks``).
+
+    The reference takes a device-memory budget to size its streaming
+    batches; here the banded correlation tiles internally, so there is no
+    such parameter. A chromosome of more than ``streaming_min_markers``
+    markers has its band reduced to row sums on the device
+    (:func:`banded_row_abs_sums_streaming`); a smaller one fetches the band
+    and sums it on the host."""
+    device = resolve(device)
+    bfiles = BfilesBase(bed_base_path)
+    dims = BedDims.from_bfiles(bfiles)
+    bim = BimInfo(bfiles.bim())
+    out_path = out_path or bfiles.blocks(max_block_size)
+
+    all_blocks = []
+    for cid in bim.chr_ids:
+        if verbose:
+            print(f"[chr {cid}] loading bed data")
+        chr_bed = read_chr_from_bed(bfiles.bed(), cid, bim, dims)
+        if verbose:
+            print(f"[chr {cid}] computing banded correlations")
+        if chr_bed.shape[0] > streaming_min_markers:
+            row_sums = banded_row_abs_sums_streaming(
+                chr_bed, dims.num_samples, corr_width, device=device)
+        else:
+            band = kendall_npn_corr_banded(chr_bed, dims.num_samples, corr_width, device=device)
+            row_sums = banded_row_abs_sums(band)
+        blocks = block_chr(row_sums, cid, max_block_size)
+        if verbose:
+            print(f"[chr {cid}] partitioned into {len(blocks)} blocks")
+        write_marker_blocks_to_file(blocks, out_path)
+        all_blocks.extend(blocks)
+    return all_blocks
 
 
 def cusk(

@@ -47,11 +47,12 @@ def _genotypes(rng, m, n):
 
 
 def _prep_blocks(stem: str) -> str:
-    from cigwas_tpu.pipelines import make_blocks
-    from cigwas_tpu.prep import prep_bed
+    """prep-bed and blocks of at most 64 markers, both by the port."""
+    from cigwas_tpu_torch.pipelines import make_blocks
+    from cigwas_tpu_torch.prep import prep_bed
 
     prep_bed(stem)
-    make_blocks(stem, 64, 16, verbose=False)
+    make_blocks(stem, 64, 16, verbose=False, device="cpu")
     return stem + "_m64.blocks"
 
 
@@ -70,6 +71,17 @@ def e2e_dataset(tmp_path_factory):
     stem = str(tmp / "sim")
     _write_plink(stem, G, Y)
     return tmp, stem, _prep_blocks(stem)
+
+
+def test_block_file_matches_jax(e2e_dataset):
+    """The port's `.blocks` file, which the drives below run on, is the JAX
+    `make_blocks`' byte for byte."""
+    from cigwas_tpu.pipelines import make_blocks as jax_make_blocks
+
+    tmp, stem, blockfile = e2e_dataset
+    jax_blocks = str(tmp / "jax.blocks")
+    jax_make_blocks(stem, 64, 16, out_path=jax_blocks, verbose=False)
+    assert open(blockfile, "rb").read() == open(jax_blocks, "rb").read()
 
 
 def test_cusk_block_outputs_match_jax(e2e_dataset):
@@ -106,7 +118,7 @@ def test_cusk_recovers_planted_structure(tmp_path):
     """The drive of the verify skill (seed 42, n=4000, m=120, effects
     0.4/0.5, alpha 1e-3) through the port: SNP10->T1, SNP50->T2 and T1-T2
     come back."""
-    from cigwas_tpu.merge import merge_block_outputs
+    from cigwas_tpu_torch.merge import merge_block_outputs
     from cigwas_tpu_torch.pipelines import cusk
 
     rng = np.random.default_rng(42)

@@ -100,6 +100,54 @@ def test_port_cuskss_never_imports_jax():
     assert proc.stdout.strip().endswith("OK")
 
 
+_IMPORT_ALL = textwrap.dedent(
+    """
+    import importlib, pkgutil, sys
+    import cigwas_tpu_torch
+    names = sorted(m.name for m in pkgutil.walk_packages(cigwas_tpu_torch.__path__,
+                                                         "cigwas_tpu_torch."))
+    for name in names:
+        importlib.import_module(name)
+    for new in ("blocking", "cli", "merge.merge_blocks", "merge.sepselect",
+                "parallel.block_scheduler", "parallel.runner", "utils.timing"):
+        assert "cigwas_tpu_torch." + new in names, new
+    from cigwas_tpu_torch.cli import build_parser
+    build_parser().parse_args(["sepselect", "stem", "1e-4", "10"])
+    bad = sorted(k for k in sys.modules
+                 if k.split(".")[0] in ("jax", "jaxlib", "cigwas_tpu", "pandas", "triton"))
+    assert not bad, bad
+    from cigwas_tpu_torch.ops.kernels import build
+    assert build._loaded == {}
+    print("OK", len(names))
+    """
+)
+
+
+def test_every_module_imports_without_jax_pandas_or_a_build():
+    """A fresh interpreter imports every module of the port (the CLI, the
+    blocking, merge and parallel packages among them) and builds its
+    parser: neither jax, nor the JAX package, nor pandas, nor triton is
+    imported, and no kernel is built."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().startswith("OK")
+
+
+def test_port_sources_name_no_jax_import():
+    """No source line of the port or of chip_smoke.py imports jax or the JAX
+    package (the grep of the port's rules, over every file)."""
+    import pathlib
+    import re
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    files = sorted((root / "cigwas_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    assert len(files) > 40
+    pat = re.compile(r"^\s*(import|from) (jax|cigwas_tpu|pandas)\b", re.MULTILINE)
+    bad = [str(f) for f in files if pat.search(f.read_text())]
+    assert not bad, bad
+
+
 def test_kernel_modules_import_without_building():
     """Importing the kernel wrapper compiles nothing (this machine may have
     no nvcc); the build happens at the first launch on a card."""

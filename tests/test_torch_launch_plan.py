@@ -1,4 +1,5 @@
-"""The launch plans of the two sweep kernels, checked without a card.
+"""The launch plans of the sweep kernels and of the gather, checked without
+a card.
 
 ``local_sweep.plan(l, d)`` and ``hetcor_sweep.plan(l, d)`` choose, in Python,
 everything a launch of ``csrc/local_sweep.cu`` / ``csrc/hetcor_sweep.cu``
@@ -10,13 +11,15 @@ For every level and every bucket width d in 1..7000 (and a few far beyond)
 the plan must be launchable on sm_90 (threads a multiple of 32 and at most
 1024, shared memory within the 232,448-byte opt-in limit and at least what
 the route's layout needs), cover every slot y < d, and change route exactly
-at the stated widths.
+at the stated widths. ``panel_gather.plan(d, panels)`` is held to the
+launcher of ``csrc/panel_gather.cu`` likewise, for every width 1..13000.
 """
 
 import pytest
 
 from cigwas_tpu_torch.ops.kernels import hetcor_sweep as hs
 from cigwas_tpu_torch.ops.kernels import local_sweep as ls
+from cigwas_tpu_torch.ops.kernels import panel_gather as pg
 from cigwas_tpu_torch.ops.kernels.local_sweep import (
     ROUTE_DIRECT,
     ROUTE_ROWS_L2,
@@ -129,3 +132,64 @@ def test_plan_refuses_what_the_kernel_does_not_serve(kernel):
     for l, d in ((0, 8), (4, 8), (1, 0), (2, -3)):
         with pytest.raises(ValueError):
             module.plan(l, d)
+
+
+# --- panel_gather -------------------------------------------------------------
+
+GATHER_RANGES = [(1, 256), (257, 2048), (2049, 6000), (6001, 13000)]
+
+
+def _check_gather(d: int, panels: int) -> None:
+    """What `launch` of csrc/panel_gather.cu refuses, and what the kernel
+    needs to cover every row once."""
+    p = pg.plan(d, panels)
+    where = f"panel_gather d={d} panels={panels}: {p}"
+    rows, d4 = d + 1, -(-d // 4) * 4
+    assert p["route"] == pg.ROUTE_ROWS, where
+    assert 32 <= p["threads"] <= 1024 and p["threads"] % 32 == 0, where
+    assert p["nodes_per_cta"] >= 1 and p["rows_per_cta"] >= 1, where
+    assert 0 <= p["smem_bytes"] <= pg.SMEM_OPT_IN, where
+    assert p["staged"] == 1, where  # every list up to d = 58112 fits the opt-in limit
+    assert p["smem_bytes"] >= 4 * p["nodes_per_cta"] * d4, where
+    warps = p["threads"] // 32
+    if p["nodes_per_cta"] > 1:
+        # whole nodes, a warp each, no warp without a node in a full CTA
+        assert p["rows_per_cta"] == rows and warps <= p["nodes_per_cta"], where
+        assert 2 * p["nodes_per_cta"] * rows * d * panels <= pg.CTA_ELEMS, where
+    else:
+        ctas = -(-rows // p["rows_per_cta"])
+        assert (ctas - 1) * p["rows_per_cta"] < rows <= ctas * p["rows_per_cta"], where
+        # a run repays staging the list, unless the node has fewer rows
+        assert p["rows_per_cta"] >= min(rows, pg.MIN_ROWS), where
+        # a bucket of 16,384 nodes stays within the grid limit
+        assert 16384 * ctas <= 2**31 - 1, where
+        lanes_row = min(32, d // 4 if d % 4 == 0 else d)
+        assert warps <= max(1, -(-p["rows_per_cta"] // (32 // lanes_row))), where
+
+
+@pytest.mark.parametrize("d_range", GATHER_RANGES, ids=[f"d{a}-{b}" for a, b in GATHER_RANGES])
+@pytest.mark.parametrize("panels", [1, 2])
+def test_gather_plan_is_launchable_for_every_width(panels, d_range):
+    for d in range(d_range[0], d_range[1] + 1):
+        _check_gather(d, panels)
+
+
+def test_gather_plan_shares_and_splits_at_the_stated_widths():
+    """Narrow nodes share a CTA up to d = 44 (one panel) and 31 (two); the
+    lists leave shared memory only past d = 58112; the main paths' 8-node
+    launches are one or two CTAs."""
+    assert pg.plan(44, 1)["nodes_per_cta"] == 2 and pg.plan(45, 1)["nodes_per_cta"] == 1
+    assert pg.plan(31, 2)["nodes_per_cta"] == 2 and pg.plan(32, 2)["nodes_per_cta"] == 1
+    assert pg.plan(8, 1)["nodes_per_cta"] >= 8 and pg.plan(16, 2)["nodes_per_cta"] == 7
+    assert pg.plan(128, 2)["rows_per_cta"] == 26  # 129 rows over 5 CTAs
+    assert pg.plan(58112, 1)["staged"] == 1 and pg.plan(58112, 1)["smem_bytes"] == 232448
+    assert pg.plan(58113, 1) == {**pg.plan(58113, 1), "staged": 0, "smem_bytes": 0}
+    for d in (20000, 58112, 58113, 100000):
+        p = pg.plan(d, 2)
+        assert p["rows_per_cta"] == pg.MIN_ROWS and p["threads"] == 256
+
+
+def test_gather_plan_refuses_what_the_kernel_does_not_serve():
+    for d, panels in ((0, 1), (-4, 2), (8, 0), (8, 3)):
+        with pytest.raises(ValueError):
+            pg.plan(d, panels)

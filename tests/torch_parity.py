@@ -173,3 +173,83 @@ def tied_case(seed: int, hetcor: bool = False):
     N = hetcor_ess(rng, 6, 4000, nan_frac=0.2)[ix][:, ix].copy()
     t_ix = rng.integers(0, 2, 6).astype(np.int32)[ix].copy()
     return C, N, t_ix, node_ixs, nbrs, deg
+
+
+# --- files of the shell entry points -----------------------------------------
+
+
+def std(v: np.ndarray) -> np.ndarray:
+    return (v - v.mean()) / v.std()
+
+
+def genotypes(rng, m: int, n: int, missing: float = 0.0) -> np.ndarray:
+    """(m, n) float32 genotypes in {0, 1, 2} with allele frequencies uniform
+    in [0.1, 0.5]; a share `missing` of the entries NaN."""
+    maf = rng.uniform(0.1, 0.5, m)
+    G = (rng.random((m, n)) < maf[:, None]).astype(np.float32) + (
+        rng.random((m, n)) < maf[:, None]
+    )
+    if missing:
+        G[rng.random((m, n)) < missing] = np.nan
+    return G
+
+
+def write_plink(stem: str, G: np.ndarray, Y: np.ndarray, chr_sizes=None) -> None:
+    """`.bed/.bim/.fam/.phen` of genotypes G (m, n) and standardized traits
+    Y (p, n), read alike by both packages; chr_sizes splits the markers over
+    chromosomes "1", "2", ... (default: one chromosome)."""
+    from cigwas_tpu_torch.constants import BED_PREFIX_COL_MAJ
+    from cigwas_tpu_torch.io.bed import encode_bed_values
+
+    m, n = G.shape
+    chr_sizes = [m] if chr_sizes is None else list(chr_sizes)
+    assert sum(chr_sizes) == m
+    chrom = np.repeat(np.arange(1, len(chr_sizes) + 1), chr_sizes)
+    with open(stem + ".bed", "wb") as f:
+        f.write(BED_PREFIX_COL_MAJ)
+        f.write(encode_bed_values(G).tobytes())
+    with open(stem + ".bim", "w") as f:
+        f.writelines(f"{chrom[i]}\trs{i}\t0\t{1000 * i}\tA\tG\n" for i in range(m))
+    with open(stem + ".fam", "w") as f:
+        f.writelines(f"F{i} I{i} 0 0 0 -9\n" for i in range(n))
+    with open(stem + ".phen", "w") as f:
+        f.write("FID\tIID\t" + "\t".join(f"T{t}" for t in range(len(Y))) + "\n")
+        for i in range(n):
+            f.write(f"F{i}\tI{i}\t" + "\t".join(f"{v:.6f}" for v in Y[:, i]) + "\n")
+
+
+def planted_dataset(stem: str, seed: int, n: int, chr_sizes, effects: dict,
+                    trait_effects: dict | None = None) -> None:
+    """A fileset with planted structure: effects {trait: [(marker, beta)]},
+    trait_effects {trait: [(earlier trait, beta)]}, unit noise, traits
+    standardized."""
+    rng = np.random.default_rng(seed)
+    G = genotypes(rng, sum(chr_sizes), n)
+    Y = []
+    for t in sorted(effects):
+        y = sum(b * std(G[k]) for k, b in effects[t]) + rng.normal(size=n)
+        for s, b in (trait_effects or {}).get(t, []):
+            y = y + b * std(Y[s])
+        Y.append(y)
+    write_plink(stem, G, np.stack([std(y) for y in Y]), chr_sizes)
+
+
+def dir_bytes(path) -> dict:
+    """{file name: bytes} of a directory's files."""
+    import os
+
+    return {f: open(os.path.join(path, f), "rb").read() for f in sorted(os.listdir(path))
+            if os.path.isfile(os.path.join(path, f))}
+
+
+def assert_block_dirs_match(got: dict, exp: dict) -> None:
+    """Two block output directories: `.corr` within atol 1e-6 (the panel's
+    float32 values, see tests/test_torch_corr.py), every other file
+    byte-identical."""
+    assert got.keys() == exp.keys() and exp
+    for f, data in exp.items():
+        if f.endswith(".corr"):
+            np.testing.assert_allclose(np.frombuffer(got[f], np.float32),
+                                       np.frombuffer(data, np.float32), rtol=0, atol=1e-6)
+        else:
+            assert got[f] == data, f"{f} differs"
