@@ -43,11 +43,14 @@ and the script exits non-zero:
    time by kernel, the idle share, and ``total_ms``: the device time of all
    launches of each sweep level on its slice;
 7. the shell entry points, each through ``cigwas_tpu_torch.cli.main``:
-   ``prep-bed``, ``block``, ``cusk-all``, ``merge-block-outputs`` and
-   ``sepselect`` over a small fileset (600 markers on 3 chromosomes x 2,000
-   individuals) with ``--device cuda`` and with ``--device cpu``, which must
-   leave the same ``.blocks`` bytes, block decision files and merged files
-   (correlations within 1e-6), every kernel launch checked; then over one
+   ``prep-bed``, ``block``, ``cusk-all``, ``merge-block-outputs``,
+   ``sepselect``, ``orient-v-structs``, ``srfci``, ``mvivw`` and ``mvivw
+   -s`` over a small fileset (600 markers on 3 chromosomes x 2,000
+   individuals, one planted trait edge) with ``--device cuda`` and with
+   ``--device cpu``, which must leave the same ``.blocks`` bytes, block
+   decision files, merged files, PAG and IV candidates (correlations within
+   1e-6, the MVIVW tables' effects and p within 1e-5), every kernel launch
+   checked; then the first five over one
    chromosome of 50,000 markers x 16,384 individuals x 8 traits with the
    CLI's defaults (the streaming route of ``block``, every block through
    ``cusk-all``), with each command's wall, the blocks, the int8 products'
@@ -61,7 +64,17 @@ and the script exits non-zero:
    share a locus per trait (a coverage input, shaped to reach the gather):
    that run's launches are counted apart, and the largest launch of each
    kernel on it is held bitwise to its plain version and timed beside its
-   bound, as on the older slices.
+   bound, as on the older slices;
+8. the genome: four such chromosomes (200,000 markers, an 819.2 MB
+   ``.bed``) x 16,384 individuals x 8 traits with a planted trait DAG, made
+   and packed on the card from a seeded ``torch.Generator``, through all
+   nine commands with the CLI's defaults and then ``estimate_ace``,
+   ``check_ivs`` and ``run_mvivw_filtered`` through the Python API: walls
+   per command and per block, device memory per block, launches, planted
+   markers and trait edges recovered, the PAG's trait marks, each planted
+   edge's MVIVW effect and p (positive and below 1e-3, or the run fails) and
+   ACE, the files' sha256; then ``cusk-all`` again under torch.profiler for
+   the device's idle share.
 
 Both older slices print the sha256 of their decision files beside those of
 the commit before the gather's redesign, so two versions of the kernels can
@@ -83,7 +96,9 @@ address, since a 4-byte read moves a sector, plus lists and outputs, over
 many of the timed launches it kept a record of). The kernels of the
 chromosome's path carry its launches (``launches_chr50k``, and
 ``launches_chr50k_uniform`` for the uniform phenotypes) and, under
-``chr50k``, the same measurements on its largest launch.
+``chr50k``, the same measurements on its largest launch; they and the
+one-panel gather also carry the genome's (``launches_genome``, 0 allowed for
+the gather).
 
 ``--kernels-only`` stops after phase 3.
 
@@ -110,6 +125,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from scipy.io import mmread
 
 from cigwas_tpu_torch import require_cuda
 from cigwas_tpu_torch.cli import main as cli_main
@@ -128,7 +144,9 @@ from cigwas_tpu_torch.ops.kernels import build
 from cigwas_tpu_torch.ops.kernels import hetcor_sweep as hs
 from cigwas_tpu_torch.ops.kernels import local_sweep as ls
 from cigwas_tpu_torch.ops.kernels import panel_gather as pg
-from cigwas_tpu_torch.merge import merge_block_outputs
+from cigwas_tpu_torch.merge import check_ivs, merge_block_outputs
+from cigwas_tpu_torch.mr import run_mvivw_filtered
+from cigwas_tpu_torch.pag.davs import estimate_ace
 from cigwas_tpu_torch.pipelines import CuskssArgs, cusk, cuskss, make_blocks
 from cigwas_tpu_torch.prep import prep_bed
 from cigwas_tpu_torch.skeleton import cupc
@@ -328,7 +346,8 @@ def kernel_device_ms(fn, reps: int, pattern: str) -> dict:
     over reps runs of fn(), from torch.profiler's kernel records: the time
     on the card alone, where `cuda_ms` of a short kernel measures how fast
     the host can enqueue it. `device_records` is how many of the reps
-    launches the profiler kept a record of: the mean is over those."""
+    launches the profiler kept a record of: the mean is over those, and
+    device_ms is None where it kept none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -340,12 +359,13 @@ def kernel_device_ms(fn, reps: int, pattern: str) -> dict:
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and re.search(pattern, e.key)]
-    # the profiler drops some records of launches this close together (as few
-    # as 5 of 20 were seen kept): the mean is over those it kept
+    # the profiler drops some records of launches this close together (2 of 20
+    # were seen kept late in a run, and none after the genome's profiled
+    # run): the mean is over those it kept
     count = sum(e.count for e in events)
-    assert 0 < count <= reps, (pattern, [(e.key, e.count) for e in events])
-    return {"device_ms": sum(e.self_device_time_total for e in events) / 1e3 / count,
-            "device_records": count, "device_reps": reps}
+    assert count <= reps, (pattern, [(e.key, e.count) for e in events])
+    return {"device_ms": sum(e.self_device_time_total for e in events) / 1e3 / count
+            if count else None, "device_records": count, "device_reps": reps}
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -742,10 +762,7 @@ def write_block(d: str, G: np.ndarray, Y: np.ndarray) -> tuple[str, str]:
         f.writelines(f"1\trs{i}\t0\t{100 * i}\tA\tG\n" for i in range(m))
     with open(stem + ".fam", "w") as f:
         f.writelines(f"F{i} I{i} 0 0 0 -9\n" for i in range(n))
-    with open(stem + ".phen", "w") as f:
-        f.write("FID\tIID\t" + "\t".join(f"T{t}" for t in range(len(Y))) + "\n")
-        body = np.char.mod("%.6f", Y.T)
-        f.writelines(f"F{i}\tI{i}\t" + "\t".join(body[i]) + "\n" for i in range(n))
+    write_phen(stem + ".phen", Y)
     prep_bed(stem)
     blocks = stem + ".blocks"
     write_marker_blocks_to_file([MarkerBlock("1", 0, m - 1)], blocks)
@@ -822,16 +839,23 @@ def assert_same_outputs(tag: str, cuda: dict, cpu: dict) -> float:
     return worst
 
 
+# the kernel wrappers the skeleton calls through `cupc`
+WRAPPED = ("local_sweep", "hetcor_local_sweep", "gather_local_panels",
+                  "gather_local_panels2")
+
+
 class EveryLaunchChecked:
     """While it is open, every levels 1-3 launch and every gather launch the
     skeleton makes on the card is held bitwise against its plain version on
     the same tensors (the small runs are cheap enough for that), so that a
     cuda run that decides otherwise than the cpu run is traced to the launch
-    at fault, if one is."""
+    at fault, if one is. `names` narrows the check to those wrappers (the
+    genome's gathers)."""
 
-    def __init__(self):
+    def __init__(self, names: tuple = WRAPPED):
         self.checked = 0
-        self.saved = {n: getattr(cupc, n) for n in Recorder.NAMES}
+        self.names = names
+        self.saved = {n: getattr(cupc, n) for n in WRAPPED}
 
     def __enter__(self):
         saved = self.saved
@@ -872,7 +896,8 @@ class EveryLaunchChecked:
         for n, fn in (("local_sweep", local_sweep), ("hetcor_local_sweep", hetcor_local_sweep),
                       ("gather_local_panels", gather_local_panels),
                       ("gather_local_panels2", gather_local_panels2)):
-            setattr(cupc, n, fn)
+            if n in self.names:
+                setattr(cupc, n, fn)
         return self
 
     def __exit__(self, *exc):
@@ -909,12 +934,9 @@ class Recorder:
     The wrappers themselves count the launches. The re-runs are timed as the
     skeleton launches them, with the lists' range already checked."""
 
-    NAMES = ("local_sweep", "hetcor_local_sweep", "gather_local_panels",
-             "gather_local_panels2")
-
     def __init__(self):
         self.largest: dict = {}
-        self.saved = {n: getattr(cupc, n) for n in self.NAMES}
+        self.saved = {n: getattr(cupc, n) for n in WRAPPED}
 
     def _keep(self, key, work, args):
         if work > self.largest.get(key, (0,))[0]:
@@ -958,6 +980,12 @@ def reset_all_launches() -> None:
     ls.reset_launches()
     hs.reset_launches()
     pg.reset_launches()
+
+
+def all_launches() -> dict:
+    """The launch count of every kernel entry, sweeps by level."""
+    return {**{f"local_sweep_l{l}": n for l, n in ls.launches.items()}, **pg.launches,
+            **{f"hetcor_sweep_l{l}": n for l, n in hs.launches.items()}}
 
 
 def kernel_entry(name: str, module, replaces: str, launches: int, err: float, ms: float,
@@ -1285,7 +1313,7 @@ def pack_bed_rows(G: np.ndarray) -> np.ndarray:
 
 
 def write_ar1_fileset(d: str, chr_sizes: list, n: int, p: int, seed: int, chunk: int = 2000,
-                      locus: int | None = None):
+                      locus: int | None = None, trait_dag: dict | None = None):
     """The generator of `ar1_block` (AR(1) LD 0.92, genotypes from a logistic
     allele frequency, 5 planted markers per trait at effect 0.2) in row
     chunks that carry the AR(1) state and write the `.bed` as they go, so
@@ -1298,6 +1326,8 @@ def write_ar1_fileset(d: str, chr_sizes: list, n: int, p: int, seed: int, chunk:
     the 11k block do: a trait with five marker neighbours is what takes
     stage 2 to level 4, and so to the gather. That file is a coverage input,
     shaped for the kernel; the uniform one is what the generator gives.
+    trait_dag ({child: [(parent, beta)]}, parents before children) adds
+    trait -> trait effects on the standardised parents (`add_trait_dag`).
     Returns (stem, {"uniform" | "locus": (phen path, planted [(trait,
     marker)], Y)}, the planted markers' genotype rows)."""
     m = sum(chr_sizes)
@@ -1329,49 +1359,82 @@ def write_ar1_fileset(d: str, chr_sizes: list, n: int, p: int, seed: int, chunk:
                 if r0 <= k < r0 + len(G):
                     rows_of[k] = G[k - r0].astype(np.float32)
             f.write(pack_bed_rows(G).tobytes())
-    chrom = np.repeat(np.arange(1, len(chr_sizes) + 1), chr_sizes)
-    with open(stem + ".bim", "w") as f:
-        f.writelines(f"{chrom[i]}\trs{i}\t0\t{100 * i}\tA\tG\n" for i in range(m))
-    with open(stem + ".fam", "w") as f:
-        f.writelines(f"F{i} I{i} 0 0 0 -9\n" for i in range(n))
+    write_bim_fam(stem, chr_sizes, n)
     sets = {}
     for name, pairs in planted.items():
         Y = noise_y.copy()
         for t, k in pairs:
             Y[t] += 0.2 * (rows_of[k] - rows_of[k].mean()) / rows_of[k].std()
+        Y = add_trait_dag(Y, trait_dag or {})
         Y = (Y - Y.mean(1, keepdims=True)) / Y.std(1, keepdims=True)
         phen = stem + (".phen" if name == "uniform" else f"_{name}.phen")
-        with open(phen, "w") as f:
-            f.write("FID\tIID\t" + "\t".join(f"T{t}" for t in range(p)) + "\n")
-            body = np.char.mod("%.6f", Y.T)
-            f.writelines(f"F{i}\tI{i}\t" + "\t".join(body[i]) + "\n" for i in range(n))
+        write_phen(phen, Y)
         sets[name] = (phen, pairs, Y)
     return stem, sets, rows_of
 
 
+def write_bim_fam(stem: str, chr_sizes: list, n: int) -> None:
+    """`.bim` of the markers over chromosomes "1", "2", ... (chr_sizes) and
+    `.fam` of n individuals."""
+    chrom = np.repeat(np.arange(1, len(chr_sizes) + 1), chr_sizes)
+    with open(stem + ".bim", "w") as f:
+        f.writelines(f"{chrom[i]}\trs{i}\t0\t{100 * i}\tA\tG\n" for i in range(len(chrom)))
+    with open(stem + ".fam", "w") as f:
+        f.writelines(f"F{i} I{i} 0 0 0 -9\n" for i in range(n))
+
+
+def add_trait_dag(Y, trait_dag: dict):
+    """Y[t] += beta * standardised Y[s] for every edge s -> t of the trait
+    DAG {t: [(s, beta)]}, children after their parents."""
+    for t in sorted(trait_dag):
+        for s, beta in trait_dag[t]:
+            Y[t] = Y[t] + beta * (Y[s] - Y[s].mean()) / Y[s].std()
+    return Y
+
+
+def write_phen(path: str, Y: np.ndarray) -> None:
+    """A `.phen` of traits Y (p, n): header, two ID columns, %.6f values."""
+    p, n = Y.shape
+    with open(path, "w") as f:
+        f.write("FID\tIID\t" + "\t".join(f"T{t}" for t in range(p)) + "\n")
+        body = np.char.mod("%.6f", Y.T)
+        f.writelines(f"F{i}\tI{i}\t" + "\t".join(body[i]) + "\n" for i in range(n))
+
+
 COMMANDS = ("prep-bed", "block", "cusk-all", "merge-block-outputs", "sepselect")
+# the host chain after sepselect: orient-v-structs rewrites max_sep_min_pc
+# with the v-structures (sepselect alone leaves its PAG empty), srfci orients
+# the trait PAG, mvivw writes the MR tables (plain, then -s)
+CHAIN = COMMANDS + ("orient-v-structs", "srfci", "mvivw", "mvivw -s")
+PLAIN_MVIVW = "merged_blocks_mvivw_results_plain.tsv"
 
 
-def five_commands(stem: str, out: str, max_block: int, corr_width: int, alpha: float, n: int,
-                  device: str, phen: str | None = None,
-                  only: tuple = COMMANDS) -> tuple[dict, str, str]:
-    """prep-bed, block, cusk-all, merge-block-outputs and sepselect through
-    the CLI (or those of them that `only` names), with its defaults for the
-    levels and `stem.phen` unless another phenotype file is given; returns
-    each command's wall (ending in a device synchronisation), the `.blocks`
-    path and what cusk-all printed."""
+def run_commands(stem: str, out: str, max_block: int, corr_width: int, alpha: float, n: int,
+                 device: str, phen: str | None = None,
+                 only: tuple = COMMANDS) -> tuple[dict, str, str]:
+    """The commands of CHAIN that `only` names, in CHAIN's order, through
+    the CLI with its defaults for the levels and `stem.phen` unless another
+    phenotype file is given; the plain mvivw table, which `mvivw -s`
+    overwrites, is kept as PLAIN_MVIVW in out. Returns each command's wall
+    (ending in a device synchronisation), the `.blocks` path and what
+    cusk-all printed."""
     blocks = f"{stem}_m{max_block}.blocks"
     dev = ["--device", device]
+    merged, pag = os.path.join(out, "merged_blocks"), os.path.join(out, "max_sep_min_pc")
     argv_of = {
         "prep-bed": ["prep-bed", stem],
         "block": ["block", stem, str(max_block), "10", str(corr_width), *dev],
         "cusk-all": ["cusk-all", blocks, stem, phen or stem + ".phen", str(alpha),
                      str(MAX_LEVEL), str(MAX_LEVEL_TWO), str(DEPTH), out, *dev],
         "merge-block-outputs": ["merge-block-outputs", out, blocks],
-        "sepselect": ["sepselect", os.path.join(out, "merged_blocks"), str(alpha), str(n)],
+        "sepselect": ["sepselect", merged, str(alpha), str(n)],
+        "orient-v-structs": ["orient-v-structs", merged, str(alpha), str(n)],
+        "srfci": ["srfci", pag, str(alpha), str(n)],
+        "mvivw": ["mvivw", merged, str(n)],
+        "mvivw -s": ["mvivw", merged, str(n), "-s"],
     }
     walls, printed = {}, io.StringIO()
-    for name in COMMANDS:
+    for name in CHAIN:
         if name not in only:
             continue
         t = time.perf_counter()
@@ -1380,7 +1443,33 @@ def five_commands(stem: str, out: str, max_block: int, corr_width: int, alpha: f
         if device == "cuda":
             torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t
+        if name == "mvivw":
+            shutil.copy(merged + "_mvivw_results.tsv", os.path.join(out, PLAIN_MVIVW))
     return walls, blocks, printed.getvalue()
+
+
+def read_tsv(data: bytes) -> tuple[list, list]:
+    """(header, rows as lists of strings) of a tab-separated table."""
+    lines = data.decode().splitlines()
+    return lines[0].split("\t"), [line.split("\t") for line in lines[1:]]
+
+
+def assert_same_mvivw(tag: str, a: bytes, b: bytes, tol: float = 1e-5) -> float:
+    """Two `_mvivw_results.tsv`: the same header and rows, equal integer and
+    TRUE/FALSE columns, effect and p within tol; returns the largest
+    |difference|."""
+    (ha, ra), (hb, rb) = read_tsv(a), read_tsv(b)
+    assert ha == hb == ["source", "sink", "effect", "p", "sk_adj", "num_snps"], (tag, ha, hb)
+    assert len(ra) == len(rb) and ra, f"{tag}: {len(ra)} rows against {len(rb)}"
+    worst = 0.0
+    for x, y in zip(ra, rb):
+        assert [x[i] for i in (0, 1, 4, 5)] == [y[i] for i in (0, 1, 4, 5)], (tag, x, y)
+        for i in (2, 3):
+            u, v = float(x[i] or "nan"), float(y[i] or "nan")
+            same_nan = math.isnan(u) and math.isnan(v)
+            assert same_nan or abs(u - v) <= tol, f"{tag}: {x} against {y}"
+            worst = max(worst, 0.0 if same_nan else abs(u - v))
+    return worst
 
 
 def assert_same_text_matrix(tag: str, a: bytes, b: bytes) -> float:
@@ -1399,18 +1488,24 @@ def assert_same_text_matrix(tag: str, a: bytes, b: bytes) -> float:
     return worst
 
 
+SMALL_TRAIT_DAG = {1: [(0, 0.5)]}  # T0 -> T1, as the verify drive plants it
+
+
 def phase_small_commands(tmp: str) -> None:
-    """The five commands over 600 markers on 3 chromosomes x 2,000
-    individuals x 3 traits (blocks of at most 64 markers, band width 16: the
-    two-step route of `block`) with --device cuda and with --device cpu, each
-    on its own copy of the fileset: the same `.blocks` bytes, block decision
-    files and merged and sepselect files, every correlation within 1e-6;
-    every kernel launch of the card's run bit-identical to its plain
-    version."""
+    """The whole chain (CHAIN: prep-bed to mvivw -s) over 600 markers on 3
+    chromosomes x 2,000 individuals x 3 traits with one planted trait edge
+    T0 -> T1 (blocks of at most 64 markers, band width 16: the two-step
+    route of `block`) with --device cuda and with --device cpu, each on its
+    own copy of the fileset: the same `.blocks` bytes, block decision files,
+    merged and sepselect files, PAG and IV candidates, every correlation
+    within 1e-6 and both mvivw tables' effects and p within 1e-5 (the merged
+    correlations may already differ by 1e-6); every kernel launch of the
+    card's run bit-identical to its plain version."""
     t0 = time.perf_counter()
     src = os.path.join(tmp, "cmd_small")
     os.makedirs(src)
-    write_ar1_fileset(src, [250, 200, 150], 2000, 3, seed=3, chunk=256)
+    write_ar1_fileset(src, [250, 200, 150], 2000, 3, seed=13, chunk=256,
+                      trait_dag=SMALL_TRAIT_DAG)
     files, walls, blocks_bytes = {}, {}, {}
     with EveryLaunchChecked() as chk:
         for dev in ("cuda", "cpu"):
@@ -1418,8 +1513,8 @@ def phase_small_commands(tmp: str) -> None:
             shutil.copytree(src, d)
             out = os.path.join(d, "out")
             os.makedirs(out)
-            walls[dev], blocks, _ = five_commands(os.path.join(d, "sim"), out, 64, 16, ALPHA,
-                                                  2000, dev)
+            walls[dev], blocks, _ = run_commands(os.path.join(d, "sim"), out, 64, 16, ALPHA,
+                                                  2000, dev, only=CHAIN)
             blocks_bytes[dev] = open(blocks, "rb").read()
             files[dev] = block_files(out)
     assert chk.checked > 0, "the small fileset launched no kernel"
@@ -1429,13 +1524,23 @@ def phase_small_commands(tmp: str) -> None:
                                   blocks_bytes["cpu"].decode().splitlines()}) == 3
     text = [f for f in files["cpu"] if f.endswith("_scm.mtx")]
     assert sorted(text) == ["max_sep_min_pc_scm.mtx", "merged_blocks_scm.mtx"], sorted(files["cpu"])
+    tables = ["merged_blocks_mvivw_results.tsv", PLAIN_MVIVW]
+    for f in ("max_sep_min_pc_estimated_pag.mtx", "merged_blocks_iv_candidates.csv", *tables):
+        assert f in files["cpu"], (f, sorted(files["cpu"]))
     worst = assert_same_outputs(
-        "small five commands", {f: b for f, b in files["cuda"].items() if f not in text},
-        {f: b for f, b in files["cpu"].items() if f not in text})
+        "small commands", {f: b for f, b in files["cuda"].items() if f not in text + tables},
+        {f: b for f, b in files["cpu"].items() if f not in text + tables})
     for f in text:
         worst = max(worst, assert_same_text_matrix(f, files["cuda"][f], files["cpu"][f]))
+    mr_worst = max(assert_same_mvivw(f, files["cuda"][f], files["cpu"][f]) for f in tables)
+    _, rows = read_tsv(files["cpu"][PLAIN_MVIVW])
+    planted = [r for r in rows if r[:2] == ["1", "2"]][0]
+    pag = mmread(io.BytesIO(files["cpu"]["max_sep_min_pc_estimated_pag.mtx"])).toarray()
     emit("small_commands", t0, blocks=n_blocks, files=len(files["cpu"]), cuda_equals_cpu=True,
-         corr_max_abs_diff=worst, launches_bit_identical=chk.checked, wall_s_by_command=walls)
+         corr_max_abs_diff=worst, mvivw_max_abs_diff=mr_worst,
+         launches_bit_identical=chk.checked, wall_s_by_command=walls,
+         planted_edge_mvivw={"effect": float(planted[2]), "p": float(planted[3])},
+         trait_pag=pag[:3, :3].astype(int).tolist())
 
 
 def profile_block(stem: str, blocks: str, out_path: str, unprofiled_wall_s: float) -> dict:
@@ -1480,6 +1585,16 @@ _BLOCK_LINE = re.compile(
     r"finish ([\d.]+) s, device memory ([\d.]+) GiB now, ([\d.]+) GiB at most")
 
 
+def block_lines(printed: str) -> list:
+    """The per-block lines `cusk-all` printed: retained markers (None for a
+    block its pre-screen skipped), prepare and finish walls, device memory
+    after the block and at most."""
+    return [
+        {"block": g[0], "retained_markers": None if g[1] == "no" else int(g[1]),
+         "prepare_s": float(g[2]), "finish_s": float(g[3]), "device_memory_gib": float(g[4]),
+         "max_device_memory_gib": float(g[5])} for g in _BLOCK_LINE.findall(printed)]
+
+
 def chromosome_run(tag: str, stem: str, out: str, phen_set: tuple, rows_of: dict, only: tuple,
                    held: bool) -> tuple[dict, str, dict]:
     """The commands `only` names over the 50,000-marker chromosome with one
@@ -1494,15 +1609,11 @@ def chromosome_run(tag: str, stem: str, out: str, phen_set: tuple, rows_of: dict
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
-    walls, blocks, printed = five_commands(stem, out, MAX_BLOCK, CORR_WIDTH, ALPHA, N11K, "cuda",
+    walls, blocks, printed = run_commands(stem, out, MAX_BLOCK, CORR_WIDTH, ALPHA, N11K, "cuda",
                                            phen=phen, only=only)
-    launches = {**{f"local_sweep_l{l}": n for l, n in ls.launches.items()}, **pg.launches,
-                **{f"hetcor_sweep_l{l}": n for l, n in hs.launches.items()}}
+    launches = all_launches()
     sys.stdout.write(printed)
-    per_block = [
-        {"block": g[0], "retained_markers": None if g[1] == "no" else int(g[1]),
-         "prepare_s": float(g[2]), "finish_s": float(g[3]), "device_memory_gib": float(g[4]),
-         "max_device_memory_gib": float(g[5])} for g in _BLOCK_LINE.findall(printed)]
+    per_block = block_lines(printed)
 
     sizes = [b.block_size() for b in read_blocks_from_file(blocks)]
     assert sum(sizes) == MCHR and max(sizes) <= MAX_BLOCK and len(sizes) >= 5, sizes
@@ -1584,15 +1695,237 @@ def phase_chromosome(tmp: str, rho_th: dict, loops: dict, clock_hz: float) -> di
             for k in entries}
 
 
-def profile_run(tag: str, run, unprofiled_wall_s: float) -> dict:
+# the genome: four chromosomes of the 50k chromosome's size, and a planted
+# trait DAG: a collider T0 -> T2 <- T1, then T2 -> T3, and T4 -> T5 (T6 and
+# T7 have no trait parent), each at 0.3 on the standardised parent
+GENOME_CHRS = [MCHR] * 4
+GENOME_DAG = {2: [(0, 0.3), (1, 0.3)], 3: [(2, 0.3)], 5: [(4, 0.3)]}
+GENOME_EDGES = [(s, t) for t in sorted(GENOME_DAG) for s, _ in GENOME_DAG[t]]
+# seed 5 plants a marker at row 203, in the genome's first block: merge takes
+# the trait-trait edges from the first block alone (the reference's
+# behaviour, `merge/merge_blocks.py`), and the pre-screen skips a block that
+# holds no marker associated with a trait
+GENOME_SEED = 5
+GENOME_MIN_BLOCKS = 20
+
+
+def pack_bed_rows_device(G: torch.Tensor) -> torch.Tensor:
+    """`pack_bed_rows` on the tensor's device: (rows, n) uint8 genotypes in
+    {0, 1, 2} -> packed `.bed` bytes (codes 3, 2, 0, four to a byte)."""
+    codes = 3 - G - (G == 2).to(torch.uint8)
+    pad = (-codes.shape[1]) % 4
+    if pad:
+        codes = torch.cat([codes, codes.new_zeros(len(codes), pad)], dim=1)
+    c = codes.view(len(codes), -1, 4)
+    return c[:, :, 0] | (c[:, :, 1] << 2) | (c[:, :, 2] << 4) | (c[:, :, 3] << 6)
+
+
+def write_genome_fileset(d: str):
+    """The generator of `write_ar1_fileset` (AR(1) LD 0.92, genotypes from a
+    logistic allele frequency, 5 planted markers per trait at effect 0.2,
+    uniform over all markers) over GENOME_CHRS x N11K individuals x P11K
+    traits with GENOME_DAG, made on the card from a `torch.Generator` seeded
+    with GENOME_SEED and packed there, so that only the packed rows cross to
+    the host. Each chromosome starts its AR(1) chain from a stationary
+    state; within a chunk of rows the chain is one product with the
+    lower-triangular matrix of the AR weights. The planted markers come from
+    numpy's generator of the same seed. Returns (stem, planted [(trait,
+    marker)], Y (p, n) as written, the planted markers' genotype rows on the
+    card)."""
+    dev, n, p, chunk = torch.device("cuda"), N11K, P11K, 1024
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(GENOME_SEED)
+    rng = np.random.default_rng(GENOME_SEED)
+    planted = [(t, int(k)) for t in range(p) for k in rng.integers(0, sum(GENOME_CHRS), 5)]
+    wanted = sorted({k for _, k in planted})
+    ar = 0.92
+    i = torch.arange(chunk, dtype=torch.float64, device=dev)
+    W = (math.sqrt(1 - ar**2) * ar ** (i[:, None] - i[None, :]).clamp(min=0)).tril().float()
+    carry = (ar ** (i + 1)).float()
+    rows_of = {}
+    stem = os.path.join(d, "sim")
+    with open(stem + ".bed", "wb") as f:
+        f.write(BED_PREFIX_COL_MAJ)
+        r0 = 0
+        for size in GENOME_CHRS:
+            acc = torch.randn(n, generator=gen, device=dev)
+            for c0 in range(0, size, chunk):
+                k = min(chunk, size - c0)
+                z = torch.randn((k, n), generator=gen, device=dev)
+                X = torch.addmm(carry[:k, None] * acc[None, :], W[:k, :k], z)
+                acc = X[-1]
+                pfreq = torch.sigmoid(0.8 * X)
+                G = (torch.rand((k, n), generator=gen, device=dev) < pfreq).to(torch.uint8)
+                G += (torch.rand((k, n), generator=gen, device=dev) < pfreq).to(torch.uint8)
+                for j in wanted:
+                    if r0 <= j < r0 + k:
+                        rows_of[j] = G[j - r0].float()
+                f.write(pack_bed_rows_device(G).cpu().numpy().tobytes())
+                r0 += k
+    write_bim_fam(stem, GENOME_CHRS, n)
+    Y = torch.randn((p, n), generator=gen, device=dev)
+    for t, j in planted:
+        g = rows_of[j]
+        Y[t] += 0.2 * (g - g.mean()) / g.std(unbiased=False)
+    Y = add_trait_dag(Y.cpu().numpy(), GENOME_DAG)
+    Y = (Y - Y.mean(1, keepdims=True)) / Y.std(1, keepdims=True)
+    write_phen(stem + ".phen", Y)
+    return stem, planted, Y, rows_of
+
+
+def mvivw_rows(path: str) -> dict:
+    """{(source, sink) 0-based: (effect, p)} of an `_mvivw_results.tsv`."""
+    _, rows = read_tsv(open(path, "rb").read())
+    return {(int(r[0]) - 1, int(r[1]) - 1): (float(r[2] or "nan"), float(r[3] or "nan"))
+            for r in rows}
+
+
+def phase_genome(tmp: str, rho_th: dict, loops: dict, clock_hz: float) -> dict:
+    """A genome of four 50,000-marker chromosomes x 16,384 individuals x 8
+    traits with the planted trait DAG, made on the card, through the whole
+    chain of commands (CHAIN) with the CLI's defaults, then through the
+    Python API: `estimate_ace` for every planted trait edge, `check_ivs`
+    and `run_mvivw_filtered` on its instruments. The launch counts are set
+    to 0 just before the commands and read just after. Checks (loose on
+    purpose): at least GENOME_MIN_BLOCKS blocks, every one with a line of
+    its own from cusk-all and the first one skeletonised, device memory flat
+    over the blocks, every sweep level launched, every planted trait edge in
+    the merged skeleton and a positive plain-mvivw effect at p < 1e-3 on
+    each. Prints the walls of the data, each command and the API calls,
+    per-block walls and memory, launches, the merged skeleton, planted
+    markers adjacent to their traits beside a plain threshold screen, the
+    PAG's trait marks beside the planted DAG, each planted edge's MVIVW
+    (plain, -s, filtered) and ACE estimates, the false positives at
+    p < 1e-3 and the sha256 of every merged, PAG and MR file. Then cusk-all
+    again under torch.profiler for the device's idle share, its launches
+    equal to the first run's: every gather launch of it is held bitwise to
+    its plain version as it comes, and the largest launch of each kernel is
+    kept, held bitwise to plain afterwards and timed beside its bound.
+    Returns, per kernel name, what the `kernels` line carries under the
+    genome's keys."""
+    t0 = time.perf_counter()
+    d = os.path.join(tmp, "genome")
+    os.makedirs(d)
+    stem, planted, Y, rows_of = write_genome_fileset(d)
+    torch.cuda.synchronize()
+    emit("genome_data", t0, markers=sum(GENOME_CHRS), chromosomes=len(GENOME_CHRS),
+         individuals=N11K, traits=P11K, bed_bytes=os.path.getsize(stem + ".bed"),
+         planted_markers=planted,
+         trait_dag=[f"T{s}->T{t} {b}" for t, ps in sorted(GENOME_DAG.items()) for s, b in ps])
+
+    t0 = time.perf_counter()
+    out = os.path.join(d, "out")
+    os.makedirs(out)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    walls, blocks, printed = run_commands(stem, out, MAX_BLOCK, CORR_WIDTH, ALPHA, N11K, "cuda",
+                                          only=CHAIN)
+    launches = all_launches()
+    sys.stdout.write(printed)
+    per_block = block_lines(printed)
+    sizes = [b.block_size() for b in read_blocks_from_file(blocks)]
+    assert sum(sizes) == sum(GENOME_CHRS) and max(sizes) <= MAX_BLOCK, sizes
+    assert len(sizes) >= GENOME_MIN_BLOCKS, f"{len(sizes)} blocks, fewer than {GENOME_MIN_BLOCKS}"
+    assert len(per_block) == len(sizes), (len(per_block), printed[-2000:])
+    for name in ("local_sweep_l1", "local_sweep_l2", "local_sweep_l3"):
+        assert launches[name] > 0, f"{name} was never launched over the genome: {launches}"
+    grown = per_block[-1]["device_memory_gib"] - per_block[0]["device_memory_gib"]
+    assert grown < 0.25, f"device memory grew by {grown} GiB over the blocks: {per_block}"
+    assert per_block[0]["retained_markers"] is not None, (
+        f"data: the pre-screen skipped the first block ({per_block[0]['block']}), which holds "
+        f"none of the planted markers {planted}, and merge takes the trait-trait edges from "
+        "the first block alone: choose a GENOME_SEED that plants a marker there")
+
+    gm = merge_block_outputs(blocks, out)
+    sparse_of = {row: ix for ix, row in gm.gmi.items()}
+    adjacent = sum(
+        k in sparse_of and ((sparse_of[k], t + 1) in gm.sam or (t + 1, sparse_of[k]) in gm.sam)
+        for t, k in planted)
+    th0 = threshold_array(N11K, ALPHA)[0]
+    screen = sum(fisher_z(np.corrcoef(rows_of[k].cpu().numpy(), Y[t])[0, 1]) >= th0
+                 for t, k in planted)
+    in_skeleton = {f"T{s}->T{t}": (s + 1, t + 1) in gm.sam or (t + 1, s + 1) in gm.sam
+                   for s, t in GENOME_EDGES}
+    assert all(in_skeleton.values()), f"planted trait edges missing: {in_skeleton}"
+    pag_stem, merged = os.path.join(out, "max_sep_min_pc"), os.path.join(out, "merged_blocks")
+    pag = mmread(pag_stem + "_estimated_pag.mtx").toarray().astype(int)
+    plain = mvivw_rows(os.path.join(out, PLAIN_MVIVW))
+    skel = mvivw_rows(merged + "_mvivw_results.tsv")
+    for s, t in GENOME_EDGES:
+        effect, p = plain[(s, t)]
+        assert effect > 0 and p < 1e-3, f"mvivw T{s}->T{t}: effect {effect}, p {p}"
+    false_pos = sorted(f"T{s}->T{t}" for (s, t), (_, p) in plain.items()
+                       if p < 1e-3 and (s, t) not in GENOME_EDGES)
+
+    t1 = time.perf_counter()
+    ace = {f"T{s}->T{t}": estimate_ace(pag_stem, pag_stem + "_estimated_pag.mtx", s, t, N11K,
+                                       ALPHA)
+           for s, t in GENOME_EDGES}
+    ivs = check_ivs(merged, N11K, ALPHA, ALPHA)
+    filt_dir = os.path.join(d, "filtered")
+    os.makedirs(filt_dir)
+    for ext in ("_sam.mtx", "_scm.mtx", ".mdim", ".ixs"):
+        shutil.copy(merged + ext, os.path.join(filt_dir, "cuskss_merged" + ext))
+    filtered = {(r["source"] - 1, r["sink"] - 1): (r["effect"], r["p"])
+                for r in run_mvivw_filtered(filt_dir, N11K, ivs)}
+    api_wall = time.perf_counter() - t1
+    hashes = {f: hashlib.sha256(data).hexdigest() for f, data in block_files(out).items()
+              if f.startswith(("merged_blocks", "max_sep_min_pc"))}
+    emit("genome_commands", t0, wall_s_by_command=walls, api_wall_s=api_wall,
+         blocks=len(sizes), block_sizes=sizes, per_block=per_block,
+         blocks_without_retained_markers=sum(b["retained_markers"] is None for b in per_block),
+         launches=launches, merged_variables=gm.num_var, merged_edges=len(gm.sam),
+         planted_adjacent=int(adjacent), planted=len(planted),
+         planted_pass_plain_screen=int(screen), trait_edges_in_skeleton=in_skeleton,
+         trait_pag=pag[:P11K, :P11K].tolist(),
+         planted_pag_marks={f"T{s}->T{t}": [int(pag[s, t]), int(pag[t, s])]
+                            for s, t in GENOME_EDGES},
+         mvivw={f"T{s}->T{t}": {"plain": plain[(s, t)], "s": skel[(s, t)],
+                                 "filtered": filtered[(s, t)]} for s, t in GENOME_EDGES},
+         mvivw_false_positives_p_1e3=false_pos, iv_rows=len(ivs), ace=ace,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         sha256={"blocks": hashlib.sha256(open(blocks, "rb").read()).hexdigest(), **hashes})
+
+    def again():
+        out2 = os.path.join(d, "out_profiled")
+        os.makedirs(out2)
+        with contextlib.redirect_stdout(io.StringIO()):
+            run_commands(stem, out2, MAX_BLOCK, CORR_WIDTH, ALPHA, N11K, "cuda",
+                         only=("cusk-all",))
+
+    reset_all_launches()
+    with EveryLaunchChecked(("gather_local_panels",)) as chk, Recorder() as rec:
+        profile_run("genome_cusk_all", again, walls["cusk-all"], cpu=False)
+    assert all_launches() == launches, (all_launches(), launches)
+    assert chk.checked == launches["panel_gather"], (chk.checked, launches)
+
+    # the largest launch of each kernel on the genome, kernel vs plain on the card
+    t0 = time.perf_counter()
+    entries = (sweep_entries("genome", rec, launches, rho_th, loops, clock_hz)
+               + gather_entries("genome", rec, launches))
+    del rec
+    torch.cuda.empty_cache()
+    emit("largest_launch_genome", t0, gather_launches_bit_identical=chk.checked, kernels=entries)
+    drop = ("name", "route", "source", "replaces", "launches")
+    of_entry = {k["name"]: {key: v for key, v in k.items() if key not in drop} for k in entries}
+    return {name: {"launches_genome": launches[name],
+                   **({"genome": of_entry[name]} if name in of_entry else {})}
+            for name in ("local_sweep_l1", "local_sweep_l2", "local_sweep_l3", "panel_gather")}
+
+
+def profile_run(tag: str, run, unprofiled_wall_s: float, cpu: bool = True) -> dict:
     """A second (warm) run of a slice under torch.profiler: device time by
     kernel name. The profiler slows the host, not the device, so the idle
-    share is taken against the unprofiled run's wall."""
+    share is taken against the unprofiled run's wall. cpu=False records the
+    device's activity alone, for runs long enough that the host's records
+    would weigh on the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1677,6 +2010,10 @@ def main() -> int:
         for k in kernels:  # the chromosome's launches and checks under keys of their own
             k.update(of_chr.get(k["name"], {}))
         assert sorted(of_chr) == sorted(expected[:4]), sorted(of_chr)
+        shutil.rmtree(os.path.join(tmp, "chr50k"))
+        of_genome = phase_genome(tmp, rho_th, loops, clock_hz)
+        for k in kernels:  # the sweep levels and the one-panel gather (0 launches allowed)
+            k.update(of_genome.get(k["name"], {}))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "cigwas_tpu"))

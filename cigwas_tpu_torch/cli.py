@@ -5,9 +5,10 @@
 Argument names, bounds and defaults mirror the reference's `ci-gwas.py`, so
 existing workflows can switch directly. Every subcommand that touches the
 device takes ``--device {cuda,cpu}`` (default ``cuda``): without a card the
-default fails, it never carries on on the CPU. ``--mesh``, ``--panel-mode
-rowsharded``, ``srfci`` and ``mvivw`` are parsed and refused: their modules
-are not ported yet.
+default fails, it never carries on on the CPU. ``--mesh`` and ``--panel-mode
+rowsharded`` are parsed and refused: the multi-device engines are not ported
+yet. ``merge-block-outputs``, ``sepselect``, ``orient-v-structs``, ``srfci``
+and ``mvivw`` run on the host.
 """
 
 from __future__ import annotations
@@ -140,11 +141,26 @@ def cmd_orient_v_structs(args):
 
 
 def cmd_srfci(args):
-    sys.exit("srfci is not ported yet: ROADMAP A.5")
+    from cigwas_tpu_torch.pag import estimate_pag
+
+    estimate_pag(args.sepselect_result_stem, args.alpha, args.num_samples)
 
 
 def cmd_mvivw(args):
-    sys.exit("mvivw is not ported yet: ROADMAP A.5")
+    from cigwas_tpu_torch.io.tables import write_table
+    from cigwas_tpu_torch.merge import get_iv_candidates
+    from cigwas_tpu_torch.mr import run_mvivw
+
+    write_table(f"{args.cusk_output_stem}_iv_candidates.csv",
+                get_iv_candidates(args.cusk_output_stem))
+    run_mvivw(
+        args.cusk_output_stem,
+        args.num_samples,
+        use_skeleton=args.s,
+        rm_counterfactual=args.orientation_prior is not None,
+        orientation_prior=args.orientation_prior,
+        out_path=f"{args.cusk_output_stem}_mvivw_results.tsv",
+    )
 
 
 def _add_device(p) -> None:
@@ -282,14 +298,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--orientation-prior", type=str, default=None)
     p.set_defaults(func=cmd_orient_v_structs)
 
-    p = sub.add_parser("srfci", help="Run sRFCI to infer a PAG (not ported yet)")
+    p = sub.add_parser("srfci", help="Run sRFCI to infer a PAG")
     p.add_argument("sepselect_result_stem", type=str)
     p.add_argument("alpha", type=_bounded(float, "alpha", 0.0, 1.0), default=1e-4)
     p.add_argument("num_samples", type=_bounded(int, "num-samples", 1))
     p.set_defaults(func=cmd_srfci)
 
     p = sub.add_parser(
-        "mvivw", help="Multivariable IVW Mendelian randomization (not ported yet)"
+        "mvivw", help="Multivariable IVW Mendelian randomization"
     )
     p.add_argument("cusk_output_stem", type=str)
     p.add_argument("num_samples", type=_bounded(int, "num-samples", 1))

@@ -1,5 +1,6 @@
 """Merge of per-block outputs, separation sets and v-structures on the merged
-skeleton (`cigwas_tpu.merge`): host numpy and scipy only, no pandas."""
+skeleton, and the MR instrument checks (`cigwas_tpu.merge`): host numpy and
+scipy only, no pandas."""
 
 from cigwas_tpu_torch.merge.merge_blocks import (
     BlockOutput,
@@ -13,6 +14,7 @@ from cigwas_tpu_torch.merge.sepselect import (
     orient_v_structures_merged,
     sepselect_merged,
 )
+from cigwas_tpu_torch.merge.mr_assumptions import check_ivs, get_iv_candidates
 
 __all__ = [
     "BlockOutput",
@@ -23,4 +25,6 @@ __all__ = [
     "MergedSkeleton",
     "sepselect_merged",
     "orient_v_structures_merged",
+    "get_iv_candidates",
+    "check_ivs",
 ]

@@ -1,16 +1,18 @@
 """The port's shell entry points (`cigwas_tpu_torch.cli`) against the JAX
 package's CLI: the same argument vectors parse to the same values, what is
-not ported is refused with its message, and the five-command drive runs
-through the port on the CPU.
+not ported is refused with its message, and the drive from prep-bed to
+mvivw runs through the port on the CPU and writes the JAX CLI's files.
 """
 
 import os
+import shutil
 import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
+from scipy.io import mmread
 
 from torch_parity import assert_block_dirs_match, dir_bytes, planted_dataset, set_threads
 
@@ -91,8 +93,6 @@ REFUSED = {
                         "--panel-mode rowsharded is not ported yet: ROADMAP A.6"),
     "cusk-all-rowsharded": (["cusk-all", *CUSK[1:], "--panel-mode", "rowsharded"],
                             "--panel-mode rowsharded is not ported yet: ROADMAP A.6"),
-    "srfci": (["srfci", "stem", "1e-4", "100"], "srfci is not ported yet: ROADMAP A.5"),
-    "mvivw": (["mvivw", "stem", "100"], "mvivw is not ported yet: ROADMAP A.5"),
     "cuskss-no-markers": (["cuskss", *PXP], "Either blockfile + block index or marker indices"),
     "cuskss-one-se": (["cuskss", *PXP, "--marker-indices", "i", "--mxp-se", "se.txt"],
                       "Please provide no or both pxp and mxp standard error files."),
@@ -111,10 +111,24 @@ def test_refusals_exit_with_their_message(name):
     assert isinstance(exc.value.code, str) and message in exc.value.code
 
 
+def host_chain(cli_main, out, keep) -> None:
+    """sepselect, orient-v-structs, srfci, mvivw and mvivw -s over a merged
+    skeleton through a CLI's main; the plain mvivw table, which `-s`
+    overwrites, is copied to keep first."""
+    merged, pag = str(out / "merged_blocks"), str(out / "max_sep_min_pc")
+    cli_main(["sepselect", merged, "1e-3", "4000"])
+    cli_main(["orient-v-structs", merged, "1e-3", "4000"])
+    cli_main(["srfci", pag, "1e-3", "4000"])
+    cli_main(["mvivw", merged, "4000"])
+    shutil.copy(merged + "_mvivw_results.tsv", keep)
+    cli_main(["mvivw", merged, "4000", "-s"])
+
+
 @pytest.fixture(scope="module")
 def drive(tmp_path_factory):
     """The verify drive (seed 42, n = 4000, m = 120, SNP10 -> T1, SNP50 -> T2,
-    T1 -> T2, alpha 1e-3) through the port's five commands on the CPU."""
+    T1 -> T2, alpha 1e-3) through the port's commands on the CPU, from
+    prep-bed to mvivw -s."""
     tmp = tmp_path_factory.mktemp("torch_cli")
     stem = str(tmp / "sim")
     planted_dataset(stem, 42, 4000, [120], {0: [(10, 0.4)], 1: [(50, 0.4)]}, {1: [(0, 0.5)]})
@@ -126,19 +140,28 @@ def drive(tmp_path_factory):
     main(["cusk-all", blockfile, stem, stem + ".phen", "1e-3", "3", "14", "1", str(out),
           "--device", "cpu"])
     main(["merge-block-outputs", str(out), blockfile])
-    main(["sepselect", str(out / "merged_blocks"), "1e-3", "4000"])
+    host_chain(main, out, tmp / "mvivw_plain.tsv")
     return tmp, stem, blockfile, out
 
 
 def test_drive_recovers_the_planted_structure(drive):
     from cigwas_tpu_torch.merge import merge_block_outputs
 
-    _, _, blockfile, out = drive
+    tmp, _, blockfile, out = drive
     files = dir_bytes(out)
     for name in ("merged_blocks_sam.mtx", "merged_blocks_scm.mtx", "merged_blocks.mdim",
                  "merged_blocks.ixs"):
         assert len(files[name]) > 0
     assert any(f.startswith("max_sep_min_pc") for f in files)
+    # srfci: T1 - T2 kept, markers into traits; mvivw: both ordered pairs
+    pag = mmread(str(out / "max_sep_min_pc_estimated_pag.mtx")).toarray()
+    assert pag[0, 1] != 0 and pag[1, 0] != 0
+    assert set(np.unique(pag[2:, :2])) == {0, 2} and set(np.unique(pag[:2, 2:])) == {0, 3}
+    assert files["merged_blocks_iv_candidates.csv"].startswith(b"Exposure,Outcome,IV\n")
+    for tsv in (files["merged_blocks_mvivw_results.tsv"],
+                open(tmp / "mvivw_plain.tsv", "rb").read()):
+        assert tsv.startswith(b"source\tsink\teffect\tp\tsk_adj\tnum_snps\n")
+        assert tsv.count(b"\n") == 3 and b"\tTRUE\t" in tsv
     gm = merge_block_outputs(blockfile, str(out))
     mk = {row: ix for ix, row in gm.gmi.items()}
     adjacent = lambda a, b: (a, b) in gm.sam or (b, a) in gm.sam  # noqa: E731
@@ -149,7 +172,8 @@ def test_drive_recovers_the_planted_structure(drive):
 
 def test_drive_files_match_the_jax_cli(drive):
     """The JAX package's CLI over the same fileset: the same `.blocks` bytes,
-    block files (`.corr` within atol 1e-6) and merged and sepselect files."""
+    block files (`.corr` within atol 1e-6), merged and sepselect files, and
+    the srfci PAG, IV candidates and both mvivw tables byte-identical."""
     from cigwas_tpu.cli import main as jax_main
 
     tmp, stem, blockfile, out = drive
@@ -162,8 +186,13 @@ def test_drive_files_match_the_jax_cli(drive):
     out_jax.mkdir()
     jax_main(["cusk-all", blockfile, stem, stem + ".phen", "1e-3", "3", "14", "1", str(out_jax)])
     jax_main(["merge-block-outputs", str(out_jax), blockfile])
-    jax_main(["sepselect", str(out_jax / "merged_blocks"), "1e-3", "4000"])
+    host_chain(jax_main, out_jax, tmp / "mvivw_plain_jax.tsv")
     got, exp = dir_bytes(out), dir_bytes(out_jax)
+    for f in ("max_sep_min_pc_estimated_pag.mtx", "merged_blocks_iv_candidates.csv",
+              "merged_blocks_mvivw_results.tsv"):
+        assert f in exp and got[f] == exp[f], f
+    assert (open(tmp / "mvivw_plain.tsv", "rb").read()
+            == open(tmp / "mvivw_plain_jax.tsv", "rb").read())
     # the `_scm.mtx` files are text of the `.corr` values: compared as numbers
     scm = sorted(f for f in exp if f.endswith("_scm.mtx"))
     assert scm == ["max_sep_min_pc_scm.mtx", "merged_blocks_scm.mtx"]

@@ -109,7 +109,9 @@ _IMPORT_ALL = textwrap.dedent(
     for name in names:
         importlib.import_module(name)
     for new in ("blocking", "cli", "merge.merge_blocks", "merge.sepselect",
-                "parallel.block_scheduler", "parallel.runner", "utils.timing"):
+                "parallel.block_scheduler", "parallel.runner", "utils.timing",
+                "merge.mr_assumptions", "pag.rfci", "pag.davs", "pag.simulations",
+                "mr.mvivw", "mr.cause", "mr.competitors", "io.tables"):
         assert "cigwas_tpu_torch." + new in names, new
     from cigwas_tpu_torch.cli import build_parser
     build_parser().parse_args(["sepselect", "stem", "1e-4", "10"])
@@ -132,6 +134,43 @@ def test_every_module_imports_without_jax_pandas_or_a_build():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().startswith("OK")
+
+
+_HOST_CHAIN = textwrap.dedent(
+    """
+    import os, sys, tempfile
+    sys.path.insert(0, sys.argv[1])
+    from torch_parity import merged_fileset
+    from cigwas_tpu_torch.cli import main
+    d = tempfile.mkdtemp()
+    merged, pag = os.path.join(d, "merged_blocks"), os.path.join(d, "max_sep_min_pc")
+    merged_fileset(merged, 0, n=2000)
+    main(["orient-v-structs", merged, "1e-3", "2000"])
+    main(["srfci", pag, "1e-3", "2000"])
+    main(["mvivw", merged, "2000"])
+    main(["mvivw", merged, "2000", "-s"])
+    for f in (pag + "_estimated_pag.mtx", merged + "_iv_candidates.csv",
+              merged + "_mvivw_results.tsv"):
+        assert os.path.getsize(f) > 0, f
+    bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "cigwas_tpu", "pandas"))
+    assert not bad, bad
+    print("OK")
+    """
+)
+
+
+def test_port_srfci_and_mvivw_never_import_jax_or_pandas():
+    """A fresh interpreter runs orient-v-structs, srfci, mvivw and mvivw -s
+    through the port's CLI over a merged skeleton and ends with none of jax,
+    the JAX package or pandas imported."""
+    import os
+
+    proc = subprocess.run(
+        [sys.executable, "-c", _HOST_CHAIN, os.path.dirname(__file__)], capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
 
 
 def test_port_sources_name_no_jax_import():

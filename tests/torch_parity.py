@@ -253,3 +253,54 @@ def assert_block_dirs_match(got: dict, exp: dict) -> None:
                                        np.frombuffer(data, np.float32), rtol=0, atol=1e-6)
         else:
             assert got[f] == data, f"{f} differs"
+
+
+# --- merged skeletons for the host chain (srfci, mvivw) ----------------------
+
+# the planted trait DAG of the chain's tests: a collider T0 -> T2 <- T1, then
+# T2 -> T3 and T4 -> T5 (child: [(parent, beta)])
+TRAIT_DAG = {2: [(0, 0.3), (1, 0.3)], 3: [(2, 0.3)], 5: [(4, 0.3)]}
+
+
+def merged_fileset(stem: str, seed: int, n: int = 5000, p: int = 6, per_trait: int = 3,
+                   trait_dag: dict | None = None, latent: tuple | None = (3, 5),
+                   dropped: float = 0.0) -> None:
+    """A merged skeleton as `merge-block-outputs` writes it (`stem_sam.mtx`,
+    `stem_scm.mtx`, `.mdim`, `.ixs`; traits first, then markers) over data
+    from a linear model: `per_trait` planted markers per trait at 0.3, the
+    trait DAG (default TRAIT_DAG) at its betas on the standardized parents,
+    a hidden common cause of the two `latent` traits at 0.5. The adjacency is
+    the true one (marker-trait, trait-trait, the latent pair), with a share
+    `dropped` of the marker-trait edges left out; the correlations are the
+    sample's."""
+    from cigwas_tpu_torch.io.binary import write_coo_mtx
+
+    rng = np.random.default_rng(seed)
+    trait_dag = TRAIT_DAG if trait_dag is None else trait_dag
+    m = p * per_trait
+    G = genotypes(rng, m, n)
+    hidden = rng.normal(size=n)
+    Y = []
+    for t in range(p):
+        y = sum(0.3 * std(G[t * per_trait + k]) for k in range(per_trait)) + rng.normal(size=n)
+        for s, b in trait_dag.get(t, []):
+            y = y + b * std(Y[s])
+        if latent is not None and t in latent:
+            y = y + 0.5 * hidden
+        Y.append(y)
+    C = np.corrcoef(np.vstack([np.stack([std(y) for y in Y]), G]))
+    adj = np.zeros((p + m, p + m), np.int32)
+    for t in range(p):
+        for k in range(per_trait):
+            if rng.random() >= dropped:
+                adj[t, p + t * per_trait + k] = adj[p + t * per_trait + k, t] = 1
+        for s, _ in trait_dag.get(t, []):
+            adj[t, s] = adj[s, t] = 1
+    if latent is not None:
+        a, b = latent
+        adj[a, b] = adj[b, a] = 1
+    write_coo_mtx(stem + "_sam.mtx", adj, integer=True)
+    write_coo_mtx(stem + "_scm.mtx", C - np.eye(p + m))
+    with open(stem + ".mdim", "w") as f:
+        f.write(f"{p + m}\t{p}\t14\n")
+    np.arange(m, dtype=np.int32).tofile(stem + ".ixs")
