@@ -74,7 +74,27 @@ and the script exits non-zero:
    markers and trait edges recovered, the PAG's trait marks, each planted
    edge's MVIVW effect and p (positive and below 1e-3, or the run fails) and
    ACE, the files' sha256; then ``cusk-all`` again under torch.profiler for
-   the device's idle share.
+   the device's idle share; then the analysis API over its outputs
+   (``genome_analysis``: pleiotropy, parent and ancestor sets, causal paths,
+   both association tables with every planted marker found, the planted
+   edges' ACE through ``load_ace``, ``cusk_second_stage`` on the merged
+   skeleton, the planted T2 -> T3 path);
+9. the rest of the one-card API, between the phases above: ``pmax_11k``
+   (after the profiled runs: the 11k block's stage-1 panel, kept from the
+   pipeline's run,
+   through ``skeleton`` with pMax and without: equal decisions and
+   launches, pMax's properties, the largest launch of each level bitwise
+   equal to plain, pMax's extra wall split into the panel's fetch and the
+   rest), ``pmax_stage2`` (that result reduced as the pipeline reduces it,
+   through levels >= 4 with pMax on the card and the CPU),
+   ``marker_pearson`` (the golden values, then the 11k block's bytes:
+   cuda = cpu on 2,048 markers, the products' time beside their bound),
+   ``sim_dag`` (after the small commands: ``gen_rand_dag`` at the
+   reference's evaluation size through the skeleton with pMax on the card
+   and the CPU, recall and precision, ``cusk_second_stage``) and
+   ``sim_commands`` (``simulate_genotype_dataset``, its phenotypes split and
+   merged again by ``make_merged_pheno_file``, the five commands; the
+   planted structure recovered).
 
 Both older slices print the sha256 of their decision files beside those of
 the commit before the gather's redesign, so two versions of the kernels can
@@ -98,7 +118,8 @@ chromosome's path carry its launches (``launches_chr50k``, and
 ``launches_chr50k_uniform`` for the uniform phenotypes) and, under
 ``chr50k``, the same measurements on its largest launch; they and the
 one-panel gather also carry the genome's (``launches_genome``, 0 allowed for
-the gather).
+the gather) and the pMax phases' (``launches_pmax_11k``,
+``launches_pmax_stage2``, ``launches_sim_dag``).
 
 ``--kernels-only`` stops after phase 3.
 
@@ -111,6 +132,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import hashlib
+import importlib
 import io
 import json
 import math
@@ -120,6 +142,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -127,9 +150,9 @@ import numpy as np
 import torch
 from scipy.io import mmread
 
-from cigwas_tpu_torch import require_cuda
+from cigwas_tpu_torch import analysis, require_cuda
 from cigwas_tpu_torch.cli import main as cli_main
-from cigwas_tpu_torch.constants import BED_PREFIX_COL_MAJ
+from cigwas_tpu_torch.constants import BED_PREFIX_COL_MAJ, PMAX_RETAINED
 from cigwas_tpu_torch.io import (
     MarkerBlock,
     ReducedGC,
@@ -138,7 +161,11 @@ from cigwas_tpu_torch.io import (
     write_marker_blocks_to_file,
 )
 from cigwas_tpu_torch.io.bed import encode_bed_values
+from cigwas_tpu_torch.io.binary import write_coo_mtx
+from cigwas_tpu_torch.io.phen import load_phen
+from cigwas_tpu_torch.ops import corr as corr_ops
 from cigwas_tpu_torch.ops import pcorr
+from cigwas_tpu_torch.ops.corr import DEFAULT_SAMPLE_CHUNK, marker_pearson_corr
 from cigwas_tpu_torch.ops.corr import PANEL_ROW_TILE as ROW_TILE
 from cigwas_tpu_torch.ops.kernels import build
 from cigwas_tpu_torch.ops.kernels import hetcor_sweep as hs
@@ -147,10 +174,17 @@ from cigwas_tpu_torch.ops.kernels import panel_gather as pg
 from cigwas_tpu_torch.merge import check_ivs, merge_block_outputs
 from cigwas_tpu_torch.mr import run_mvivw_filtered
 from cigwas_tpu_torch.pag.davs import estimate_ace
+from cigwas_tpu_torch.phen_prep import PhenotypesFile, make_merged_pheno_file
 from cigwas_tpu_torch.pipelines import CuskssArgs, cusk, cuskss, make_blocks
+from cigwas_tpu_torch.pipelines.cusk import CuskContext
 from cigwas_tpu_torch.prep import prep_bed
-from cigwas_tpu_torch.skeleton import cupc
+from cigwas_tpu_torch.sim import gen_rand_dag, simulate_genotype_dataset
+from cigwas_tpu_torch.skeleton import cupc, reduce_gcs, subset_variables
+from cigwas_tpu_torch.skeleton.second_stage import cusk_second_stage
 from cigwas_tpu_torch.utils.stats import fisher_z, hetcor_threshold, threshold_array
+
+# the pipeline module (the package exports its `cusk` function under that name)
+cusk_pipeline = importlib.import_module("cigwas_tpu_torch.pipelines.cusk")
 
 # file:line of the function that reaches pl.pallas_call, per kernel
 PALLAS = "cigwas_tpu/ops/pallas/panel_gather.py"
@@ -188,6 +222,9 @@ PARENT_SHA256 = {
 # (four per term), the threshold (six) and the margin for hetcor_sweep
 SWEEP_OPS = {1: 12, 2: 15, 3: 19}
 HETCOR_OPS = {1: 29, 2: 49, 3: 69}
+# the kernel entries that the pMax phases launch, whose counts the `kernels`
+# line carries under those phases' keys
+PMAX_KERNELS = ("local_sweep_l1", "local_sweep_l2", "local_sweep_l3", "panel_gather")
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -1074,7 +1111,7 @@ def phase_slice(tmp: str, rho_th: dict, loops: dict, clock_hz: float):
     os.makedirs(out)
     stats: dict = {}
     torch.cuda.reset_peak_memory_stats()
-    with Recorder() as rec:
+    with Recorder() as rec, CapturePanels() as capture:
         reset_all_launches()
         t1 = time.perf_counter()
         res = cusk(stem + ".phen", stem, blocks, ALPHA, MAX_LEVEL, MAX_LEVEL_TWO,
@@ -1129,7 +1166,7 @@ def phase_slice(tmp: str, rho_th: dict, loops: dict, clock_hz: float):
         cusk(stem + ".phen", stem, blocks, ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH,
              out2, 0, verbose=False, device="cuda")
 
-    return kernels, again, wall
+    return kernels, again, wall, capture
 
 
 def write_sumstats(d: str) -> tuple[dict, list]:
@@ -1907,11 +1944,430 @@ def phase_genome(tmp: str, rho_th: dict, loops: dict, clock_hz: float) -> dict:
     del rec
     torch.cuda.empty_cache()
     emit("largest_launch_genome", t0, gather_launches_bit_identical=chk.checked, kernels=entries)
+    phase_genome_analysis(d, stem, out, blocks, planted, ace)
     drop = ("name", "route", "source", "replaces", "launches")
     of_entry = {k["name"]: {key: v for key, v in k.items() if key not in drop} for k in entries}
     return {name: {"launches_genome": launches[name],
                    **({"genome": of_entry[name]} if name in of_entry else {})}
             for name in ("local_sweep_l1", "local_sweep_l2", "local_sweep_l3", "panel_gather")}
+
+
+# --- the rest of the one-card API: pMax, the second stage, sim, phen_prep,
+# --- analysis and the marker Pearson panel. The phases take the device (and
+# --- their sizes) as arguments so that they can be rehearsed on the CPU at a
+# --- small size; main() runs them on the card at full size.
+
+
+class CapturePanels:
+    """While it is open, keeps the panel and n_var of every `skeleton` call
+    the cusk pipeline makes (stage 1: the device panel, stage 2: the reduced
+    host panel), so that the pMax phases run on the pipeline's own panels."""
+
+    def __init__(self):
+        self.calls: list = []
+        self.saved = cusk_pipeline.skeleton
+
+    def __enter__(self):
+        def skeleton(C, thresholds, max_level, **kw):
+            self.calls.append((C, kw.get("n_var")))
+            return self.saved(C, thresholds, max_level, **kw)
+
+        cusk_pipeline.skeleton = skeleton
+        return self
+
+    def __exit__(self, *exc):
+        cusk_pipeline.skeleton = self.saved
+
+
+def sync(dev: str) -> None:
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+class HostPeak:
+    """The process's peak resident memory while it is open, sampled every
+    5 ms from /proc/self/status by a thread of its own (VmHWM cannot be
+    reset where /proc/self/clear_refs is refused); `gb` is that peak and
+    `start_gb` the resident memory when it opened."""
+
+    def __init__(self):
+        self.gb = self.start_gb = None
+        self._stop = threading.Event()
+
+    @staticmethod
+    def _rss_gb() -> float:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 2**20
+        raise RuntimeError("no VmRSS in /proc/self/status")
+
+    def _sample(self):
+        while not self._stop.wait(0.005):
+            self.gb = max(self.gb, self._rss_gb())
+
+    def __enter__(self):
+        self.gb = self.start_gb = self._rss_gb()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.gb = max(self.gb, self._rss_gb())
+
+
+def sweep_launches() -> dict:
+    return {**{f"local_sweep_l{l}": n for l, n in ls.launches.items()}, **pg.launches}
+
+
+def assert_pmax_properties(tag: str, res) -> None:
+    """pMax holds PMAX_RETAINED exactly on the kept edges, 1.0 on the
+    diagonal, is symmetric, finite and >= 0 elsewhere."""
+    G, pm = res.G.astype(bool), res.pmax
+    assert pm is not None and pm.shape == G.shape and pm.dtype == np.float32, tag
+    assert np.all(pm[G] == PMAX_RETAINED), f"{tag}: a kept edge without PMAX_RETAINED"
+    assert np.all(np.diag(pm) == 1.0), f"{tag}: diagonal"
+    assert np.array_equal(pm, pm.T), f"{tag}: not symmetric"
+    off = ~G & ~np.eye(len(G), dtype=bool)
+    assert np.all(np.isfinite(pm[off])) and np.all(pm[off] >= 0), f"{tag}: deleted pairs"
+
+
+def device_peak_reset(dev: str) -> None:
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def device_peak_gb(dev: str):
+    return torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else None
+
+
+def skeleton_pair(tag: str, C, th, max_level: int, n_var=None, dev: str = "cuda"):
+    """The skeleton with pMax on the card, every launch held bitwise to
+    plain, then on the CPU: identical decisions, pMax within 1e-6. Returns
+    (card result, its launches, its wall, largest |pMax difference|)."""
+    reset_all_launches()
+    with EveryLaunchChecked() as chk:
+        t = time.perf_counter()
+        res = cupc.skeleton(C, th, max_level, device=dev, n_var=n_var)
+        sync(dev)
+        wall = time.perf_counter() - t
+    launches = sweep_launches()
+    C_host = C.cpu().numpy() if isinstance(C, torch.Tensor) else C
+    t = time.perf_counter()
+    ref = cupc.skeleton(C_host, th, max_level, device="cpu", n_var=n_var)
+    cpu_wall = time.perf_counter() - t
+    assert res.final_level == ref.final_level, (tag, res.final_level, ref.final_level)
+    assert np.array_equal(res.G, ref.G), f"{tag}: adjacency differs between cuda and cpu"
+    assert np.array_equal(res.sepset, ref.sepset), f"{tag}: sepsets differ between cuda and cpu"
+    diff = float(np.max(np.abs(res.pmax.astype(np.float64) - ref.pmax), initial=0.0))
+    assert diff <= 1e-6, f"{tag}: pMax differs by {diff} between cuda and cpu"
+    if dev == "cuda":
+        assert chk.checked == sum(launches.values()), (tag, chk.checked, launches)
+    assert_pmax_properties(tag, res)
+    return res, launches, {"cuda_wall_s": wall, "cpu_wall_s": cpu_wall,
+                           "launches_bit_identical": chk.checked}, diff
+
+
+def phase_pmax(capture: CapturePanels, th: np.ndarray, rho_th: dict, markers: int = M11K,
+               traits: int = P11K, dev: str = "cuda") -> dict:
+    """pmax_11k: the 11k block's stage-1 panel (the pipeline's own, kept by
+    `capture`) through `skeleton(C, th, 3)` with pMax and without: the same
+    adjacency, sepsets and launches per level; pMax's properties; the
+    largest launch of each level of the pMax run held bitwise to plain; both
+    walls, pMax's extra seconds split into the panel's fetch and the rest,
+    peak device and host memory. pmax_stage2: that result reduced as the
+    pipeline reduces it (`subset_variables`, `reduce_gcs`; the reduced panel
+    must be the one the pipeline's stage 2 received) through `skeleton(...,
+    14)` with pMax on the card and on the CPU. Returns the launches of both
+    under the `kernels` line's keys."""
+    t0 = time.perf_counter()
+    (C, v), (C2_pipeline, _) = capture.calls[0], capture.calls[1]
+    runs = {}
+    for want in (True, False):
+        stats: dict = {}
+        reset_all_launches()
+        device_peak_reset(dev)
+        with (Recorder() if want else contextlib.nullcontext()) as rec, HostPeak() as host:
+            t = time.perf_counter()
+            res = cupc.skeleton(C, th, MAX_LEVEL, device=dev, n_var=v, stats=stats,
+                                want_pmax=want)
+            sync(dev)
+            wall = time.perf_counter() - t
+        runs[want] = {"res": res, "wall": wall, "stats": stats, "launches": sweep_launches(),
+                      "buckets": {l: len(b) for l, b in stats["launches"].items()},
+                      "device_peak_gb": device_peak_gb(dev),
+                      "host_peak_gb": host.gb, "host_start_gb": host.start_gb, "rec": rec}
+    on, off = runs[True], runs[False]
+    assert off["res"].pmax is None
+    assert np.array_equal(on["res"].G, off["res"].G), "pMax changed the adjacency"
+    assert np.array_equal(on["res"].sepset, off["res"].sepset), "pMax changed the sepsets"
+    assert on["launches"] == off["launches"] and on["buckets"] == off["buckets"], (
+        on["launches"], off["launches"])
+    assert_pmax_properties("pmax_11k", on["res"])
+    largest = {}
+    for l in (1, 2, 3) if dev == "cuda" else ():
+        Ck, node_ixs, nbrs, deg, _ = on["rec"].largest[("local_sweep", l)][1]
+        rho_k, pos_k = ls.local_sweep(Ck, node_ixs, nbrs, deg, l)
+        rho_p, pos_p = pcorr.local_sweep_plain(Ck, node_ixs, nbrs, deg, l)
+        largest[l] = {"nodes": int(nbrs.shape[0]), "width": int(nbrs.shape[1]),
+                      "max_abs_err": compare(f"pmax_11k level {l}", rho_k, pos_k, rho_p, pos_p,
+                                             deg, rho_th[l])}
+    del on["rec"]
+    launches1 = on["launches"]
+    fetch = on["stats"]["c_fetch_wall_s"]
+    extra = on["wall"] - off["wall"]
+    res = on["res"]
+    deleted = ~res.G.astype(bool) & ~np.eye(len(res.G), dtype=bool)
+    emit("pmax_11k", t0, variables=int(v), wall_s_pmax=on["wall"], wall_s_no_pmax=off["wall"],
+         pmax_extra_s=extra, pmax_panel_fetch_s=fetch, pmax_extra_rest_s=extra - fetch,
+         pmax_host_steps_s=on["stats"]["pmax_wall_s"],
+         level_wall_s={"pmax": on["stats"]["level_wall_s"],
+                       "no_pmax": off["stats"]["level_wall_s"]},
+         launches=on["launches"], launches_equal=True, decisions_equal=True,
+         largest_launch_bit_identical=largest,
+         device_peak_gb={"pmax": on["device_peak_gb"], "no_pmax": off["device_peak_gb"]},
+         host_peak_gb={"pmax": on["host_peak_gb"], "no_pmax": off["host_peak_gb"]},
+         host_start_gb={"pmax": on["host_start_gb"], "no_pmax": off["host_start_gb"]},
+         kept_edges=int(res.G.sum() // 2), pmax_deleted_max=float(res.pmax[deleted].max()),
+         pmax_deleted_mean=float(res.pmax[deleted].mean()))
+
+    t0 = time.perf_counter()
+    keep = subset_variables(res.G, v, markers, DEPTH)
+    gcs = reduce_gcs(res.G, C, res.sepset, keep, v, traits, MAX_LEVEL)
+    assert np.array_equal(gcs.C, C2_pipeline), "the reduced panel is not the pipeline's"
+    del runs, on, off, res
+    res2, launches2, walls2, diff2 = skeleton_pair("pmax_stage2", gcs.C, th, MAX_LEVEL_TWO,
+                                                   dev=dev)
+    assert dev != "cuda" or launches2["panel_gather"] >= 1, (
+        f"stage 2 made no gather launch: {launches2}")
+    emit("pmax_stage2", t0, variables=int(gcs.num_var), final_level=res2.final_level,
+         launches=launches2, pmax_max_abs_diff=diff2, cuda_equals_cpu=True, **walls2)
+    return {name: {"launches_pmax_11k": launches1[name], "launches_pmax_stage2": launches2[name]}
+            for name in PMAX_KERNELS}
+
+
+def phase_marker_pearson(stem: str, blocks: str, dev: str = "cuda") -> None:
+    """`marker_pearson_corr` on the card: the reference's golden bmt2
+    values within 1e-5; then the 11k block's bytes, its first 2,048 markers
+    bitwise equal to the CPU's result on the same bytes (exact integer sums,
+    the same host quotient), the products' device time beside their bound
+    at the int8 peak."""
+    t0 = time.perf_counter()
+    gold = np.load(os.path.join(os.path.dirname(FIXTURES), "bed_marker.npz"))
+    iu = np.triu_indices(7, k=1)
+    exp = np.eye(7, dtype=np.float32)
+    exp[iu] = exp[(iu[1], iu[0])] = gold["bmt2_marker_corrs_pearson"]
+    got = marker_pearson_corr(gold["bmt2_marker_vals"].reshape(7, 25), gold["bmt2_marker_mean"],
+                              gold["bmt2_marker_std"], 100, device=dev)
+    golden_err = float(np.abs(got - exp).max())
+    assert golden_err <= 1e-5, f"bmt2 Pearson off by {golden_err}"
+
+    ctx = CuskContext(stem + ".phen", stem, blocks, ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH,
+                      os.path.dirname(stem), verbose=False, device=dev)
+    prep = ctx.prepare(0)
+    del prep["mp_sums"]
+    bb, means, stds, n = prep["bedblock"], prep["means"], prep["stds"], ctx.dims.num_samples
+    sync(dev)
+    t = time.perf_counter()
+    C = marker_pearson_corr(bb, means, stds, n, device=dev)
+    wall = time.perf_counter() - t
+    k = 2048
+    t = time.perf_counter()
+    C_cpu = marker_pearson_corr(bb[:k], means[:k], stds[:k], n, device="cpu")
+    cpu_wall = time.perf_counter() - t
+    assert np.array_equal(C[:k, :k].view(np.int32), C_cpu.view(np.int32)), (
+        "marker_pearson_corr differs between cuda and cpu")
+    finite = np.isfinite(C)
+    assert finite.mean() > 0.999 and np.all(np.abs(C[finite]) <= 1.0 + 1e-5)
+    padded, n_chunks = corr_ops._prep_bytes(bb, n, corr_ops._sample_chunk(bb.shape[1],
+                                                                        DEFAULT_SAMPLE_CHUNK))
+    rows = torch.tensor(padded, device=dev)
+    products_ms = one_product_ms = None
+    if dev == "cuda":
+        products_ms = cuda_ms(lambda: corr_ops._marker_pearson_sums(rows, n_chunks), reps=3)
+        codes = corr_ops.unpack_bed_codes(rows)
+        valid = (codes != 1).to(torch.int8)
+        del codes
+        # one of the two products alone, without the decode around it
+        one_product_ms = cuda_ms(lambda: corr_ops.contingency_counts(valid, valid), reps=3)
+        del valid
+    m, samples = bb.shape[0], padded.shape[1] * 4
+    ops = 2 * 2 * m * m * samples  # two int8 products (m x samples) @ (samples x m)
+    emit("marker_pearson", t0, golden_max_abs_err=golden_err, markers=m, individuals=n,
+         wall_s=wall, cpu_wall_s_2048=cpu_wall, cuda_equals_cpu_2048=True,
+         products_ms=products_ms, one_product_ms=one_product_ms,
+         products_bound_ms=ops / PEAK_INT8 * 1e3,
+         products_bound_by="operations", products_int8_ops=ops,
+         non_finite=int((~finite).sum()))
+
+
+# `gen_rand_dag` at the size of the reference's accuracy evaluation
+# (`simulate_dag.R` at n=16000 and 1,600 SNPs, tests/test_sim.py:3-4), with
+# that test's other parameters
+SIM_DAG = dict(n=16000, num_snp=1600, num_trait=6, num_latent=1, deg=3, prob_pleio=0.2,
+               lo_mp=0.1, hi_mp=0.3, lo_pp=0.1, hi_pp=0.4, seed=7)
+
+
+def phase_sim_dag(sizes: dict = SIM_DAG, dev: str = "cuda") -> dict:
+    """The reference's accuracy evaluation at its own size: the simulated
+    DAG's observed correlation panel through `skeleton(C, Th(1e-3), 14)`
+    with pMax on the card (every launch held bitwise to plain) and on the
+    CPU (identical decisions, pMax within 1e-6); recall (> 0.8, as
+    tests/test_sim.py asks) and precision against the true skeleton of the
+    observed variables; then `cusk_second_stage` on the panel and the
+    skeleton's adjacency."""
+    t0 = time.perf_counter()
+    dag = gen_rand_dag(**sizes)
+    obs = dag.observed()
+    C = np.corrcoef(obs, rowvar=False).astype(np.float32)
+    data_s = time.perf_counter() - t0
+    th = threshold_array(obs.shape[0], 1e-3)
+    res, launches, walls, diff = skeleton_pair("sim_dag", C, th, 14, dev=dev)
+    keep = np.r_[np.arange(dag.num_snp), np.arange(dag.num_snp + dag.num_latent, dag.pq)]
+    true_dir = dag.G[np.ix_(keep, keep)] != 0
+    true_skel = true_dir | true_dir.T
+    iu = np.triu_indices(len(keep), 1)
+    est = res.G.astype(bool)[iu]
+    tp, fn, fp = (int(np.sum(est & true_skel[iu])), int(np.sum(~est & true_skel[iu])),
+                  int(np.sum(est & ~true_skel[iu])))
+    recall, precision = tp / max(tp + fn, 1), tp / max(tp + fp, 1)
+    assert recall > 0.8, f"recall {recall}"
+    t = time.perf_counter()
+    try:
+        ss = cusk_second_stage(C, res.G, th)
+        second = {"wall_s": time.perf_counter() - t,
+                  "pairs_with_sepset": int((ss.sepset[..., 0] >= 0).sum()),
+                  "edges": int(ss.G.sum() // 2)}
+    except ValueError as e:  # the reference's degree cap
+        second = {"wall_s": time.perf_counter() - t, "refused": str(e)}
+    emit("sim_dag", t0, variables=int(C.shape[0]), samples=int(obs.shape[0]), data_s=data_s,
+         final_level=res.final_level, launches=launches, pmax_max_abs_diff=diff,
+         cuda_equals_cpu=True, true_edges=tp + fn, recall=recall, precision=precision,
+         second_stage=second, **walls)
+    return {name: {"launches_sim_dag": launches[name]} for name in PMAX_KERNELS}
+
+
+def phase_sim_commands(tmp: str, num_markers: int = 10000, num_samples: int = 4000,
+                       dev: str = "cuda") -> None:
+    """`sim` and `phen_prep` where pandas is absent: `simulate_genotype_dataset`
+    with its default planted structure (markers spread over the chromosome,
+    the first at marker 0, trait edge T0 -> T1), its `.phen` split into a
+    space-separated FID IID file of T0, T1 and an IID FID file of T2 in
+    another row order, merged back with `make_merged_pheno_file` (it must
+    read as the `.phen` does), then the five commands with the merged file
+    and the CLI's defaults: at least 6 of the 7 planted markers adjacent to
+    their trait, and the T0 - T1 edge."""
+    t0 = time.perf_counter()
+    d = os.path.join(tmp, "sim_commands")
+    stem = simulate_genotype_dataset(d, num_samples=num_samples, num_markers=num_markers)
+    lines = open(stem + ".phen").read().splitlines()
+    rows = [ln.split("\t") for ln in lines]
+    a, b, merged = stem + "_a.txt", stem + "_b.txt", stem + "_merged.phen"
+    with open(a, "w") as f:
+        f.writelines(" ".join(r[:4]) + "\n" for r in rows)
+    order = np.random.default_rng(0).permutation(len(rows) - 1) + 1
+    with open(b, "w") as f:
+        f.write("IID FID T2\n")
+        f.writelines(f"{rows[i][1]} {rows[i][0]} {rows[i][4]}\n" for i in order)
+    make_merged_pheno_file([PhenotypesFile(a, ["T0", "T1"]), PhenotypesFile(b, ["T2"])],
+                           stem + ".fam", merged)
+    assert np.array_equal(load_phen(merged).data, load_phen(stem + ".phen").data)
+    data_s = time.perf_counter() - t0
+    out = os.path.join(d, "out")
+    os.makedirs(out)
+    reset_all_launches()
+    walls, blocks, _ = run_commands(stem, out, MAX_BLOCK, CORR_WIDTH, ALPHA, num_samples, dev,
+                                    phen=merged)
+    gm = merge_block_outputs(blocks, out)
+    sparse_of = {row: ix for ix, row in gm.gmi.items()}
+    picks = np.linspace(0, num_markers - 1, 8).astype(int)
+    planted = [(0, int(k)) for k in picks[:4]] + [(1, int(k)) for k in picks[4:7]]
+    adjacent = sum(k in sparse_of and ((sparse_of[k], t + 1) in gm.sam
+                                       or (t + 1, sparse_of[k]) in gm.sam) for t, k in planted)
+    trait_edge = (1, 2) in gm.sam or (2, 1) in gm.sam
+    assert adjacent >= 6, f"{adjacent} of {len(planted)} planted markers adjacent"
+    assert trait_edge, "the planted T0 - T1 edge is missing"
+    emit("sim_commands", t0, markers=num_markers, individuals=num_samples, data_s=data_s,
+         merged_phen_equals_sim_phen=True, wall_s_by_command=walls,
+         blocks=len(read_blocks_from_file(blocks)), merged_variables=gm.num_var,
+         planted_adjacent=int(adjacent), planted=len(planted), trait_edge_t0_t1=trait_edge,
+         launches=all_launches())
+
+
+def phase_genome_analysis(d: str, stem: str, out: str, blocks: str, planted: list,
+                          ace: dict) -> None:
+    """The analysis API over the genome's outputs: the pleiotropy matrices
+    and sets, parent and ancestor sets, causal paths and edge tallies of the
+    PAG, both association tables (every planted marker's rsID among its
+    trait's associations), the planted edges' ACE through a trait x trait
+    `.mtx` and `load_ace`, and `cusk_second_stage` on the merged skeleton;
+    the planted T2 -> T3 edge must be a causal path."""
+    t0 = time.perf_counter()
+    walls: dict = {}
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        r = fn(*args, **kw)
+        walls[name] = time.perf_counter() - t
+        return r
+
+    phen = stem + ".phen"
+    names = analysis.get_pheno_codes(phen)
+    merged = os.path.join(out, "merged_blocks")
+    pag_path = os.path.join(out, "max_sep_min_pc_estimated_pag.mtx")
+    epm = timed("global_epm", analysis.global_epm, blocks, out)
+    upm = timed("global_upm", analysis.global_upm, blocks, out)
+    eps = timed("global_eps", analysis.global_eps, blocks, out)
+    parents = timed("global_parent_sets", analysis.global_parent_sets, blocks, out)
+    ancestors = timed("global_ancestor_sets", analysis.global_ancestor_sets, blocks, out)
+    paths = timed("get_causal_paths", analysis.get_causal_paths, pag_path, phen)
+    possible = timed("get_possibly_causal_paths", analysis.get_possibly_causal_paths,
+                     pag_path, phen)
+    edge_types = timed("pag_edge_types", analysis.pag_edge_types, pag_path, phen)
+    assoc = timed("marker_pheno_associations", analysis.marker_pheno_associations,
+                  stem + ".bim", merged + "_scm.mtx", merged + "_sam.mtx", merged + ".ixs",
+                  pheno_path=phen)
+    assoc2 = timed("marker_pheno_associations_with_pnames",
+                   analysis.marker_pheno_associations_with_pnames, blocks, out, names,
+                   stem + ".bim")
+    rsid = {int(k): f"rs{k}" for _, k in planted}
+    found = {(r["phenotype"], r["rsID"]) for r in assoc}
+    missing = [(t, k) for t, k in planted if (names[t], rsid[k]) not in found]
+    assert not missing, f"planted markers missing from the associations: {missing}"
+    assert paths[2, 3] == 1, f"T2 -> T3 is no causal path: {paths.tolist()}"
+    ace_mat = np.zeros((P11K, P11K))
+    for key, value in ace.items():
+        s, t = (int(x) for x in key.replace("T", "").split("->"))
+        ace_mat[s, t] = value
+    ace_path = os.path.join(d, "planted_ace.mtx")
+    write_coo_mtx(ace_path, ace_mat)
+    ace_back = timed("load_ace", analysis.load_ace, ace_path, phen)
+    directed = timed("load_ace_directed_only", analysis.load_ace_directed_only, ace_path,
+                     pag_path, phen)
+    assert np.allclose(ace_back, ace_mat, rtol=1e-6, atol=0, equal_nan=True)
+    C = mmread(merged + "_scm.mtx").toarray().astype(np.float32)
+    G = (mmread(merged + "_sam.mtx").toarray() != 0).astype(np.int32)
+    np.fill_diagonal(C, 1.0)
+    t = time.perf_counter()
+    try:
+        ss = cusk_second_stage(C, G, threshold_array(N11K, ALPHA))
+        second = {"wall_s": time.perf_counter() - t, "variables": int(C.shape[0]),
+                  "pairs_with_sepset": int((ss.sepset[..., 0] >= 0).sum()),
+                  "edges": int(ss.G.sum() // 2)}
+    except ValueError as e:  # the reference's degree cap
+        second = {"wall_s": time.perf_counter() - t, "refused": str(e)}
+    emit("genome_analysis", t0, wall_s_by_call=walls,
+         epm_pairs=len(epm), upm_pairs=len(upm), eps_markers=sum(len(v) for v in eps.values()),
+         parent_markers=sum(len(v) for v in parents.values()),
+         ancestor_markers=sum(len(v) for v in ancestors.values()),
+         causal_paths=np.argwhere(paths[:P11K, :P11K] == 1).tolist(),
+         possibly_causal_paths=int(possible.sum()),
+         edge_types={f"{a}{b}": c for (a, b), c in sorted(edge_types.items())},
+         associations=len(assoc), associations_with_pnames=len(assoc2),
+         planted_in_associations=len(planted) - len(missing),
+         ace_directed_only=directed[np.nonzero(directed)].tolist(), second_stage=second)
 
 
 def profile_run(tag: str, run, unprofiled_wall_s: float, cpu: bool = True) -> dict:
@@ -1983,7 +2439,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="cigwas_chip_smoke_")
     try:
         phase_small_reference(tmp)
-        kernels, cusk_again, wall = phase_slice(tmp, rho_th, loops, clock_hz)
+        kernels, cusk_again, wall, capture = phase_slice(tmp, rho_th, loops, clock_hz)
         phase_small_cuskss(tmp)
         kernels_ss, cuskss_again, wall_ss = phase_cuskss(tmp, loops, clock_hz, bucket)
         kernels += kernels_ss
@@ -2005,7 +2461,17 @@ def main() -> int:
                 k["total_ms"] = sum(v["total_ms"] for v in gathers[k["name"]])
                 k["total_records"] = sum(v["launches"] for v in gathers[k["name"]])
                 assert 0 < k["total_records"] <= k["launches"], (k["name"], k["total_records"])
+        # the API phases after the older slices' phases, which so run in the
+        # process state they always ran in
+        of_pmax = phase_pmax(capture, th, rho_th)
+        del capture
+        torch.cuda.empty_cache()
+        phase_marker_pearson(os.path.join(tmp, "b11k", "sim"),
+                             os.path.join(tmp, "b11k", "sim.blocks"))
         phase_small_commands(tmp)
+        of_sim = phase_sim_dag()
+        phase_sim_commands(tmp)
+        shutil.rmtree(os.path.join(tmp, "sim_commands"))
         of_chr = phase_chromosome(tmp, rho_th, loops, clock_hz)
         for k in kernels:  # the chromosome's launches and checks under keys of their own
             k.update(of_chr.get(k["name"], {}))
@@ -2014,9 +2480,12 @@ def main() -> int:
         of_genome = phase_genome(tmp, rho_th, loops, clock_hz)
         for k in kernels:  # the sweep levels and the one-panel gather (0 launches allowed)
             k.update(of_genome.get(k["name"], {}))
+        for k in kernels:  # the pMax phases' launches of the same entries
+            k.update(of_pmax.get(k["name"], {}), **of_sim.get(k["name"], {}))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "cigwas_tpu"))
+    bad = sorted(k for k in sys.modules
+                 if k.split(".")[0] in ("jax", "cigwas_tpu", "pandas", "matplotlib"))
     assert not bad, bad
     assert [k["name"] for k in kernels] == expected, [k["name"] for k in kernels]
     assert all(k["launches"] > 0 for k in kernels)

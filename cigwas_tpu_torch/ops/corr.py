@@ -302,7 +302,19 @@ def marker_phen_corr_from_sums(sums, marker_mean: np.ndarray,
     return (s_mp - mean * s_p) / (n_val * std)
 
 
-def phen_phen_corr(phen: np.ndarray, device) -> np.ndarray:
+def marker_phen_corr(bed_bytes, phen: np.ndarray, marker_mean: np.ndarray,
+                     marker_std: np.ndarray, num_samples: int,
+                     sample_chunk: int = DEFAULT_SAMPLE_CHUNK, device="cuda") -> np.ndarray:
+    """(m, p) Pearson correlations between markers and standardized phenotypes
+    (`cigwas_tpu.ops.corr.marker_phen_corr`; `corr_kernels.cu:92-155`):
+    r = (sum(g y) - mean_g sum(y)) / (n_valid std_g), sums over samples where
+    the genotype is non-missing and the phenotype is not NaN; the sums on the
+    device, the quotient on the host, as the JAX function does."""
+    sums = marker_phen_sums(bed_bytes, phen, num_samples, device, sample_chunk)
+    return marker_phen_corr_from_sums(sums, marker_mean, marker_std)
+
+
+def phen_phen_corr(phen: np.ndarray, device="cuda") -> np.ndarray:
     """(p, p) Pearson panel of standardized phenotypes with pairwise NaN
     masking: r_ab = sum_valid(y_a y_b) / n_valid_ab."""
     device = resolve(device)
@@ -436,3 +448,76 @@ def corr_panel_device_tiled(bed_bytes, phen: np.ndarray, marker_mean: np.ndarray
     C[m_pad:, m_pad:] = torch.from_numpy(phen_phen_corr(phen, device)).to(device)
     C.fill_diagonal_(1.0)
     return _reorder_mask_panel(C, _pads_last_index(m, m_pad, p, device), v), v
+
+
+def pack_square_corr(
+    marker_corr: np.ndarray, marker_phen: np.ndarray, phen_corr: np.ndarray
+) -> np.ndarray:
+    """Assemble the dense (m+p, m+p) correlation matrix fed to the skeleton
+    (the triangular->square packing of `cli.cpp:594-649`); the diagonal is 1."""
+    m, p = marker_phen.shape
+    n = m + p
+    sq = np.ones((n, n), dtype=np.float32)
+    sq[:m, :m] = marker_corr
+    sq[:m, m:] = marker_phen
+    sq[m:, :m] = marker_phen.T
+    sq[m:, m:] = phen_corr
+    np.fill_diagonal(sq, 1.0)
+    return sq
+
+
+def marker_corr_mat_antidiag_sums(corrs: np.ndarray) -> np.ndarray:
+    """Antidiagonal sums of the strictly-upper triangular panel
+    (`marker_corr_mat_antidiag_sums`, `corr_host.cu:130-166`): entry (row,
+    col) contributes to antidiagonal row + col - 1; the result has 2m - 3
+    entries. Accepts a dense symmetric panel."""
+    corrs = np.asarray(corrs, dtype=np.float64)
+    m = corrs.shape[0]
+    sums = np.zeros(max(2 * m - 3, 0), dtype=np.float64)
+    iu = np.triu_indices(m, k=1)
+    np.add.at(sums, iu[0] + iu[1] - 1, corrs[iu])
+    return sums.astype(np.float32)
+
+
+def _marker_pearson_sums(rows: torch.Tensor, n_chunks: int):
+    """(sum over jointly valid samples of g_a g_b, joint valid counts), both
+    (m, m) int32 on the device: per sample chunk, two exact int8 products of
+    the decoded genotype values (0/1/2, 0 where missing) and validities."""
+    m, B = rows.shape
+    cb = B // n_chunks
+    s_gg = torch.zeros((m, m), dtype=torch.int32, device=rows.device)
+    n_joint = torch.zeros_like(s_gg)
+    for c in range(n_chunks):
+        codes = unpack_bed_codes(rows[:, c * cb : (c + 1) * cb])
+        gv = ((codes == 0).to(torch.int8) * 2 + (codes == 2).to(torch.int8))
+        valid = (codes != 1).to(torch.int8)
+        s_gg += contingency_counts(gv, gv)
+        n_joint += contingency_counts(valid, valid)
+    return s_gg, n_joint
+
+
+def marker_pearson_corr(bed_bytes, marker_mean: np.ndarray, marker_std: np.ndarray,
+                        num_samples: int, sample_chunk: int = DEFAULT_SAMPLE_CHUNK,
+                        device="cuda") -> np.ndarray:
+    """(m, m) pairwise-complete Pearson correlations between markers
+    (`cigwas_tpu.ops.corr.marker_pearson_corr`; `bed_marker_corr_pearson`,
+    `corr_kernels.cu:344-407`): r = (sum(g_a g_b)/n_joint - mean_a mean_b) /
+    (std_a std_b) with sums over individuals where both genotypes are
+    non-missing. The sums are exact integers (int8 products); the quotient
+    is the JAX package's f32 host expression, so the result equals its bit
+    for bit on the same bytes."""
+    device = resolve(device)
+    bed_bytes = np.asarray(bed_bytes, dtype=np.uint8)
+    sample_chunk = _sample_chunk(bed_bytes.shape[1], sample_chunk)
+    padded, n_chunks = _prep_bytes(bed_bytes, num_samples, sample_chunk)
+    s_gg, n_joint = _marker_pearson_sums(torch.tensor(padded, device=device), n_chunks)
+    s_gg = s_gg.cpu().numpy().astype(np.float32)
+    n_joint = n_joint.cpu().numpy().astype(np.float32)
+    mean = np.asarray(marker_mean, dtype=np.float32)
+    std = np.asarray(marker_std, dtype=np.float32)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        corr = (s_gg / n_joint - mean[:, None] * mean[None, :]) / (
+            std[:, None] * std[None, :]
+        )
+    np.fill_diagonal(corr, 1.0)
+    return corr.astype(np.float32)

@@ -257,7 +257,7 @@ class CuskContext:
         stats["stage1"] = {}
         res1 = skeleton(
             C, self.Th, self.max_level, device=self.device, n_var=v_panel,
-            verbose=self.verbose, stats=stats["stage1"],
+            verbose=self.verbose, stats=stats["stage1"], want_pmax=False,
         )
         t = time.perf_counter()
         keep = subset_variables(res1.G, num_var, num_markers, self.depth)
@@ -274,7 +274,7 @@ class CuskContext:
         stats["stage2"] = {}
         res2 = skeleton(
             gcs.C, self.Th, self.max_level_two, device=self.device,
-            verbose=self.verbose, stats=stats["stage2"],
+            verbose=self.verbose, stats=stats["stage2"], want_pmax=False,
         )
         keep2 = subset_variables(res2.G, gcs.num_var, gcs.num_markers(), self.depth)
         gcs2 = reduce_gcs(

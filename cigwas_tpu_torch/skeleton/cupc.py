@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from cigwas_tpu_torch.device import require_full_f32, resolve
-from cigwas_tpu_torch.constants import ML, PANEL_ALIGN
+from cigwas_tpu_torch.constants import ML, PANEL_ALIGN, PMAX_RETAINED
 from cigwas_tpu_torch.ops import pcorr
 from cigwas_tpu_torch.ops.kernels.checks import check_index_range
 from cigwas_tpu_torch.ops.kernels.hetcor_sweep import hetcor_local_sweep
@@ -48,6 +48,7 @@ from cigwas_tpu_torch.ops.kernels.panel_gather import (
     gather_local_panels2,
 )
 from cigwas_tpu_torch.utils.combinatorics import colex_combinations_chunk, colex_unrank
+from cigwas_tpu_torch.utils.stats import fisher_z
 
 # combos per chunk of the level >= 4 scan
 CHUNK = 512
@@ -62,6 +63,9 @@ class SkeletonResult:
     G: np.ndarray  # (n, n) int32 adjacency
     sepset: np.ndarray | None  # (n, n, depth) int32, -1 padded; None for hetcor
     final_level: int
+    # (n, n) f32 max Fisher z of a deleted pair's tests from either side,
+    # PMAX_RETAINED on kept edges, 1.0 on the diagonal; None unless asked for
+    pmax: np.ndarray | None = None
 
 
 def _next_pow2(v: int) -> int:
@@ -135,19 +139,37 @@ def _hits(stat: torch.Tensor, cut: float, deg_t: torch.Tensor):
     return torch.nonzero((stat < cut) & slot_ok, as_tuple=True)
 
 
+def _fisher_z_inplace(c: np.ndarray) -> None:
+    """c <- fisher_z(c) (`utils.stats.fisher_z`: |0.5 log|(1+c)/(1-c)||, the
+    same float32 operations in the same order, so the same bits) with one
+    temporary instead of five: at an 11k block each is a 0.5 GB host
+    array."""
+    with np.errstate(invalid="ignore", divide="ignore"):
+        z = 1 + c
+        np.subtract(1, c, out=c)
+        np.divide(z, c, out=c)
+        np.abs(c, out=c)
+        np.log(c, out=c)
+        np.multiply(0.5, c, out=c)
+        np.abs(c, out=c)
+
+
 def _run_level_local(C: torch.Tensor, G: np.ndarray, l: int, rho_threshold: float,
-                     stats: dict | None = None):
+                     stats: dict | None = None, want_rho: bool = False):
     """All level-l tests (l <= 3) as one kernel launch per degree bucket.
 
-    Returns (removed (n, n) bool, xs, ys, sep (k, l)): the ordered pairs
-    condemned from x's side and their minimizing conditioning variables."""
+    Returns (removed (n, n) bool, xs, ys, sep (k, l), rho (k,) or None): the
+    ordered pairs condemned from x's side, their minimizing conditioning
+    variables and, with want_rho, their min |rho| (fetched only then)."""
     n = G.shape[0]
-    xs_l, ys_l, sep_l = [], [], []
+    xs_l, ys_l, sep_l, rho_l = [], [], [], []
     for nodes, nbrs, on_dev, det in _level_buckets(G, l, C.device, stats):
         t1 = time.perf_counter()
         rho, pos = local_sweep(C, *on_dev, l, index_range_checked=True)
         ri, ci = _hits(rho, rho_threshold, on_dev[2])
         pos_h = pos[ri, ci].cpu().numpy()
+        if want_rho:
+            rho_l.append(rho[ri, ci].cpu().numpy())
         ri, ci = ri.cpu().numpy(), ci.cpu().numpy()
         det["sweep_s"] += time.perf_counter() - t1  # ends in the hits' fetch
         xs_l.append(nodes[ri])
@@ -156,10 +178,13 @@ def _run_level_local(C: torch.Tensor, G: np.ndarray, l: int, rho_threshold: floa
     xs = np.concatenate(xs_l) if xs_l else np.empty(0, np.int64)
     ys = np.concatenate(ys_l) if ys_l else np.empty(0, np.int64)
     sep = np.concatenate(sep_l) if sep_l else np.empty((0, l), np.int32)
+    rho_sel = None
+    if want_rho:
+        rho_sel = np.concatenate(rho_l) if rho_l else np.empty(0, np.float32)
     removed = np.zeros((n, n), dtype=bool)
     removed[xs, ys] = True
     removed[ys, xs] = True
-    return removed, xs, ys, sep
+    return removed, xs, ys, sep, rho_sel
 
 
 def _run_level_local_hetcor(C: torch.Tensor, N: torch.Tensor, t_ix: torch.Tensor,
@@ -283,7 +308,7 @@ def _run_level(C: torch.Tensor, G: np.ndarray, l: int, rho_threshold: float | No
 
 def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
              n_var: int | None = None, verbose: bool = False,
-             stats: dict | None = None) -> SkeletonResult:
+             stats: dict | None = None, want_pmax: bool = True) -> SkeletonResult:
     """PC-stable skeleton over a dense correlation panel (`Skeleton`,
     `cuPC-S.cu:61-450`; level 0 overwrites the adjacency from C).
 
@@ -293,10 +318,22 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
     ``l0_wall_s``, ``sepset_alloc_s``, ``level_wall_s`` {level: s}, the
     per-bucket ``launches`` {level: [(d_pad, nodes)]} and, for levels 1-3,
     ``level_detail`` {level: {compact_s, sweep_s}} (host compaction and
-    upload; kernel launches up to the fetch of their hits).
+    upload; kernel launches up to the fetch of their hits); with want_pmax
+    also ``c_fetch_wall_s`` (the panel's fetch for level 0's pMax) and
+    ``pmax_wall_s`` (level 0's pMax and the final pass, on the host).
 
-    Not ported: pMax (the pipeline never consumes it) and the JAX package's
-    alternative level-1-3 routes, which all decide the same.
+    want_pmax (the JAX package's default) also returns pMax
+    (`cuPC-S.cu:424-442`): level 0 writes the Fisher z of C on the pairs it
+    deletes, computed on the host from the fetched panel of the real
+    variables, as the JAX package computes it; levels >= 1 write
+    the Fisher z of the min |rho| of each ordered pair condemned from x's
+    side (levels 1-3 then also fetch the hits' rho); then the max of both
+    sides, PMAX_RETAINED on the kept edges and 1.0 on the diagonal. The
+    pipelines pass want_pmax=False: they never read pMax, and it costs the
+    panel's fetch and two (n, n) host arrays.
+
+    Not ported: the JAX package's alternative level-1-3 routes, which all
+    decide the same.
     """
     device = resolve(device)
     require_full_f32()  # the level >= 4 one-hot selections must be exact
@@ -322,6 +359,22 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
     if stats is not None:
         stats["sepset_alloc_s"] = time.perf_counter() - t_mark
 
+    pmax = None
+    pmax_s = 0.0
+    if want_pmax:
+        # level 0: the Fisher z of C on the pairs it deleted, 0 elsewhere,
+        # over the real variables only (pads never re-enter)
+        t_mark = time.perf_counter()
+        pmax = C[:v_real, :v_real].to("cpu", copy=True).numpy()
+        if stats is not None:
+            stats["c_fetch_wall_s"] = time.perf_counter() - t_mark
+        t_mark = time.perf_counter()
+        _fisher_z_inplace(pmax)
+        kept0 = G[:v_real, :v_real]
+        pmax[kept0] = 0.0
+        np.fill_diagonal(pmax, 0.0)
+        pmax_s += time.perf_counter() - t_mark
+
     final_level = 0
     for l in range(1, min(ML, max_level) + 1):
         nprime = int(G.sum(axis=1).max()) if n else 0
@@ -334,13 +387,18 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
         # f32-rounded threshold, compared in f32 on the device
         rho_th = float(np.float32(np.tanh(float(th[l]))))
         if l <= 3:  # the local-sweep kernel
-            removed, xs, ys, sep = _run_level_local(C, G, l, rho_th, stats)
+            removed, xs, ys, sep, rho_sel = _run_level_local(
+                C, G, l, rho_th, stats, want_rho=want_pmax)
             sepset[xs, ys, l:] = -1
             sepset[xs, ys, :l] = sep
+            if pmax is not None:
+                pmax[xs, ys] = fisher_z(rho_sel)
         else:
             removed, rho_min, rank = _run_level(C, G, l, rho_th)
             if rho_min is not None:
                 xs, ys = np.nonzero((rho_min < rho_th) & G)
+                if pmax is not None:
+                    pmax[xs, ys] = fisher_z(rho_min[xs, ys])
                 sepset[xs, ys, l:] = -1
                 prev_x, nbr_x = -1, None
                 for x, y in zip(xs, ys):  # xs ascending from np.nonzero
@@ -353,10 +411,20 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
             stats.setdefault("level_wall_s", {})[l] = time.perf_counter() - t_level
         final_level = l
 
+    if pmax is not None:  # both sides' max; the kept edges' sentinel; 1 on the diagonal
+        t_mark = time.perf_counter()
+        pmax = np.maximum(pmax, pmax.T)
+        pmax[G[:v_real, :v_real]] = PMAX_RETAINED
+        np.fill_diagonal(pmax, 1.0)
+        pmax_s += time.perf_counter() - t_mark
+        if stats is not None:
+            stats["pmax_wall_s"] = pmax_s
+
     return SkeletonResult(
         G=G[:v_real, :v_real].astype(np.int32),
         sepset=sepset[:v_real, :v_real],
         final_level=final_level,
+        pmax=pmax,
     )
 
 

@@ -122,3 +122,16 @@ def reduce_gc(
         C=_submatrix(C, keep, num_var),
         S=_submatrix(S, keep, num_var),
     )
+
+
+def direct_x_to_y(G: np.ndarray, num_var: int, num_markers: int) -> np.ndarray:
+    """Mark marker->trait edges with PAG codes 2/3 in place
+    (`direct_x_to_y`, `parent_set.cpp:62-82`; unused in the reference's main
+    path but part of its API surface). Returns G as a (num_var, num_var)
+    view."""
+    G = np.asarray(G).reshape(num_var, num_var)
+    sink, source = np.nonzero(G[num_markers:, :num_markers] == 1)
+    sink += num_markers
+    G[source, sink] = 2
+    G[sink, source] = 3
+    return G

@@ -130,3 +130,103 @@ def test_kendall_npn_golden():
     phen = np.zeros((1, 100), np.float32)
     C, _ = tc.corr_panel_device(bb, phen, np.ones(7), np.ones(7), 100, "cpu")
     assert np.allclose(C.numpy()[:7, :7], exp, atol=1e-5)
+
+
+def _bmt2():
+    path = os.path.join(os.path.dirname(__file__), "data", "bed_marker.npz")
+    if not os.path.exists(path):
+        pytest.skip("bed_marker fixture cache missing")
+    return np.load(path)
+
+
+def _unpack_tri(vals, m):
+    """Upper-tri packed (row-major, no diagonal) -> dense symmetric, unit diagonal."""
+    out = np.eye(m, dtype=np.float32)
+    iu = np.triu_indices(m, k=1)
+    out[iu] = vals
+    out[(iu[1], iu[0])] = vals
+    return out
+
+
+@pytest.mark.parametrize("sample_chunk", [131072, 256], ids=["one-chunk", "4-chunks"])
+def test_marker_pearson_corr_matches_jax_bitwise(sample_chunk):
+    """Exact integer sums on both sides and the same f32 host quotient:
+    bit for bit, NaNs (markers with no jointly valid sample) included."""
+    from cigwas_tpu.ops import corr as jc
+    from cigwas_tpu_torch.ops import corr as tc
+
+    bb, _, means, stds = _block(5, 50, 1001, 1, miss=0.05)
+    got = tc.marker_pearson_corr(bb, means, stds, 1001, sample_chunk=sample_chunk,
+                                 device="cpu")
+    exp = jc.marker_pearson_corr(bb, means, stds, 1001, sample_chunk=sample_chunk)
+    assert got.dtype == exp.dtype == np.float32 and got.shape == (50, 50)
+    assert np.array_equal(got.view(np.int32), exp.view(np.int32))
+
+
+def test_marker_phen_corr_matches_jax():
+    from cigwas_tpu.ops import corr as jc
+    from cigwas_tpu_torch.ops import corr as tc
+
+    bb, Y, means, stds = _block(6, 48, 901, 3)
+    got = tc.marker_phen_corr(bb, Y, means, stds, 901, device="cpu")
+    assert_close_nan(got, jc.marker_phen_corr(bb, Y, means, stds, 901), atol=1e-6)
+
+
+def test_pack_square_and_antidiag_sums_match_jax():
+    from cigwas_tpu.ops import corr as jc
+    from cigwas_tpu_torch.ops import corr as tc
+
+    rng = np.random.default_rng(8)
+    m, p = 9, 3
+    mm = rng.uniform(-1, 1, (m, m)).astype(np.float32)
+    mm = (mm + mm.T) / 2
+    mp = rng.uniform(-1, 1, (m, p)).astype(np.float32)
+    pp = rng.uniform(-1, 1, (p, p)).astype(np.float32)
+    sq = tc.pack_square_corr(mm, mp, pp)
+    assert np.array_equal(sq, jc.pack_square_corr(mm, mp, pp))
+    for M in (mm, sq, np.ones((1, 1), np.float32)):
+        assert np.array_equal(tc.marker_corr_mat_antidiag_sums(M),
+                              jc.marker_corr_mat_antidiag_sums(M))
+
+
+def test_ops_exports_match_jax():
+    import cigwas_tpu.ops as jops
+    import cigwas_tpu_torch.ops as tops
+
+    assert tops.__all__ == jops.__all__
+    assert all(callable(getattr(tops, name)) for name in tops.__all__)
+
+
+def test_bmt2_golden_pearson_phen_antidiag():
+    """The reference's hand-computed values (`corr_tests.cpp`, bmt2: 7
+    markers x 100 individuals, 5 traits), as tests/test_corr_parity.py
+    pins them for the JAX package."""
+    from cigwas_tpu_torch.ops import corr as tc
+
+    data = _bmt2()
+    bb = data["bmt2_marker_vals"].reshape(7, 25)
+    C = tc.marker_pearson_corr(bb, data["bmt2_marker_mean"], data["bmt2_marker_std"], 100,
+                               device="cpu")
+    assert np.allclose(C, _unpack_tri(data["bmt2_marker_corrs_pearson"], 7), atol=1e-5)
+    sums = tc.marker_corr_mat_antidiag_sums(_unpack_tri(data["bmt2_marker_corrs"], 7))
+    assert np.allclose(sums, data["bmt2_marker_corr_antidiag_sums"], atol=1e-5)
+    w, p, m = 3, 5, 7
+    sparse = data["bmt2_sparse_corrs"].reshape(m + p, w + p)
+    phen = data["bmt2_phen_vals"].reshape(p, 100)
+    mp = tc.marker_phen_corr(bb, phen, data["bmt2_marker_mean"], data["bmt2_marker_std"], 100,
+                             device="cpu")
+    assert np.allclose(mp, sparse[:m, w:], atol=1e-5)
+    small = tc.marker_phen_corr(data["bmt_marker_vals"].reshape(3, 3),
+                                data["bmt_phen_vals"].reshape(2, 10), data["bmt_marker_mean"],
+                                data["bmt_marker_std"], 10, device="cpu")
+    assert small.shape == (3, 2) and np.all(np.abs(small) <= 1.0 + 1e-6)
+
+
+def test_marker_pearson_corr_needs_a_device():
+    from cigwas_tpu_torch.ops import corr as tc
+
+    bb, _, means, stds = _block(5, 20, 64, 1)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tc.marker_pearson_corr(bb, means, stds, 64)

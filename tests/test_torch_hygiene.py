@@ -111,12 +111,14 @@ _IMPORT_ALL = textwrap.dedent(
     for new in ("blocking", "cli", "merge.merge_blocks", "merge.sepselect",
                 "parallel.block_scheduler", "parallel.runner", "utils.timing",
                 "merge.mr_assumptions", "pag.rfci", "pag.davs", "pag.simulations",
-                "mr.mvivw", "mr.cause", "mr.competitors", "io.tables"):
+                "mr.mvivw", "mr.cause", "mr.competitors", "io.tables", "phen_prep", "sim",
+                "analysis", "vis", "skeleton.second_stage"):
         assert "cigwas_tpu_torch." + new in names, new
     from cigwas_tpu_torch.cli import build_parser
     build_parser().parse_args(["sepselect", "stem", "1e-4", "10"])
     bad = sorted(k for k in sys.modules
-                 if k.split(".")[0] in ("jax", "jaxlib", "cigwas_tpu", "pandas", "triton"))
+                 if k.split(".")[0] in ("jax", "jaxlib", "cigwas_tpu", "pandas", "triton",
+                                        "matplotlib"))
     assert not bad, bad
     from cigwas_tpu_torch.ops.kernels import build
     assert build._loaded == {}
@@ -128,8 +130,8 @@ _IMPORT_ALL = textwrap.dedent(
 def test_every_module_imports_without_jax_pandas_or_a_build():
     """A fresh interpreter imports every module of the port (the CLI, the
     blocking, merge and parallel packages among them) and builds its
-    parser: neither jax, nor the JAX package, nor pandas, nor triton is
-    imported, and no kernel is built."""
+    parser: neither jax, nor the JAX package, nor pandas, nor matplotlib,
+    nor triton is imported, and no kernel is built."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -169,6 +171,66 @@ def test_port_srfci_and_mvivw_never_import_jax_or_pandas():
         [sys.executable, "-c", _HOST_CHAIN, os.path.dirname(__file__)], capture_output=True,
         text=True, timeout=300,
     )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+_API_DRIVE = textwrap.dedent(
+    """
+    import os, sys, tempfile
+    import numpy as np
+    from cigwas_tpu_torch import analysis, sim
+    from cigwas_tpu_torch.merge import merge_block_outputs
+    from cigwas_tpu_torch.phen_prep import PhenotypesFile, make_merged_pheno_file
+    from cigwas_tpu_torch.pipelines import cusk
+    from cigwas_tpu_torch.prep import prep_bed
+    from cigwas_tpu_torch.io import MarkerBlock, write_marker_blocks_to_file
+    from cigwas_tpu_torch.skeleton import skeleton
+    from cigwas_tpu_torch.skeleton.second_stage import cusk_second_stage
+    from cigwas_tpu_torch.utils.stats import threshold_array
+    d = tempfile.mkdtemp()
+    stem = sim.simulate_genotype_dataset(d, num_samples=600, num_markers=40, seed=2)
+    with open(stem + ".phen") as f:
+        rows = [ln.split("\\t") for ln in f.read().splitlines()]
+    with open(os.path.join(d, "a.txt"), "w") as f:
+        f.writelines(" ".join(r[:4]) + "\\n" for r in rows)
+    make_merged_pheno_file([PhenotypesFile(os.path.join(d, "a.txt"), ["T0", "T1"])],
+                           stem + ".fam", stem + "_merged.phen")
+    prep_bed(stem)
+    write_marker_blocks_to_file([MarkerBlock("1", 0, 39)], stem + ".blocks")
+    out = os.path.join(d, "out")
+    os.makedirs(out)
+    cusk(stem + "_merged.phen", stem, stem + ".blocks", 1e-3, 3, 14, 1, out, 0,
+         verbose=False, device="cpu")
+    analysis.global_epm(stem + ".blocks", out)
+    analysis.global_ancestor_sets(stem + ".blocks", out, depth=2)
+    gm = merge_block_outputs(stem + ".blocks", out)
+    gm.write_mm(os.path.join(d, "merged"))
+    m = os.path.join(d, "merged")
+    rows = analysis.marker_pheno_associations(stem + ".bim", m + "_scm.mtx", m + "_sam.mtx",
+                                              m + ".ixs", num_phen=2)
+    assert rows, "no trait-adjacent marker"
+    dag = sim.gen_rand_dag(2000, 30, 3, 1, 3, 0.2, 0.1, 0.3, 0.1, 0.4, seed=1)
+    C = np.corrcoef(dag.observed(), rowvar=False).astype(np.float32)
+    th = threshold_array(2000, 1e-3)
+    res = skeleton(C, th, 14, device="cpu")
+    assert res.pmax is not None
+    cusk_second_stage(C, res.G, th)
+    bad = sorted(k for k in sys.modules
+                 if k.split(".")[0] in ("jax", "cigwas_tpu", "pandas", "matplotlib"))
+    assert not bad, bad
+    print("OK")
+    """
+)
+
+
+def test_port_api_modules_never_import_jax_pandas_or_matplotlib():
+    """A fresh interpreter simulates a fileset, merges its phenotypes,
+    runs a block, the analysis tables, a skeleton with pMax and the
+    second stage through the port: none of jax, the JAX package, pandas or
+    matplotlib is imported (only the plot helpers import matplotlib)."""
+    proc = subprocess.run([sys.executable, "-c", _API_DRIVE], capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
 

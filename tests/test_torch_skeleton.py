@@ -152,3 +152,22 @@ def test_reduce_gcs_matches_jax():
         assert getattr(got, f) == getattr(exp, f)
     for f in ("new_to_old_indices", "G", "C", "S"):
         assert np.array_equal(getattr(got, f), getattr(exp, f))
+
+
+def test_direct_x_to_y_matches_jax():
+    """Marker->trait edges marked 2/3 in place, on a random int32 skeleton
+    (the flattened layout the block files hold), as the JAX function does."""
+    from cigwas_tpu.skeleton.reduce import direct_x_to_y as jax_direct
+    from cigwas_tpu_torch.skeleton.reduce import direct_x_to_y
+
+    rng = np.random.default_rng(4)
+    v, num_markers = 30, 24
+    G = np.triu(rng.random((v, v)) < 0.3, 1)
+    G = (G | G.T).astype(np.int32)
+    flat_t, flat_j = G.ravel().copy(), G.ravel().copy()
+    got = direct_x_to_y(flat_t, v, num_markers)
+    exp = jax_direct(flat_j, v, num_markers)
+    assert np.array_equal(got, exp)
+    assert np.array_equal(flat_t, flat_j)  # both wrote through to the caller's array
+    assert (got == 2).any() and (got == 3).any()
+    assert np.array_equal(got[:num_markers, :num_markers], G[:num_markers, :num_markers])
