@@ -94,7 +94,33 @@ and the script exits non-zero:
    and the CPU, recall and precision, ``cusk_second_stage``) and
    ``sim_commands`` (``simulate_genotype_dataset``, its phenotypes split and
    merged again by ``make_merged_pheno_file``, the five commands; the
-   planted structure recovered).
+   planted structure recovered);
+10. the multi-device engines (``mesh``, last, so that the phases above keep
+   the process state they always ran in), every run on D shards of the one
+   card (a mesh whose D entries all name ``cuda:0``: each shard's launches
+   and copies run as they would on a card of its own), the launch counts
+   set to 0 just before each engine run and read just after:
+   ``mesh_small`` (the 1,500-marker block through ``cusk`` with both
+   engines at D = 2 and 3 on the card and on the CPU: every file
+   byte-identical to that device's one-device run, every shard launch on
+   the card bitwise equal to plain); ``mesh_11k`` and ``mesh_10k`` (the 11k
+   block through ``cusk`` and the 10k input through ``cuskss``, both
+   engines at D = 4: the decision files' sha256 equal to the parent's,
+   every file byte-equal to the one-device run's, the wall, per-level
+   walls, calls per shard, the card's peak memory, each shard's panel and
+   largest compact panel bytes, the bytes copied between shards, and each
+   shard's largest launch of each kernel bitwise equal to plain);
+   ``mesh_partitions`` (the 50k chromosome's blocks through two concurrent
+   ``python -m cigwas_tpu_torch.parallel.distributed`` workers, then two
+   processes of a gloo world of 2 whose ``run_all_blocks`` takes its
+   partition from the world: merged and block files equal to the
+   one-process ``cusk-all``'s); ``mesh_cli`` (``cusk --mesh 1``, ``cusk
+   --mesh 0``, ``cusk-all --mesh 1 --partition-index 0``, ``cuskss --mesh 1
+   --panel-mode rowsharded`` write the one-device files; ``--mesh`` past
+   the visible cards exits with its message); ``mesh_make_blocks``
+   (``make_blocks`` over 4 shards writes the chromosome's ``.blocks``
+   bytes). Scaling across cards and copies between cards cannot be
+   measured on one card.
 
 Both older slices print the sha256 of their decision files beside those of
 the commit before the gather's redesign, so two versions of the kernels can
@@ -119,7 +145,9 @@ chromosome's path carry its launches (``launches_chr50k``, and
 ``chr50k``, the same measurements on its largest launch; they and the
 one-panel gather also carry the genome's (``launches_genome``, 0 allowed for
 the gather) and the pMax phases' (``launches_pmax_11k``,
-``launches_pmax_stage2``, ``launches_sim_dag``).
+``launches_pmax_stage2``, ``launches_sim_dag``) and every entry the mesh
+phase's (``launches_mesh_11k_{replicated,rowsharded}``,
+``launches_mesh_10k_{replicated,rowsharded}``).
 
 ``--kernels-only`` stops after phase 3.
 
@@ -172,6 +200,7 @@ from cigwas_tpu_torch.ops.kernels import hetcor_sweep as hs
 from cigwas_tpu_torch.ops.kernels import local_sweep as ls
 from cigwas_tpu_torch.ops.kernels import panel_gather as pg
 from cigwas_tpu_torch.merge import check_ivs, merge_block_outputs
+from cigwas_tpu_torch.parallel import sharded
 from cigwas_tpu_torch.mr import run_mvivw_filtered
 from cigwas_tpu_torch.pag.davs import estimate_ace
 from cigwas_tpu_torch.phen_prep import PhenotypesFile, make_merged_pheno_file
@@ -1335,7 +1364,7 @@ def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list):
         os.makedirs(out2)
         cuskss(CuskssArgs.from_paths(outdir=out2, **kw), verbose=False, device="cuda")
 
-    return kernels, again, wall
+    return kernels, again, wall, kw
 
 
 def pack_bed_rows(G: np.ndarray) -> np.ndarray:
@@ -2370,6 +2399,384 @@ def phase_genome_analysis(d: str, stem: str, out: str, blocks: str, planted: lis
          ace_directed_only=directed[np.nonzero(directed)].tolist(), second_stage=second)
 
 
+# --- the multi-device engines: D shards of one card ---------------------------
+
+MESH_D = 4
+MESH_MODES = ("replicated", "rowsharded")
+# the decision files of a cusk block and a cuskss run
+CUSK_FILES, CUSKSS_FILES = (".adj", ".ixs", ".mdim", ".sep"), (".adj", ".ixs", ".mdim")
+MERGED_FILES = ("merged_blocks_sam.mtx", "merged_blocks_scm.mtx", "merged_blocks.mdim",
+                "merged_blocks.ixs")
+
+
+def mesh_of(dev: str, D: int) -> list:
+    """D shards: D entries of the first card, or of the CPU."""
+    return [torch.device("cuda", 0) if dev == "cuda" else torch.device("cpu")] * D
+
+
+class ShardRecorder(Recorder):
+    """A Recorder keyed by shard as well: the largest launch of each kernel
+    on each shard of an engine (the engines name the shard of each launch
+    through `call`)."""
+
+    def __enter__(self):
+        self.shard = None
+        self.saved_call = sharded.ShardedEngine.call
+        saved, rec = self.saved_call, self
+
+        def call(engine, k, kernel):
+            rec.shard = k
+            return saved(engine, k, kernel)
+
+        sharded.ShardedEngine.call = call
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        sharded.ShardedEngine.call = self.saved_call
+        return super().__exit__(*exc)
+
+    def _keep(self, key, work, args):
+        super()._keep(key + (self.shard,), work, args)
+
+
+def shard_checks(tag: str, rec: ShardRecorder) -> list:
+    """Each shard's largest launch of each kernel, run again through the
+    kernel and through its plain version on the same tensors: bitwise equal
+    (the compare functions raise otherwise)."""
+    out = []
+    for key in sorted(rec.largest, key=str):
+        args = rec.largest[key][1]
+        name, shard = key[0], key[-1]
+        label = f"{tag} shard {shard} largest {name}{'' if len(key) == 2 else key[1]}"
+        if name == "local_sweep":
+            C, node_ixs, nbrs, deg, l = args
+            rho_k, pos_k = ls.local_sweep(C, node_ixs, nbrs, deg, l)
+            err = compare(label, rho_k, pos_k, *pcorr.local_sweep_plain(C, node_ixs, nbrs, deg, l),
+                          deg, math.nan)
+            entry = f"local_sweep_l{l}"
+        elif name == "hetcor_sweep":
+            _, err = compare_margin(label, hs.hetcor_local_sweep(*args),
+                                    pcorr.hetcor_local_sweep_plain(*args))
+            C, nbrs, entry = args[0], args[4], f"hetcor_sweep_l{args[7]}"
+        else:
+            kern, plain = ((pg.gather_local_panels, pg.gather_local_panels_plain)
+                           if name == "panel_gather" else
+                           (pg.gather_local_panels2, pg.gather_local_panels2_plain))
+            err = compare_bits(label, kern(*args), plain(*args))
+            C, nbrs, entry = args[0], args[-2], name
+        out.append({"kernel": entry, "shard": shard, "nodes": int(nbrs.shape[0]),
+                    "width": int(nbrs.shape[1]), "panel": int(C.shape[0]),
+                    "bit_identical": True, "max_abs_err": err})
+    return out
+
+
+def engine_memory(record: dict) -> dict:
+    """From an engine's record: the bytes of panel parts each shard holds
+    (its stripes, or the copies its device owns) and its largest compact
+    panel; the bytes that crossed between shards and came from the host."""
+    held = [0] * len(record["calls"])
+    compact = [0] * len(record["calls"])
+    for what, k, _, shape in record["placed"]:
+        nbytes = 4 * math.prod(shape)
+        if what == "panel":
+            held[k] += nbytes
+        elif what == "compact":
+            compact[k] = max(compact[k], nbytes)
+    return {"panel_bytes_per_shard": held, "largest_compact_bytes_per_shard": compact,
+            "crossed_bytes": record["crossed_bytes"], "uploaded_bytes": record["uploaded_bytes"],
+            "calls_per_shard": [dict(c) for c in record["calls"]]}
+
+
+def device_peaks(dev: str) -> dict:
+    """Peak allocated bytes of every card since the last reset."""
+    if dev != "cuda":
+        return {}
+    return {f"cuda:{i}": torch.cuda.max_memory_allocated(i)
+            for i in range(torch.cuda.device_count())}
+
+
+def mesh_small(tmp: str, dev: str = "cuda") -> dict:
+    """The 1,500-marker block of `phase_small_reference` through cusk with
+    each engine over D = 2 and 3 shards (uneven parts) of the card and of the
+    CPU: every file byte-identical to that device's one-device run, every
+    shard launch on the card bitwise equal to its plain version."""
+    stem, blocks = os.path.join(tmp, "small", "sim"), os.path.join(tmp, "small", "sim.blocks")
+    one = {d: block_files(os.path.join(tmp, f"small_{d}")) for d in (dev, "cpu")}
+    checked = {}
+    for d in dict.fromkeys((dev, "cpu")):
+        for D in (2, 3):
+            for mode in MESH_MODES:
+                out = os.path.join(tmp, f"small_mesh_{d}_{mode}_{D}")
+                os.makedirs(out)
+                with EveryLaunchChecked() as chk:
+                    cusk(stem + ".phen", stem, blocks, ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH,
+                         out, 0, verbose=False, mesh=mesh_of(d, D), panel_mode=mode)
+                got = block_files(out)
+                differ = [f for f in one[d] if got.get(f) != one[d][f]]
+                assert got.keys() == one[d].keys() and not differ, (d, mode, D, differ)
+                checked[f"{d}_{mode}_{D}"] = chk.checked
+    assert all(n > 0 for k, n in checked.items() if k.startswith("cuda")), checked
+    return {"files": sorted(one["cpu"]), "equal_to_one_device": True,
+            "launches_bit_identical": checked}
+
+
+def mesh_engine_runs(tag: str, run, one_dir: str, base: str, exts: tuple, parent: dict | None,
+                     dev: str = "cuda") -> tuple[dict, dict]:
+    """run(mode, outdir, stats) for both panel modes over MESH_D shards,
+    the launch counts set to 0 just before each and read just after: its
+    wall, per-level walls, the engine's record (the pipeline puts it into
+    stats), the card's peak memory, the decision files' sha256 (equal to
+    `parent` where given) and every file byte-equal to the one-device run's
+    in `one_dir`; then each shard's largest launch of each kernel held
+    bitwise to plain. Returns the phase's lines and the launches per mode."""
+    lines, launches = {}, {}
+    one = block_files(one_dir)
+    for mode in MESH_MODES:
+        out = os.path.join(os.path.dirname(one_dir), f"{tag}_mesh_{mode}")
+        os.makedirs(out)
+        stats: dict = {}
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        with ShardRecorder() as rec:
+            reset_all_launches()
+            t1 = time.perf_counter()
+            run(mode, out, stats)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches[mode] = all_launches()
+        peaks = device_peaks(dev)
+        got = block_files(out)
+        differ = [f for f in one if got.get(f) != one[f]]
+        assert got.keys() == one.keys() and not differ, f"{tag} {mode}: {differ} differ"
+        sha = file_hashes(os.path.join(out, base), exts)
+        if parent is not None:
+            assert sha == parent, f"{tag} {mode}: decision files differ from the parent's"
+        t1 = time.perf_counter()
+        checks = shard_checks(f"{tag} {mode}", rec)
+        del rec
+        s1 = stats.get("stage1", {})
+        lines[mode] = {
+            "wall_s": wall, "level_wall_s": s1.get("level_wall_s", {}),
+            "stage2_level_wall_s": stats.get("stage2", {}).get("level_wall_s", {}),
+            "launches": launches[mode], "device_peak_bytes": peaks,
+            **engine_memory(stats["engine_record"]),
+            "files_equal_to_one_device": True, "sha256": sha,
+            "sha256_equal_to_parent": parent is not None and sha == parent,
+            "largest_per_shard": checks, "checks_wall_s": time.perf_counter() - t1,
+        }
+    return lines, launches
+
+
+def mesh_cusk_runner(stem: str, blocks: str, dev: str = "cuda"):
+    def run(mode, out, stats):
+        cusk(stem + ".phen", stem, blocks, ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH, out, 0,
+             verbose=False, stats=stats, mesh=mesh_of(dev, MESH_D), panel_mode=mode)
+    return run
+
+
+def mesh_cuskss_runner(kw: dict, dev: str = "cuda"):
+    def run(mode, out, stats):
+        cuskss(CuskssArgs.from_paths(outdir=out, **kw), verbose=False, stats=stats,
+               mesh=mesh_of(dev, MESH_D), panel_mode=mode)
+    return run
+
+
+# one process of a gloo world of 2: its partition comes from the world
+PARTITION_CHILD = """
+import sys
+import torch.distributed as dist
+from cigwas_tpu_torch.parallel import init_distributed, process_partition, run_all_blocks
+port, rank, phen, stem, blocks, alpha, max_level, max_level_two, depth, out, dev = sys.argv[1:]
+init_distributed(f"127.0.0.1:{port}", 2, int(rank))
+assert process_partition() == (2, int(rank)), process_partition()
+run_all_blocks(phen, stem, blocks, float(alpha), int(max_level), int(max_level_two),
+               int(depth), out, verbose=False, device=dev)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_children(argvs: list, timeout: int = 600) -> list:
+    """Start every argv at once (the repo on PYTHONPATH), wait for all, fail
+    on any non-zero exit; returns their standard outputs."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, *a], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env) for a in argvs]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            assert p.returncode == 0, f"child {p.args[:4]} exit {p.returncode}: {err[-3000:]}"
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def mesh_partitions(chr_dir: str, dev: str = "cuda") -> dict:
+    """The 50,000-marker chromosome's blocks through two concurrent partition
+    workers (`python -m cigwas_tpu_torch.parallel.distributed`, partitions 0
+    and 1 on `dev`), then through two processes of a gloo world of 2 whose
+    `run_all_blocks` takes its partition from the world: both merge to the
+    one-process `cusk-all` files byte for byte (block files too)."""
+    stem = os.path.join(chr_dir, "sim")
+    blocks = f"{stem}_m{MAX_BLOCK}.blocks"
+    one = block_files(os.path.join(chr_dir, "out"))
+    block_names = [f for f in one if not f.startswith(("merged_blocks", "max_sep_min_pc"))]
+    res = {}
+    for tag in ("workers", "gloo_world"):
+        out = os.path.join(chr_dir, f"out_{tag}")
+        os.makedirs(out)
+        t1 = time.perf_counter()
+        if tag == "workers":
+            lines = run_children([
+                ["-m", "cigwas_tpu_torch.parallel.distributed", stem + ".phen", stem, blocks,
+                 str(ALPHA), str(MAX_LEVEL), str(MAX_LEVEL_TWO), str(DEPTH), out, "2", str(p),
+                 "--device", dev] for p in (0, 1)])
+            walls = [json.loads(o.strip().splitlines()[-1])["wall_s"] for o in lines]
+        else:
+            port = free_port()
+            run_children([["-c", PARTITION_CHILD, str(port), str(r), stem + ".phen", stem, blocks,
+                           str(ALPHA), str(MAX_LEVEL), str(MAX_LEVEL_TWO), str(DEPTH), out, dev]
+                          for r in (0, 1)])
+            walls = None
+        wall = time.perf_counter() - t1
+        merge_block_outputs(blocks, out).write_mm(os.path.join(out, "merged_blocks"))
+        got = block_files(out)
+        differ = [f for f in block_names + list(MERGED_FILES) if got.get(f) != one[f]]
+        assert not differ and set(block_names) <= set(got), f"{tag}: {differ} differ"
+        res[tag] = {"wall_s": wall, "worker_walls_s": walls, "block_files": len(block_names),
+                    "merged_equal_to_one_process": True}
+    return res
+
+
+def mesh_cli(tmp: str, dev: str = "cuda") -> dict:
+    """The CLI with --mesh on the card: `cusk --mesh 1`, `cusk --mesh 0` and
+    `cusk-all --mesh 1 --num-partitions 1 --partition-index 0` over the small
+    block write its one-device files; `cuskss --mesh 1 --panel-mode
+    rowsharded` over the fixture input writes the files of the same command
+    without --mesh; `--mesh` past the visible cards exits non-zero with its
+    message and writes nothing."""
+    stem, blocks = os.path.join(tmp, "small", "sim"), os.path.join(tmp, "small", "sim.blocks")
+    levels = [str(ALPHA), str(MAX_LEVEL), str(MAX_LEVEL_TWO), str(DEPTH)]
+    small = [stem + ".phen", *levels, "{out}"]
+    p = lambda name: os.path.join(FIXTURES, name)  # noqa: E731
+    cuskss_argv = [
+        "cuskss", "--mxm", p("small_mxm.bin"), "--mxp", p("marker_trait_summary_stats.txt"),
+        "--pxp", p("trait_summary_stats.txt"), "--marker-indices", p("marker_indices.bin"),
+        "--alpha", str(ALPHA), "--num-samples", "500000", "--max-level-one", "3",
+        "--max-level-two", "1", "--max-depth", "1", "--outdir", "{out}"]
+    runs = {
+        "cusk --mesh 1": ["cusk", "0", blocks, stem, *small, "--mesh", "1"],
+        "cusk --mesh 0": ["cusk", "0", blocks, stem, *small, "--mesh", "0"],
+        "cusk-all --mesh 1 --partition-index 0": [
+            "cusk-all", blocks, stem, *small, "--mesh", "1", "--num-partitions", "1",
+            "--partition-index", "0"],
+        "cuskss": cuskss_argv,
+        "cuskss --mesh 1 --panel-mode rowsharded": cuskss_argv + [
+            "--mesh", "1", "--panel-mode", "rowsharded"],
+    }
+    if dev == "cpu":  # every card: refused on the CPU
+        del runs["cusk --mesh 0"]
+    one = block_files(os.path.join(tmp, f"small_{dev}"))
+    res, files = {}, {}
+    for i, (name, argv) in enumerate(runs.items()):
+        out = os.path.join(tmp, f"mesh_cli_{i}")
+        os.makedirs(out)
+        if name.startswith("cuskss"):  # the merged index map its reformat step reads
+            n_ix = np.fromfile(p("marker_indices.bin"), dtype=np.int32).size
+            np.arange(n_ix, dtype=np.int32).tofile(os.path.join(out, "merged_blocks.ixs"))
+        cli_main([a.format(out=out) for a in argv] + ["--device", dev])
+        files[name] = block_files(out)
+        exp = files["cuskss"] if name.startswith("cuskss") else one
+        differ = [f for f in exp if files[name].get(f) != exp[f]]
+        assert files[name].keys() >= exp.keys() and not differ, (
+            f"{name}: {differ} differ from the one-device run")
+        res[name] = {"files": len(exp), "equal_to_one_device": True}
+    too_many = torch.cuda.device_count() + 1 if dev == "cuda" else 0
+    out = os.path.join(tmp, "mesh_cli_refused")
+    os.makedirs(out)
+    try:
+        cli_main(["cusk", "0", blocks, stem, *small[:-1], out, "--mesh", str(too_many),
+                  "--device", dev])
+    except SystemExit as refused:
+        assert refused.code not in (0, None) and str(refused.code).startswith(
+            f"--mesh {too_many}"), refused.code
+        res[f"cusk --mesh {too_many}"] = {"refused": str(refused.code)}
+    else:
+        raise AssertionError(f"--mesh {too_many} ran on {torch.cuda.device_count()} card(s)")
+    assert not os.listdir(out)
+    return res
+
+
+def mesh_make_blocks(chr_dir: str, dev: str = "cuda") -> dict:
+    """`make_blocks(mesh=[card] * MESH_D)` over the 50,000-marker chromosome
+    writes the one-device `block` command's `.blocks` bytes."""
+    stem = os.path.join(chr_dir, "sim")
+    one = open(f"{stem}_m{MAX_BLOCK}.blocks", "rb").read()
+    out = os.path.join(chr_dir, "mesh.blocks")
+    t1 = time.perf_counter()
+    make_blocks(stem, MAX_BLOCK, CORR_WIDTH, out_path=out, verbose=False,
+                mesh=mesh_of(dev, MESH_D))
+    wall = time.perf_counter() - t1
+    assert open(out, "rb").read() == one, "the mesh's .blocks differ from one device's"
+    return {"wall_s": wall, "blocks_equal_to_one_device": True, "shards": MESH_D}
+
+
+def phase_mesh(tmp: str, ss_kw: dict, chr_dir: str) -> dict:
+    """The multi-device engines over MESH_D (and 2, 3) shards of the one
+    card: the small block, the 11k block, the 10k summary-statistic input,
+    the chromosome's block partitions in two processes, the CLI with --mesh
+    and make_blocks over a mesh. Returns, per kernel entry, its launches
+    under the `mesh_*` keys."""
+    t0 = time.perf_counter()
+    emit("mesh_small", t0, shards=[2, 3], **mesh_small(tmp))
+
+    t0 = time.perf_counter()
+    b11k = os.path.join(tmp, "b11k")
+    lines, l11k = mesh_engine_runs(
+        "11k", mesh_cusk_runner(os.path.join(b11k, "sim"), os.path.join(b11k, "sim.blocks")),
+        os.path.join(tmp, "out11k"), f"1_0_{M11K - 1}", CUSK_FILES, PARENT_SHA256["cusk"])
+    emit("mesh_11k", t0, shards=MESH_D, engines=lines)
+
+    t0 = time.perf_counter()
+    lines, l10k = mesh_engine_runs("ss", mesh_cuskss_runner(ss_kw), os.path.join(tmp, "out_ss"),
+                                   f"1_0_{MSS - 1}", CUSKSS_FILES, PARENT_SHA256["cuskss"])
+    emit("mesh_10k", t0, shards=MESH_D, engines=lines)
+
+    t0 = time.perf_counter()
+    emit("mesh_partitions", t0, **mesh_partitions(chr_dir))
+    t0 = time.perf_counter()
+    emit("mesh_cli", t0, commands=mesh_cli(tmp))
+    t0 = time.perf_counter()
+    emit("mesh_make_blocks", t0, **mesh_make_blocks(chr_dir))
+
+    of = {name: {**{f"launches_mesh_11k_{m}": l11k[m][name] for m in MESH_MODES},
+                 **{f"launches_mesh_10k_{m}": l10k[m][name] for m in MESH_MODES}}
+          for name in all_launches()}
+    for names, run in ((("local_sweep_l1", "local_sweep_l2", "local_sweep_l3", "panel_gather"),
+                        "11k"),
+                       (("hetcor_sweep_l1", "hetcor_sweep_l2", "hetcor_sweep_l3",
+                         "panel_gather2"), "10k")):
+        for name in names:
+            assert all(of[name][f"launches_mesh_{run}_{m}"] > 0 for m in MESH_MODES), (
+                name, of[name])
+    return of
+
+
 def profile_run(tag: str, run, unprofiled_wall_s: float, cpu: bool = True) -> dict:
     """A second (warm) run of a slice under torch.profiler: device time by
     kernel name. The profiler slows the host, not the device, so the idle
@@ -2441,7 +2848,8 @@ def main() -> int:
         phase_small_reference(tmp)
         kernels, cusk_again, wall, capture = phase_slice(tmp, rho_th, loops, clock_hz)
         phase_small_cuskss(tmp)
-        kernels_ss, cuskss_again, wall_ss = phase_cuskss(tmp, loops, clock_hz, bucket)
+        kernels_ss, cuskss_again, wall_ss, ss_kw = phase_cuskss(tmp, loops, clock_hz,
+                                                               bucket)
         kernels += kernels_ss
         # device time of all launches of each sweep level on its slice, from
         # the profiled second run, whose launches must repeat the first's
@@ -2476,10 +2884,16 @@ def main() -> int:
         for k in kernels:  # the chromosome's launches and checks under keys of their own
             k.update(of_chr.get(k["name"], {}))
         assert sorted(of_chr) == sorted(expected[:4]), sorted(of_chr)
-        shutil.rmtree(os.path.join(tmp, "chr50k"))
         of_genome = phase_genome(tmp, rho_th, loops, clock_hz)
         for k in kernels:  # the sweep levels and the one-panel gather (0 launches allowed)
             k.update(of_genome.get(k["name"], {}))
+        shutil.rmtree(os.path.join(tmp, "genome"))
+        # the multi-device engines last, so that the older phases run in the
+        # process state they always ran in
+        of_mesh = phase_mesh(tmp, ss_kw, os.path.join(tmp, "chr50k"))
+        for k in kernels:
+            k.update(of_mesh[k["name"]])
+        shutil.rmtree(os.path.join(tmp, "chr50k"))
         for k in kernels:  # the pMax phases' launches of the same entries
             k.update(of_pmax.get(k["name"], {}), **of_sim.get(k["name"], {}))
     finally:

@@ -5,10 +5,11 @@
 Argument names, bounds and defaults mirror the reference's `ci-gwas.py`, so
 existing workflows can switch directly. Every subcommand that touches the
 device takes ``--device {cuda,cpu}`` (default ``cuda``): without a card the
-default fails, it never carries on on the CPU. ``--mesh`` and ``--panel-mode
-rowsharded`` are parsed and refused: the multi-device engines are not ported
-yet. ``merge-block-outputs``, ``sepselect``, ``orient-v-structs``, ``srfci``
-and ``mvivw`` run on the host.
+default fails, it never carries on on the CPU. ``cusk``, ``cuskss`` and
+``cusk-all`` take ``--mesh N`` (shard each block over N devices of
+``--device``: N cards, or N CPU entries; 0 means every card) and
+``--panel-mode {replicated,rowsharded}``. ``merge-block-outputs``,
+``sepselect``, ``orient-v-structs``, ``srfci`` and ``mvivw`` run on the host.
 """
 
 from __future__ import annotations
@@ -30,12 +31,27 @@ def _bounded(type_fn, name, min_val=None, max_val=None):
     return parse
 
 
-def _refuse_unported(args) -> None:
-    """--mesh and --panel-mode rowsharded belong to the multi-device engines."""
-    if getattr(args, "mesh", None) is not None:
-        sys.exit("--mesh is not ported yet: ROADMAP A.6")
-    if getattr(args, "panel_mode", "replicated") != "replicated":
-        sys.exit(f"--panel-mode {args.panel_mode} is not ported yet: ROADMAP A.6")
+def _mesh_from_flag(args, partition_index: int | None = None):
+    """--mesh N -> a 1-D "marker" mesh of N devices of --device (None without
+    the flag): on cuda the first N cards, 0 meaning all of them, or with a
+    partition index p the group [p N, (p + 1) N); on cpu N entries of the
+    CPU. Asking for more cards than are visible, or for every card on the
+    CPU or per partition, exits with a message: a mesh never shrinks."""
+    if getattr(args, "mesh", None) is None:
+        return None
+    from cigwas_tpu_torch.parallel import partition_mesh
+    from cigwas_tpu_torch.parallel.mesh import flat_mesh, visible_devices
+
+    if args.mesh == 0 and args.device == "cpu":
+        sys.exit("--mesh 0 (every card) needs --device cuda; give the CPU a count")
+    if args.mesh == 0 and partition_index is not None:
+        sys.exit("--mesh 0 with --partition-index: give each partition's device count")
+    try:
+        if partition_index is not None:
+            return partition_mesh(args.mesh, partition_index, device=args.device)
+        return flat_mesh(visible_devices(None if args.mesh == 0 else args.mesh, args.device))
+    except (RuntimeError, ValueError) as err:
+        sys.exit(f"--mesh {args.mesh}: {err}")
 
 
 def cmd_prep_bed(args):
@@ -53,10 +69,11 @@ def cmd_block(args):
 def cmd_cusk(args):
     from cigwas_tpu_torch.pipelines import CuskContext
 
-    _refuse_unported(args)
+    mesh = _mesh_from_flag(args)
     ctx = CuskContext(
         args.phen, args.bfiles, args.blocks, args.alpha, args.max_level,
         args.max_level_two, args.max_depth, args.outdir, device=args.device,
+        mesh=mesh, panel_mode=args.panel_mode,
     )
     ctx.finish(ctx.prepare(args.block_index))
 
@@ -65,7 +82,6 @@ def cmd_cuskss(args):
     from cigwas_tpu_torch.merge import reformat_cuskss_merged_output
     from cigwas_tpu_torch.pipelines import CuskssArgs, cuskss
 
-    _refuse_unported(args)
     if args.blockfile == "NULL" and args.marker_indices == "NULL":
         sys.exit(
             "Either blockfile + block index or marker indices into the mxp file "
@@ -93,7 +109,7 @@ def cmd_cuskss(args):
         outdir=args.outdir,
         ess_mode=args.ess_mode,
     )
-    cuskss(ca, device=args.device)
+    cuskss(ca, device=args.device, mesh=_mesh_from_flag(args), panel_mode=args.panel_mode)
     if args.marker_indices != "NULL":
         reformat_cuskss_merged_output(cusk_dir=args.outdir).write_mm(
             basepath=os.path.join(args.outdir, "cuskss_merged")
@@ -103,12 +119,14 @@ def cmd_cuskss(args):
 def cmd_cusk_all(args):
     from cigwas_tpu_torch.parallel import run_all_blocks
 
-    _refuse_unported(args)
+    # block parallelism x panel sharding: with a partition index, this
+    # partition's blocks shard over its own device group
+    mesh = _mesh_from_flag(args, args.partition_index)
     run_all_blocks(
         args.phen, args.bfiles, args.blocks, args.alpha, args.max_level,
         args.max_level_two, args.max_depth, args.outdir,
         num_partitions=args.num_partitions, partition_index=args.partition_index,
-        device=args.device,
+        device=args.device, mesh=mesh, panel_mode=args.panel_mode,
     )
 
 
@@ -171,13 +189,10 @@ def _add_device(p) -> None:
     )
 
 
-def _add_unported_mesh(p) -> None:
-    p.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="not ported yet (multi-device engines)")
+def _add_mesh(p, mesh_help: str, panel_help: str) -> None:
+    p.add_argument("--mesh", type=int, default=None, metavar="N", help=mesh_help)
     p.add_argument("--panel-mode", choices=("replicated", "rowsharded"),
-                   default="replicated",
-                   help="replicated: the panel on the one device; rowsharded is "
-                   "not ported yet")
+                   default="replicated", help=panel_help)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -219,7 +234,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("max_level_two", type=_bounded(int, "max-level", 0, 14), default=14)
     p.add_argument("max_depth", type=_bounded(int, "max-depth", 1), default=1)
     p.add_argument("outdir", type=str, default="./")
-    _add_unported_mesh(p)
+    _add_mesh(
+        p, "run SPMD over a 1-D mesh of N local devices (0 = all)",
+        "replicated: panel on every device; rowsharded: panel split "
+        "into (vp/D, vp) stripes (for blocks larger than one chip's HBM)",
+    )
     _add_device(p)
     p.set_defaults(func=cmd_cusk)
 
@@ -254,7 +273,12 @@ def build_parser() -> argparse.ArgumentParser:
         "reproduces the per-pair int truncation of hetcor-cuPC-S.cu:3068-3089 "
         "(default), 'float' uses full-precision NaN-aware means",
     )
-    _add_unported_mesh(p)
+    _add_mesh(
+        p, "run the hetcor level kernels SPMD over a 1-D mesh of N local "
+        "devices (0 = all)",
+        "replicated: corr/ESS panels on every device; rowsharded: "
+        "(vp/D, vp) stripes with ring-pass kernels",
+    )
     _add_device(p)
     p.set_defaults(func=cmd_cuskss)
 
@@ -272,7 +296,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("outdir", type=str, default="./")
     p.add_argument("--num-partitions", type=int, default=None)
     p.add_argument("--partition-index", type=int, default=None)
-    _add_unported_mesh(p)
+    _add_mesh(
+        p, "shard each block over a mesh of N devices; with "
+        "--partition-index p the mesh is THIS partition's device group "
+        "[p*N, (p+1)*N) (block-DP across groups, panel-TP inside)",
+        "replicated: panel on every mesh device; rowsharded: (vp/D, vp) "
+        "stripes",
+    )
     _add_device(p)
     p.set_defaults(func=cmd_cusk_all)
 

@@ -344,6 +344,58 @@ def _pads_last_index(m: int, m_pad: int, p: int, device) -> torch.Tensor:
     ).to(device)
 
 
+def _fused_inputs(bed_bytes, phen: np.ndarray, marker_mean: np.ndarray,
+                  marker_std: np.ndarray, num_samples: int, device, sample_chunk: int):
+    """The single-pass panel's device inputs: the packed rows padded to
+    m_pad = m + (-(m + p) mod PANEL_ALIGN) markers, their sample chunks, the
+    phenotypes and the padded means and stds. Returns (rows, n_chunks, ph0,
+    phv, mean (m_pad, 1), std (m_pad, 1), m_pad)."""
+    bed_bytes = np.asarray(bed_bytes, dtype=np.uint8)
+    m, p = bed_bytes.shape[0], phen.shape[0]
+    m_pad = m + ((-(m + p)) % PANEL_ALIGN)
+    bed_bytes = _pad_rows(bed_bytes, m_pad, PAD_BYTE)
+    mean = _pad_rows(np.asarray(marker_mean, dtype=np.float32), m_pad, 1.0)
+    std = _pad_rows(np.asarray(marker_std, dtype=np.float32), m_pad, 1.0)
+    sample_chunk = _sample_chunk(bed_bytes.shape[1], sample_chunk)
+    padded, n_chunks = _prep_bytes(bed_bytes, num_samples, sample_chunk)
+    ph0, phv = _phen_arrays(phen, padded.shape[1] * 4, device)
+    return (torch.tensor(padded, device=device), n_chunks, ph0, phv,
+            torch.from_numpy(mean).to(device)[:, None],
+            torch.from_numpy(std).to(device)[:, None], m_pad)
+
+
+def _fused_trait_blocks(sums, ph0, phv, mean_t, std_t):
+    """(C_mp (m_pad, p), C_pp (p, p)) of the single-pass panel from its
+    accumulated marker-phen sums."""
+    s_mp, s_p, n_val = sums
+    return (s_mp - mean_t * s_p) / (n_val * std_t), (ph0 @ ph0.T) / (phv @ phv.T)
+
+
+def fused_trait_blocks(bed_bytes, phen: np.ndarray, marker_mean: np.ndarray,
+                       marker_std: np.ndarray, num_samples: int, device,
+                       sample_chunk: int = DEFAULT_SAMPLE_CHUNK):
+    """The marker-phen (m, p) and phen-phen (p, p) blocks of
+    :func:`corr_panel_device`'s panel as device tensors, computed as it
+    computes them (the same padded rows, chunks and products, so the same
+    bits), without the marker-marker counts; the sharded engines build those
+    per shard."""
+    device = resolve(device)
+    require_full_f32()
+    m = np.asarray(bed_bytes).shape[0]
+    rows, n_chunks, ph0, phv, mean_t, std_t, _ = _fused_inputs(
+        bed_bytes, phen, marker_mean, marker_std, num_samples, device, sample_chunk)
+    cb = rows.shape[1] // n_chunks
+    sums = None
+    for c in range(n_chunks):
+        part = _chunk_sums(
+            unpack_bed_codes(rows[:, c * cb : (c + 1) * cb]),
+            ph0[:, c * 4 * cb : (c + 1) * 4 * cb], phv[:, c * 4 * cb : (c + 1) * 4 * cb],
+        )
+        sums = part if sums is None else tuple(a + b for a, b in zip(sums, part))
+    C_mp, C_pp = _fused_trait_blocks(sums, ph0, phv, mean_t, std_t)
+    return C_mp[:m], C_pp
+
+
 def corr_panel_device(bed_bytes, phen: np.ndarray, marker_mean: np.ndarray,
                       marker_std: np.ndarray, num_samples: int, device,
                       sample_chunk: int = DEFAULT_SAMPLE_CHUNK):
@@ -354,18 +406,11 @@ def corr_panel_device(bed_bytes, phen: np.ndarray, marker_mean: np.ndarray,
     markers; larger blocks use :func:`corr_panel_device_tiled`."""
     device = resolve(device)
     require_full_f32()
-    bed_bytes = np.asarray(bed_bytes, dtype=np.uint8)
-    m, p = bed_bytes.shape[0], phen.shape[0]
+    m, p = np.asarray(bed_bytes).shape[0], phen.shape[0]
     v = m + p
-    m_pad = m + ((-v) % PANEL_ALIGN)
-    bed_bytes = _pad_rows(bed_bytes, m_pad, PAD_BYTE)
-    mean = _pad_rows(np.asarray(marker_mean, dtype=np.float32), m_pad, 1.0)
-    std = _pad_rows(np.asarray(marker_std, dtype=np.float32), m_pad, 1.0)
-    sample_chunk = _sample_chunk(bed_bytes.shape[1], sample_chunk)
-    padded, n_chunks = _prep_bytes(bed_bytes, num_samples, sample_chunk)
-    ph0, phv = _phen_arrays(phen, padded.shape[1] * 4, device)
-    rows = torch.tensor(padded, device=device)
-    cb = padded.shape[1] // n_chunks
+    rows, n_chunks, ph0, phv, mean_t, std_t, m_pad = _fused_inputs(
+        bed_bytes, phen, marker_mean, marker_std, num_samples, device, sample_chunk)
+    cb = rows.shape[1] // n_chunks
     counts = torch.zeros((3 * m_pad, 3 * m_pad), dtype=torch.int32, device=device)
     sums = None
     for c in range(n_chunks):
@@ -376,12 +421,8 @@ def corr_panel_device(bed_bytes, phen: np.ndarray, marker_mean: np.ndarray,
             codes, ph0[:, c * 4 * cb : (c + 1) * 4 * cb], phv[:, c * 4 * cb : (c + 1) * 4 * cb]
         )
         sums = part if sums is None else tuple(a + b for a, b in zip(sums, part))
-    s_mp, s_p, n_val = sums
     C_mm = _kendall_from_counts(counts.to(torch.float32), m_pad, m_pad)
-    mean_t = torch.from_numpy(mean).to(device)[:, None]
-    std_t = torch.from_numpy(std).to(device)[:, None]
-    C_mp = (s_mp - mean_t * s_p) / (n_val * std_t)
-    C_pp = (ph0 @ ph0.T) / (phv @ phv.T)
+    C_mp, C_pp = _fused_trait_blocks(sums, ph0, phv, mean_t, std_t)
     C = torch.cat([torch.cat([C_mm, C_mp], 1), torch.cat([C_mp.T, C_pp], 1)], 0)
     C.fill_diagonal_(1.0)
     if m_pad == m:

@@ -50,12 +50,18 @@ def _rinv(x: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.sqrt(torch.abs(1.0 - x * x))
 
 
-def level0_screen(C: torch.Tensor, th0: float) -> torch.Tensor:
-    """Level-0 adjacency: delete iff fisher-z < th0 (`cal_Indepl0`); a NaN z
-    compares false and keeps the edge; the diagonal is cleared."""
+def level0_keep(C: torch.Tensor, th0: float) -> torch.Tensor:
+    """Level-0 test of every entry, elementwise (so a row stripe of a panel
+    gives the stripe's rows): keep iff not fisher-z < th0 (`cal_Indepl0`); a
+    NaN z compares false and keeps the edge."""
     z0 = torch.abs(0.5 * torch.log(torch.abs((1 + C) / (1 - C))))
+    return ~(z0 < th0)
+
+
+def level0_screen(C: torch.Tensor, th0: float) -> torch.Tensor:
+    """Level-0 adjacency: :func:`level0_keep` with the diagonal cleared."""
     eye = torch.eye(C.shape[0], dtype=torch.bool, device=C.device)
-    return ~(z0 < th0) & ~eye
+    return level0_keep(C, th0) & ~eye
 
 
 def hetcor_l0_delete(C: torch.Tensor, N: torch.Tensor, th: float) -> torch.Tensor:

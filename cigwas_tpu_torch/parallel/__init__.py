@@ -1,4 +1,19 @@
 from cigwas_tpu_torch.parallel.block_scheduler import block_cost, partition_blocks
-from cigwas_tpu_torch.parallel.runner import run_all_blocks
+from cigwas_tpu_torch.parallel.distributed import init_distributed, process_partition
+from cigwas_tpu_torch.parallel.mesh import Mesh, make_mesh
+from cigwas_tpu_torch.parallel.runner import partition_mesh, run_all_blocks
+from cigwas_tpu_torch.parallel.sharded import RowShardedEngine, ShardedEngine, make_engine
 
-__all__ = ["block_cost", "partition_blocks", "run_all_blocks"]
+__all__ = [
+    "Mesh",
+    "RowShardedEngine",
+    "ShardedEngine",
+    "block_cost",
+    "init_distributed",
+    "make_engine",
+    "make_mesh",
+    "partition_blocks",
+    "partition_mesh",
+    "process_partition",
+    "run_all_blocks",
+]

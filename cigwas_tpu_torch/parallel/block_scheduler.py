@@ -2,12 +2,16 @@
 
 The reference distributes work by launching one `mps cusk <block>` process
 per block on a cluster (`ci-gwas.py:100-104`, `README.md:57`). Here blocks
-are partitioned programmatically: each partition takes a load-balanced share
+are partitioned programmatically: each process takes a load-balanced share
 of the block list, weighted by block size squared (the skeleton's
-correlation cost is quadratic in block size).
+correlation cost is quadratic in block size). The partition defaults to the
+process's place in its ``torch.distributed`` world
+(:func:`cigwas_tpu_torch.parallel.distributed.process_partition`).
 """
 
 from __future__ import annotations
+
+from cigwas_tpu_torch.parallel.distributed import process_partition
 
 # fixed per-block cost (launches + host IO + pre-screen), expressed in
 # block_size^2 units: roughly the compute of a 128-marker block. Dominates
@@ -26,12 +30,14 @@ def partition_blocks(blocks: list, num_partitions: int | None = None,
                      index: int | None = None) -> list:
     """Blocks assigned to partition `index` of `num_partitions`.
 
-    Defaults to one partition, index 0: one process runs every block.
-    Greedy longest-processing-time assignment on `block_cost` keeps the
-    partitions' walls balanced within ~the largest single block.
+    Defaults to this process's (world size, rank) when a process group is
+    initialized, else (1, 0): one process runs every block. Greedy
+    longest-processing-time assignment on `block_cost` keeps the partitions'
+    walls balanced within ~the largest single block.
     """
-    num_partitions = 1 if num_partitions is None else num_partitions
-    index = 0 if index is None else index
+    world, rank = process_partition()
+    num_partitions = world if num_partitions is None else num_partitions
+    index = rank if index is None else index
     if not 0 <= index < num_partitions:
         raise ValueError(f"partition index {index} outside [0, {num_partitions})")
     loads = [0] * num_partitions

@@ -2,12 +2,15 @@
 
 The reference leaves block-level data parallelism to the user ("run mps cusk
 once for each block", `README.md:57`). This runner makes it first class:
-one process iterates its partition of the block list on one device; several
-processes, one per partition (`num_partitions`, `partition_index`), each take
-their load-balanced share via
+one process iterates its partition of the block list, on one device or
+sharding every block over a mesh; several processes, one per partition
+(`num_partitions`, `partition_index`, or their process group's world and
+rank), each take their load-balanced share via
 :func:`cigwas_tpu_torch.parallel.block_scheduler.partition_blocks`, and the
 merge step reads all block outputs from the shared file system, so no
-communication between them is needed.
+communication between them is needed. :func:`partition_mesh` gives each
+partition its own group of devices: block parallelism across the groups,
+panel sharding inside each.
 """
 
 from __future__ import annotations
@@ -16,8 +19,34 @@ import torch
 
 from cigwas_tpu_torch.io import read_blocks_from_file
 from cigwas_tpu_torch.parallel.block_scheduler import partition_blocks
+from cigwas_tpu_torch.parallel.distributed import process_partition
+from cigwas_tpu_torch.parallel.mesh import flat_mesh, visible_devices
 from cigwas_tpu_torch.pipelines.cusk import CuskContext
 from cigwas_tpu_torch.utils.timing import StageTimer
+
+
+def partition_mesh(devices_per_partition: int, partition_index: int | None = None,
+                   axis: str = "marker", device="cuda"):
+    """1-D mesh over THIS partition's group of devices
+    (`cigwas_tpu.parallel.runner.partition_mesh`): partition p gets the cards
+    [p g, (p + 1) g) (g = devices_per_partition), so concurrent partition
+    workers each shard their blocks over a disjoint group; on ``cpu``, g
+    entries of the CPU. partition_index defaults to this process's rank (0
+    without a process group). Raises if the range does not fit the visible
+    cards."""
+    if partition_index is None:
+        partition_index = process_partition()[1]
+    if torch.device(device).type == "cpu":
+        return flat_mesh(visible_devices(devices_per_partition, "cpu"), axis)
+    lo = devices_per_partition * partition_index
+    hi = lo + devices_per_partition
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if hi > have:
+        raise ValueError(
+            f"partition {partition_index} needs devices [{lo}, {hi}) but only "
+            f"{have} are visible"
+        )
+    return flat_mesh(visible_devices(hi, "cuda")[lo:hi], axis)
 
 
 def run_all_blocks(
@@ -33,8 +62,14 @@ def run_all_blocks(
     partition_index: int | None = None,
     verbose: bool = True,
     device="cuda",
+    mesh=None,
+    panel_mode: str = "replicated",
 ) -> dict:
     """Run cusk for every block assigned to this partition.
+
+    mesh / panel_mode: shard each block over the mesh (see
+    :class:`~cigwas_tpu_torch.pipelines.cusk.CuskContext`); with
+    :func:`partition_mesh` each partition uses its own device group.
 
     Returns {block_file_string: num_markers_retained | None (skipped)}.
     With verbose, each block ends with one line: its retained markers, the
@@ -49,7 +84,7 @@ def run_all_blocks(
     results: dict = {}
     ctx = CuskContext(
         phen_path, bed_base_path, block_path, alpha, max_level, max_level_two,
-        depth, outdir, verbose=verbose, device=device,
+        depth, outdir, verbose=verbose, device=device, mesh=mesh, panel_mode=panel_mode,
     )
 
     def prepare(b):

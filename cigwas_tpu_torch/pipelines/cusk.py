@@ -2,10 +2,13 @@
 (`cigwas_tpu.pipelines.cusk`).
 
 `make_blocks` tiles every chromosome into approximately unlinked marker
-blocks from the banded correlations' row sums. `cusk` loads one LD block of genotypes and standardized phenotypes, builds the
-correlation panel on the device, runs the two-stage PC-stable skeleton with
-the ancestor reduction in between, and writes the `.mdim/.ixs/.adj/.corr/.sep`
-block output — the same files as the JAX package's `cusk`.
+blocks from the banded correlations' row sums. `cusk` loads one LD block of
+genotypes and standardized phenotypes, builds the correlation panel on the
+device, runs the two-stage PC-stable skeleton with the ancestor reduction in
+between, and writes the `.mdim/.ixs/.adj/.corr/.sep` block output — the same
+files as the JAX package's `cusk`. With a mesh, both spread their work over
+its devices (:mod:`cigwas_tpu_torch.parallel.sharded`) and write the same
+bytes.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from cigwas_tpu_torch.io.bed import (
     read_chr_from_bed,
 )
 from cigwas_tpu_torch.ops.corr import (
+    PANEL_ROW_TILE,
     banded_row_abs_sums,
     banded_row_abs_sums_streaming,
     corr_panel_device,
@@ -60,6 +64,7 @@ def make_blocks(
     verbose: bool = True,
     device="cuda",
     streaming_min_markers: int = STREAMING_MIN_MARKERS,
+    mesh=None,
 ) -> list:
     """Partition every chromosome into LD blocks (`make_blocks`,
     `cli.cpp:362-411`) and append them to ``out_path`` (default
@@ -70,8 +75,22 @@ def make_blocks(
     such parameter. A chromosome of more than ``streaming_min_markers``
     markers has its band reduced to row sums on the device
     (:func:`banded_row_abs_sums_streaming`); a smaller one fetches the band
-    and sums it on the host."""
-    device = resolve(device)
+    and sums it on the host.
+
+    mesh: a :class:`~cigwas_tpu_torch.parallel.mesh.Mesh` or a list of
+    devices: each chromosome's row tiles are spread over them with the
+    boundary rows exchanged between shards
+    (:meth:`~cigwas_tpu_torch.parallel.sharded.ShardedEngine.banded_row_abs_sums`),
+    the same tiles as on one device, so the same `.blocks` bytes; a
+    chromosome thinner than the band per shard is refused. ``device`` is
+    then not used."""
+    engine = None
+    if mesh is not None:
+        from cigwas_tpu_torch.parallel.sharded import make_engine
+
+        engine = make_engine(mesh)
+    else:
+        device = resolve(device)
     bfiles = BfilesBase(bed_base_path)
     dims = BedDims.from_bfiles(bfiles)
     bim = BimInfo(bfiles.bim())
@@ -84,7 +103,14 @@ def make_blocks(
         chr_bed = read_chr_from_bed(bfiles.bed(), cid, bim, dims)
         if verbose:
             print(f"[chr {cid}] computing banded correlations")
-        if chr_bed.shape[0] > streaming_min_markers:
+        streaming = chr_bed.shape[0] > streaming_min_markers
+        if engine is not None and streaming:
+            row_sums = engine.banded_row_abs_sums(chr_bed, dims.num_samples, corr_width,
+                                                  row_tile=PANEL_ROW_TILE)
+        elif engine is not None:
+            row_sums = banded_row_abs_sums(engine.kendall_npn_corr_banded(
+                chr_bed, dims.num_samples, corr_width, row_tile=PANEL_ROW_TILE))
+        elif streaming:
             row_sums = banded_row_abs_sums_streaming(
                 chr_bed, dims.num_samples, corr_width, device=device)
         else:
@@ -111,17 +137,19 @@ def cusk(
     verbose: bool = True,
     device="cuda",
     stats: dict | None = None,
+    mesh=None,
+    panel_mode: str = "replicated",
 ):
     """Two-stage skeleton for a single LD block (`cusk`, `cli.cpp:432-678`).
 
     Returns the written ReducedGCS, or None if the block was skipped because
     no marker–phenotype correlation is significant. stats, if given, collects
     phase walls: ``prepare_s`` (host I/O) and those of
-    :meth:`CuskContext.finish`.
+    :meth:`CuskContext.finish`. mesh / panel_mode: see :class:`CuskContext`.
     """
     ctx = CuskContext(
         phen_path, bed_base_path, block_path, alpha, max_level, max_level_two,
-        depth, outdir, verbose=verbose, device=device,
+        depth, outdir, verbose=verbose, device=device, mesh=mesh, panel_mode=panel_mode,
     )
     t = time.perf_counter()
     prep = ctx.prepare(block_index)
@@ -136,6 +164,14 @@ class CuskContext:
     Loading `.phen`/`.bim`/`.dim` and validating the block list happens once;
     :meth:`prepare` does a block's host I/O and starts its marker-phen
     pre-screen sums on the device, :meth:`finish` does the rest.
+
+    mesh: a :class:`~cigwas_tpu_torch.parallel.mesh.Mesh` (or a list of
+    devices) runs every block's panel and skeleton levels over its devices
+    (:mod:`cigwas_tpu_torch.parallel.sharded`); ``device`` is then its first
+    device, where the pre-screen runs. panel_mode: ``"replicated"`` keeps the
+    panel whole on every device, ``"rowsharded"`` in (vp / D, vp) row
+    stripes (its second stage runs on the first device). The block outputs
+    are byte-identical to the one-device run's.
     """
 
     def __init__(
@@ -150,7 +186,17 @@ class CuskContext:
         outdir: str,
         verbose: bool = True,
         device="cuda",
+        mesh=None,
+        panel_mode: str = "replicated",
     ):
+        if panel_mode not in ("replicated", "rowsharded"):
+            raise ValueError(f"unknown panel_mode: {panel_mode!r}")
+        self.engine = None
+        if mesh is not None:
+            from cigwas_tpu_torch.parallel.sharded import make_engine
+
+            self.engine = make_engine(mesh, panel_mode)
+            device = self.engine.devices[0]
         self.device = resolve(device)
         check_prepped_bed_path(bed_base_path)
         check_path(phen_path)
@@ -214,7 +260,8 @@ class CuskContext:
         stats, if given, receives ``prescreen_s``, ``panel_s``, ``stage1``
         (the skeleton's stats, see :func:`skeleton`), ``reduce_s``,
         ``stage2`` and ``stage2_s``, ``retained_markers`` and the stages'
-        ``final_level`` / ``final_level_two``;
+        ``final_level`` / ``final_level_two``, and with a mesh
+        ``engine_record`` (the engine's placements, calls and copies);
         walls are host seconds that end in a device synchronisation."""
         t = time.perf_counter()
         mp_corr = marker_phen_corr_from_sums(prep["mp_sums"], prep["means"], prep["stds"])
@@ -231,8 +278,10 @@ class CuskContext:
         return self._run_block(prep, mp_corr, stats)
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devices = self.engine.devices if self.engine is not None else (self.device,)
+        for dev in dict.fromkeys(devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _run_block(self, prep: dict, mp_corr: np.ndarray, stats: dict | None):
         block = prep["block"]
@@ -241,8 +290,16 @@ class CuskContext:
         num_var = num_markers + num_phen
         n = self.dims.num_samples
         stats = {} if stats is None else stats
+        engine = self.engine
+        if engine is not None:
+            stats["engine_record"] = engine.record
         t = time.perf_counter()
-        if num_markers <= FUSED_PANEL_MAX:
+        if engine is not None:  # slabs over the mesh; trait blocks as one device's route
+            C, v_panel = engine.corr_panel_device(
+                prep["bedblock"], self.phen.data, prep["means"], prep["stds"], n,
+                mp_corr=None if num_markers <= FUSED_PANEL_MAX else mp_corr,
+            )
+        elif num_markers <= FUSED_PANEL_MAX:
             C, v_panel = corr_panel_device(
                 prep["bedblock"], self.phen.data, prep["means"], prep["stds"], n,
                 self.device,
@@ -257,7 +314,7 @@ class CuskContext:
         stats["stage1"] = {}
         res1 = skeleton(
             C, self.Th, self.max_level, device=self.device, n_var=v_panel,
-            verbose=self.verbose, stats=stats["stage1"], want_pmax=False,
+            verbose=self.verbose, stats=stats["stage1"], want_pmax=False, engine=engine,
         )
         t = time.perf_counter()
         keep = subset_variables(res1.G, num_var, num_markers, self.depth)
@@ -275,6 +332,7 @@ class CuskContext:
         res2 = skeleton(
             gcs.C, self.Th, self.max_level_two, device=self.device,
             verbose=self.verbose, stats=stats["stage2"], want_pmax=False,
+            engine=engine.for_stage2() if engine is not None else None,
         )
         keep2 = subset_variables(res2.G, gcs.num_var, gcs.num_markers(), self.depth)
         gcs2 = reduce_gcs(

@@ -111,11 +111,11 @@ def panel_from_numpy(C: np.ndarray, v_real: int, device) -> torch.Tensor:
 
 def _level_buckets(G: np.ndarray, l: int, dev, stats: dict | None):
     """The launches of a level l <= 3: for each degree bucket of the nodes
-    with more than l neighbours, yields (nodes, nbrs, (nodes, nbrs, deg) on
-    the device with their index range checked, det). det = {compact_s,
-    sweep_s} accumulates the host compaction, check and upload here; the
-    caller adds its sweep time. stats, if given, collects ``launches`` and
-    ``level_detail`` of the level."""
+    with more than l neighbours, yields (nodes, nbrs, deg, (nodes, nbrs, deg)
+    on the device with their index range checked, or None for dev None, det).
+    det = {compact_s, sweep_s} accumulates the host compaction, check and
+    upload here; the caller adds its sweep time. stats, if given, collects
+    ``launches`` and ``level_detail`` of the level."""
     deg_all = G.sum(axis=1)
     active = np.where(deg_all >= l + 1)[0]
     det = {"compact_s": 0.0, "sweep_s": 0.0}
@@ -124,13 +124,32 @@ def _level_buckets(G: np.ndarray, l: int, dev, stats: dict | None):
     for d_pad, nodes in _degree_buckets(deg_all, active):
         t0 = time.perf_counter()
         nbrs, deg = _compact_neighbors(G, nodes, d_pad)
-        on_dev = _upload_lists(nodes, nbrs, deg, G.shape[0], dev)
+        on_dev = None if dev is None else _upload_lists(nodes, nbrs, deg, G.shape[0], dev)
         det["compact_s"] += time.perf_counter() - t0
         if stats is not None:
             stats.setdefault("launches", {}).setdefault(l, []).append(
                 (int(d_pad), int(len(nodes)))
             )
-        yield nodes, nbrs, on_dev, det
+        yield nodes, nbrs, deg, on_dev, det
+
+
+def _shard_parts(engine, C, nodes: np.ndarray, nbrs: np.ndarray) -> list:
+    """[(shard, slice)] of a launch's nodes: the engine's parts (see
+    :meth:`cigwas_tpu_torch.parallel.sharded.ShardedEngine.parts`), or one
+    part of everything without an engine."""
+    if engine is None:
+        return [(None, slice(0, len(nodes)))]
+    return engine.parts(C, nodes, nbrs)
+
+
+def _part_args(engine, panels: tuple, k, nodes, nbrs, deg, on_dev, vectors: tuple,
+               kernel: str) -> tuple:
+    """(panels, (node_ixs, nbrs, deg) on the device, vectors) that one part
+    launches on: without an engine the caller's own, else shard k's
+    (:meth:`cigwas_tpu_torch.parallel.sharded.ShardedEngine.local`)."""
+    if engine is None:
+        return panels, on_dev, vectors
+    return engine.local(panels, k, nodes, nbrs, deg, vectors, kernel)
 
 
 def _hits(stat: torch.Tensor, cut: float, deg_t: torch.Tensor):
@@ -154,27 +173,38 @@ def _fisher_z_inplace(c: np.ndarray) -> None:
         np.abs(c, out=c)
 
 
-def _run_level_local(C: torch.Tensor, G: np.ndarray, l: int, rho_threshold: float,
-                     stats: dict | None = None, want_rho: bool = False):
-    """All level-l tests (l <= 3) as one kernel launch per degree bucket.
+def _run_level_local(C, G: np.ndarray, l: int, rho_threshold: float,
+                     stats: dict | None = None, want_rho: bool = False, engine=None):
+    """All level-l tests (l <= 3) as one kernel launch per degree bucket
+    (per part of it on each shard, with an engine; every part is launched
+    before any hit is fetched).
 
     Returns (removed (n, n) bool, xs, ys, sep (k, l), rho (k,) or None): the
     ordered pairs condemned from x's side, their minimizing conditioning
     variables and, with want_rho, their min |rho| (fetched only then)."""
     n = G.shape[0]
     xs_l, ys_l, sep_l, rho_l = [], [], [], []
-    for nodes, nbrs, on_dev, det in _level_buckets(G, l, C.device, stats):
+    dev = None if engine is not None else C.device
+    for nodes, nbrs, deg, on_dev, det in _level_buckets(G, l, dev, stats):
         t1 = time.perf_counter()
-        rho, pos = local_sweep(C, *on_dev, l, index_range_checked=True)
-        ri, ci = _hits(rho, rho_threshold, on_dev[2])
-        pos_h = pos[ri, ci].cpu().numpy()
-        if want_rho:
-            rho_l.append(rho[ri, ci].cpu().numpy())
-        ri, ci = ri.cpu().numpy(), ci.cpu().numpy()
+        launched = []
+        for k, sl in _shard_parts(engine, C, nodes, nbrs):
+            (Ck,), lists, _ = _part_args(engine, (C,), k, nodes[sl], nbrs[sl], deg[sl],
+                                         on_dev, (), f"local_sweep_l{l}")
+            rho, pos = local_sweep(Ck, *lists, l, index_range_checked=True)
+            launched.append((sl, rho, pos, lists[2]))
+        fetched = []
+        for sl, rho, pos, deg_t in launched:
+            ri, ci = _hits(rho, rho_threshold, deg_t)
+            pos_h = pos[ri, ci].cpu().numpy()
+            if want_rho:
+                rho_l.append(rho[ri, ci].cpu().numpy())
+            fetched.append((ri.cpu().numpy() + sl.start, ci.cpu().numpy(), pos_h))
         det["sweep_s"] += time.perf_counter() - t1  # ends in the hits' fetch
-        xs_l.append(nodes[ri])
-        ys_l.append(nbrs[ri, ci])
-        sep_l.append(nbrs[ri[:, None], pos_h])  # positions -> variable indices
+        for ri, ci, pos_h in fetched:
+            xs_l.append(nodes[ri])
+            ys_l.append(nbrs[ri, ci])
+            sep_l.append(nbrs[ri[:, None], pos_h])  # positions -> variable indices
     xs = np.concatenate(xs_l) if xs_l else np.empty(0, np.int64)
     ys = np.concatenate(ys_l) if ys_l else np.empty(0, np.int64)
     sep = np.concatenate(sep_l) if sep_l else np.empty((0, l), np.int32)
@@ -187,29 +217,36 @@ def _run_level_local(C: torch.Tensor, G: np.ndarray, l: int, rho_threshold: floa
     return removed, xs, ys, sep, rho_sel
 
 
-def _run_level_local_hetcor(C: torch.Tensor, N: torch.Tensor, t_ix: torch.Tensor,
-                            G: np.ndarray, l: int, th: float,
-                            stats: dict | None = None) -> np.ndarray:
+def _run_level_local_hetcor(C, N, t_ix, G: np.ndarray, l: int, th: float,
+                            stats: dict | None = None, engine=None) -> np.ndarray:
     """All hetcor level-l tests (l <= 3) as one kernel launch per degree
-    bucket; returns the symmetric removal mask (margin < 0 from either side).
+    bucket (per part of it on each shard, with an engine); returns the
+    symmetric removal mask (margin < 0 from either side).
 
     Only the hits leave the device. Several nodes' pad slots may point at the
     same variable, so the hits alone are written (an idempotent scatter), never
     the misses."""
     cond = np.zeros(G.shape, dtype=bool)
-    for nodes, nbrs, on_dev, det in _level_buckets(G, l, C.device, stats):
+    dev = None if engine is not None else C.device
+    for nodes, nbrs, deg, on_dev, det in _level_buckets(G, l, dev, stats):
         t1 = time.perf_counter()
-        margin = hetcor_local_sweep(C, N, t_ix, *on_dev, th, l,
-                                    index_range_checked=True)
-        ri, ci = (t.cpu().numpy() for t in _hits(margin, 0.0, on_dev[2]))
+        launched = []
+        for k, sl in _shard_parts(engine, C, nodes, nbrs):
+            (Ck, Nk), lists, (tk,) = _part_args(engine, (C, N), k, nodes[sl], nbrs[sl],
+                                                deg[sl], on_dev, (t_ix,), f"hetcor_sweep_l{l}")
+            margin = hetcor_local_sweep(Ck, Nk, tk, *lists, th, l, index_range_checked=True)
+            launched.append((sl, margin, lists[2]))
+        fetched = [(sl.start, *(t.cpu().numpy() for t in _hits(margin, 0.0, deg_t)))
+                   for sl, margin, deg_t in launched]
         det["sweep_s"] += time.perf_counter() - t1  # ends in the hits' fetch
-        cond[nodes[ri], nbrs[ri, ci]] = True
+        for start, ri, ci in fetched:
+            cond[nodes[ri + start], nbrs[ri + start, ci]] = True
     cond &= G
     return cond | cond.T
 
 
-def _run_level(C: torch.Tensor, G: np.ndarray, l: int, rho_threshold: float | None,
-               hetcor_args=None):
+def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
+               hetcor_args=None, engine=None):
     """All level-l tests (l >= 4) over colex chunks; returns (removed,
     rho_min_full, rank_full) like `cigwas_tpu.skeleton.cupc._run_level`.
 
@@ -219,19 +256,27 @@ def _run_level(C: torch.Tensor, G: np.ndarray, l: int, rho_threshold: float | No
 
     Each node tile's local panels come from the gather kernel (one panel, or
     two matched panels for hetcor) and feed the scan on gathered panels.
+    With an engine each tile is split into the shards' parts (the tile is
+    ndev times longer), every part launched before any result is fetched.
 
     Waves: every bucket scans its next CHUNK * n_chunks combos, then nodes
     whose combos are exhausted or whose edges are all condemned stop. The
-    wave sizes follow the JAX package exactly, because where a node stops
-    decides which later sets it never tests, and so its sepsets."""
+    wave sizes follow the JAX package exactly and come from the whole
+    bucket, because where a node stops decides which later sets it never
+    tests, and so its sepsets."""
     n = G.shape[0]
     deg_all = G.sum(axis=1)
     active = np.where(deg_all >= l + 1)[0]
     removed = np.zeros((n, n), dtype=bool)
     if active.size == 0:
         return removed, None, None
-    dev = C.device
+    dev = None if engine is not None else C.device
     cut = 0.0 if hetcor_args is not None else rho_threshold
+    panels, vectors = (C,), ()
+    if hetcor_args is not None:
+        N, t_ix, th = hetcor_args
+        panels, vectors = (C, N), (t_ix,)
+    kernel = "panel_gather2" if hetcor_args is not None else "panel_gather"
     stat_full = np.full((n, n), np.inf, dtype=np.float32)
     total_combos = {int(x): math.comb(int(deg_all[x]), l) for x in active}
     rank_dtype = (
@@ -247,14 +292,18 @@ def _run_level(C: torch.Tensor, G: np.ndarray, l: int, rho_threshold: float | No
         for d_pad, remaining, offset in work:
             nodes = np.array(remaining, dtype=np.int32)
             node_tile = max(1, min(len(nodes), ELEM_BUDGET // (CHUNK * d_pad * l)))
+            if engine is not None:
+                node_tile = min(len(nodes), node_tile * engine.ndev)
             max_left = max(total_combos[x] - offset for x in remaining)
             n_chunks = _next_pow2(
                 min(MAX_CHUNKS_PER_LAUNCH, max(1, -(-min(max_left, 1 << 30) // CHUNK)))
             )
-            combos_seq = torch.from_numpy(
+            combos = torch.from_numpy(
                 colex_combinations_chunk(offset, CHUNK * n_chunks, l)
                 .reshape(n_chunks, CHUNK, l).astype(np.int64)
-            ).to(dev)
+            )
+            combos_of = ({dev: combos.to(dev)} if engine is None
+                         else engine.replicate(combos))
             for s0 in range(0, len(nodes), node_tile):
                 tile = nodes[s0 : s0 + node_tile]
                 nbrs, deg = _compact_neighbors(G, tile, d_pad)
@@ -263,26 +312,35 @@ def _run_level(C: torch.Tensor, G: np.ndarray, l: int, rho_threshold: float | No
                     dtype=np.int64,
                 )
                 bases = CHUNK * np.arange(n_chunks, dtype=np.int64)[:, None]
-                left_seq = torch.from_numpy(np.clip(totals[None, :] - bases, 0, CHUNK)).to(dev)
-                tile_t, nbrs_t, deg_t = _upload_lists(tile, nbrs, deg, n, dev)
+                left = np.clip(totals[None, :] - bases, 0, CHUNK)
+                on_dev = None if engine is not None else _upload_lists(tile, nbrs, deg, n, dev)
+                launched = []
+                for k, sl in _shard_parts(engine, C, tile, nbrs):
+                    pk, (tile_t, nbrs_t, deg_t), vk = _part_args(
+                        engine, panels, k, tile[sl], nbrs[sl], deg[sl], on_dev, vectors, kernel)
+                    pdev = pk[0].device
+                    combos_seq = combos_of[pdev]
+                    left_seq = torch.from_numpy(left[:, sl]).to(pdev)
+                    if hetcor_args is None:
+                        Cb, qb = gather_local_panels(pk[0], tile_t, nbrs_t, deg_t,
+                                                     index_range_checked=True)
+                        launched.append(pcorr.level_scan_minrho_pre(
+                            Cb, qb, deg_t.long(), combos_seq, left_seq, l
+                        ))
+                    else:
+                        (t_k,) = vk
+                        Cb, qb, Nb, nr = gather_local_panels2(
+                            pk[0], pk[1], tile_t, nbrs_t, deg_t, index_range_checked=True)
+                        launched.append((pcorr.level_scan_hetcor_pre(
+                            Cb, qb, Nb, nr, t_k[nbrs_t.long()].float(),
+                            t_k[tile_t.long()].float(), deg_t.long(), combos_seq,
+                            left_seq, th, l,
+                        ), None))
+                rho_c = np.concatenate([r.cpu().numpy() for r, _ in launched])
+                rank_c = None
                 if hetcor_args is None:
-                    Cb, qb = gather_local_panels(C, tile_t, nbrs_t, deg_t,
-                                                  index_range_checked=True)
-                    rho_t, rank_t = pcorr.level_scan_minrho_pre(
-                        Cb, qb, deg_t.long(), combos_seq, left_seq, l
-                    )
-                    rank_c = rank_t.cpu().numpy().astype(rank_dtype) + offset
-                else:
-                    N, t_ix, th = hetcor_args
-                    Cb, qb, Nb, nr = gather_local_panels2(
-                        C, N, tile_t, nbrs_t, deg_t, index_range_checked=True)
-                    rho_t = pcorr.level_scan_hetcor_pre(
-                        Cb, qb, Nb, nr, t_ix[nbrs_t.long()].float(),
-                        t_ix[tile_t.long()].float(), deg_t.long(), combos_seq,
-                        left_seq, th, l,
-                    )
-                    rank_c = None
-                rho_c = rho_t.cpu().numpy()
+                    rank_c = np.concatenate(
+                        [r.cpu().numpy() for _, r in launched]).astype(rank_dtype) + offset
                 valid = np.arange(d_pad)[None, :] < deg[:, None]
                 x_idx = np.repeat(tile, d_pad).reshape(len(tile), d_pad)[valid]
                 y_idx = nbrs[valid]
@@ -308,7 +366,8 @@ def _run_level(C: torch.Tensor, G: np.ndarray, l: int, rho_threshold: float | No
 
 def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
              n_var: int | None = None, verbose: bool = False,
-             stats: dict | None = None, want_pmax: bool = True) -> SkeletonResult:
+             stats: dict | None = None, want_pmax: bool = True,
+             engine=None) -> SkeletonResult:
     """PC-stable skeleton over a dense correlation panel (`Skeleton`,
     `cuPC-S.cu:61-450`; level 0 overwrites the adjacency from C).
 
@@ -332,11 +391,25 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
     pipelines pass want_pmax=False: they never read pMax, and it costs the
     panel's fetch and two (n, n) host arrays.
 
+    engine: a :class:`cigwas_tpu_torch.parallel.sharded.ShardedEngine` (or
+    ``RowShardedEngine``) runs every level over its shards (C may then be
+    the engine's own panel, with n_var); the results are the one-device
+    path's, bit for bit, and ``device`` is not used.
+
     Not ported: the JAX package's alternative level-1-3 routes, which all
     decide the same.
     """
-    device = resolve(device)
     require_full_f32()  # the level >= 4 one-hot selections must be exact
+    th = np.asarray(thresholds, dtype=np.float32)
+    if engine is not None:
+        v_real = n_var if n_var is not None else C.shape[0]
+        C = engine.as_panel(C, v_real)
+        t_mark = time.perf_counter()
+        G = engine.screen((C,), lambda c: pcorr.level0_keep(c, float(th[0])))
+        np.fill_diagonal(G, False)
+        return _skeleton_levels(C, G, th, max_level, v_real, verbose, stats, want_pmax,
+                                t_mark, engine)
+    device = resolve(device)
     if isinstance(C, torch.Tensor):
         v_real = n_var if n_var is not None else C.shape[0]
         C = C.to(device=device, dtype=torch.float32)
@@ -346,11 +419,17 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
     else:
         v_real = n_var if n_var is not None else np.asarray(C).shape[0]
         C = panel_from_numpy(C, v_real, device)
-    th = np.asarray(thresholds, dtype=np.float32)
-    n = C.shape[0]
-
     t_mark = time.perf_counter()
     G = pcorr.level0_screen(C, float(th[0])).cpu().numpy()
+    return _skeleton_levels(C, G, th, max_level, v_real, verbose, stats, want_pmax, t_mark)
+
+
+def _skeleton_levels(C, G: np.ndarray, th: np.ndarray, max_level: int, v_real: int,
+                     verbose: bool, stats: dict | None, want_pmax: bool, t_mark: float,
+                     engine=None) -> SkeletonResult:
+    """:func:`skeleton` from its level-0 adjacency G on: the sepsets, pMax
+    and levels 1 up; t_mark is when level 0 began."""
+    n = G.shape[0]
     if stats is not None:
         stats["l0_wall_s"] = time.perf_counter() - t_mark
     t_mark = time.perf_counter()
@@ -365,7 +444,8 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
         # level 0: the Fisher z of C on the pairs it deleted, 0 elsewhere,
         # over the real variables only (pads never re-enter)
         t_mark = time.perf_counter()
-        pmax = C[:v_real, :v_real].to("cpu", copy=True).numpy()
+        pmax = (C[:v_real, :v_real].to("cpu", copy=True).numpy() if engine is None
+                else engine.fetch(C, v_real))
         if stats is not None:
             stats["c_fetch_wall_s"] = time.perf_counter() - t_mark
         t_mark = time.perf_counter()
@@ -388,13 +468,13 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
         rho_th = float(np.float32(np.tanh(float(th[l]))))
         if l <= 3:  # the local-sweep kernel
             removed, xs, ys, sep, rho_sel = _run_level_local(
-                C, G, l, rho_th, stats, want_rho=want_pmax)
+                C, G, l, rho_th, stats, want_rho=want_pmax, engine=engine)
             sepset[xs, ys, l:] = -1
             sepset[xs, ys, :l] = sep
             if pmax is not None:
                 pmax[xs, ys] = fisher_z(rho_sel)
         else:
-            removed, rho_min, rank = _run_level(C, G, l, rho_th)
+            removed, rho_min, rank = _run_level(C, G, l, rho_th, engine=engine)
             if rho_min is not None:
                 xs, ys = np.nonzero((rho_min < rho_th) & G)
                 if pmax is not None:
@@ -437,7 +517,7 @@ def _as_panel(M, device) -> torch.Tensor:
 def hetcor_skeleton(C, G: np.ndarray, N, threshold: float, max_level: int,
                     time_index: np.ndarray | None = None, device="cuda",
                     verbose: bool = False, ess_mode: str = "reference",
-                    stats: dict | None = None) -> SkeletonResult:
+                    stats: dict | None = None, engine=None) -> SkeletonResult:
     """Skeleton with per-pair effective sample sizes and time constraints
     (`cigwas_tpu.skeleton.cupc.hetcor_skeleton`; `hetcor-cuPC-S.cu:75-341`):
     honours the incoming adjacency (level 0 only deletes), uses per-test
@@ -455,30 +535,47 @@ def hetcor_skeleton(C, G: np.ndarray, N, threshold: float, max_level: int,
     stats, if given, collects ``l0_wall_s``, ``level_wall_s`` {level: s}, the
     per-bucket ``launches`` {level: [(d_pad, nodes)]} and ``level_detail`` of
     levels 1-3.
+
+    engine: a :class:`cigwas_tpu_torch.parallel.sharded.ShardedEngine` (or
+    ``RowShardedEngine``) places C and N as it keeps panels (padded to its
+    own multiple) and runs every level over its shards; the adjacency is the
+    one-device path's and ``device`` is not used.
     """
     if ess_mode not in ("reference", "float"):
         raise ValueError(f"unknown ess_mode: {ess_mode!r}")
-    device = resolve(device)
     require_full_f32()  # the level >= 4 one-hot selections must be exact
-    C = _as_panel(C, device)
-    N_raw = _as_panel(N, device)
-    v_real = C.shape[0]
-    pad = (-v_real) % PANEL_ALIGN
-    if pad:
-        C = torch.nn.functional.pad(C, (0, pad, 0, pad))
-        N_raw = torch.nn.functional.pad(N_raw, (0, pad, 0, pad), value=10.0)
+    if engine is None:
+        device = resolve(device)
+        C = _as_panel(C, device)
+        N_raw = _as_panel(N, device)
+        v_real = C.shape[0]
+        pad = (-v_real) % PANEL_ALIGN
+        if pad:
+            C = torch.nn.functional.pad(C, (0, pad, 0, pad))
+            N_raw = torch.nn.functional.pad(N_raw, (0, pad, 0, pad), value=10.0)
+    else:
+        v_real = C.shape[0]
+        C, N_raw = engine.put_panel(C), engine.put_panel(N, fill=10.0)
+        pad = C.vp - v_real
     n = v_real + pad
     G = np.pad(np.asarray(G).astype(bool), ((0, pad), (0, pad)))
     if time_index is None:
         time_index = np.zeros(n, dtype=np.int32)
     else:
         time_index = np.pad(np.asarray(time_index, dtype=np.int32), (0, pad))
-    t_ix = torch.from_numpy(time_index).to(device)
+    if engine is None:
+        t_ix = torch.from_numpy(time_index).to(device)
+    else:
+        t_ix = engine.replicate(torch.from_numpy(time_index))
 
     t_mark = time.perf_counter()
-    G &= ~pcorr.hetcor_l0_delete(C, N_raw, threshold).cpu().numpy()
+    if engine is None:
+        G &= ~pcorr.hetcor_l0_delete(C, N_raw, threshold).cpu().numpy()
+        N_lvl = pcorr.trunc_ref_ess(N_raw) if ess_mode == "reference" else N_raw
+    else:
+        G &= ~engine.screen((C, N_raw), lambda c, nn: pcorr.hetcor_l0_delete(c, nn, threshold))
+        N_lvl = engine.map(N_raw, pcorr.trunc_ref_ess) if ess_mode == "reference" else N_raw
     np.fill_diagonal(G, False)
-    N_lvl = pcorr.trunc_ref_ess(N_raw) if ess_mode == "reference" else N_raw
     del N_raw
     if stats is not None:
         stats["l0_wall_s"] = time.perf_counter() - t_mark
@@ -494,11 +591,11 @@ def hetcor_skeleton(C, G: np.ndarray, N, threshold: float, max_level: int,
         t_level = time.perf_counter()
         if l <= 3:  # the hetcor sweep kernel
             removed = _run_level_local_hetcor(
-                C, N_lvl, t_ix, G, l, float(threshold), stats
+                C, N_lvl, t_ix, G, l, float(threshold), stats, engine=engine
             )
         else:
             removed, _, _ = _run_level(
-                C, G, l, None, hetcor_args=(N_lvl, t_ix, float(threshold))
+                C, G, l, None, hetcor_args=(N_lvl, t_ix, float(threshold)), engine=engine
             )
         G = G & ~removed
         if stats is not None:

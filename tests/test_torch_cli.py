@@ -1,7 +1,8 @@
 """The port's shell entry points (`cigwas_tpu_torch.cli`) against the JAX
-package's CLI: the same argument vectors parse to the same values, what is
-not ported is refused with its message, and the drive from prep-bed to
-mvivw runs through the port on the CPU and writes the JAX CLI's files.
+package's CLI: the same argument vectors parse to the same values, what
+cannot run is refused with its message, the drive from prep-bed to mvivw
+runs through the port on the CPU and writes the JAX CLI's files, and so do
+`cusk`, `cuskss` and `cusk-all` with `--mesh`.
 """
 
 import os
@@ -50,6 +51,10 @@ BAD_VECTORS = {
     "num-samples": ["sepselect", "m", "1e-4", "0"],
     "missing-pxp": ["cuskss", "--alpha", "1e-4", "--num-samples", "5"],
     "ess-mode": ["cuskss", "--pxp", "c", "--alpha", "1e-4", "--num-samples", "5", "--ess-mode", "x"],
+    "panel-mode": ["cusk", "0", "b", "s", "p", "1e-4", "3", "14", "1", "o", "--mesh", "2",
+                   "--panel-mode", "stripes"],
+    "cusk-all-panel-mode": ["cusk-all", "b", "s", "p", "1e-4", "3", "14", "1", "o",
+                            "--panel-mode", "x"],
     "no-subcommand": [],
 }
 
@@ -83,16 +88,20 @@ def test_parsers_refuse_the_same_vectors(name, capsys):
 
 PXP = ["--pxp", "c.txt", "--alpha", "1e-4", "--num-samples", "5", "--device", "cpu"]
 CUSK = ["0", "b", "s", "p", "1e-4", "3", "14", "1", "o", "--device", "cpu"]
+# more cards than any machine of these tests has: a mesh never shrinks
+CARDS = ["--device", "cuda", "--mesh", "64"]
 REFUSED = {
-    "cusk-mesh": (["cusk", *CUSK, "--mesh", "2"], "--mesh is not ported yet: ROADMAP A.6"),
+    "cusk-mesh": (["cusk", *CUSK, "--mesh", "0"], "--mesh 0 (every card) needs --device cuda"),
     "cusk-all-mesh": (["cusk-all", *CUSK[1:], "--mesh", "0"],
-                      "--mesh is not ported yet: ROADMAP A.6"),
-    "cuskss-mesh": (["cuskss", *PXP, "--marker-indices", "i", "--mesh", "4"],
-                    "--mesh is not ported yet: ROADMAP A.6"),
-    "cusk-rowsharded": (["cusk", *CUSK, "--panel-mode", "rowsharded"],
-                        "--panel-mode rowsharded is not ported yet: ROADMAP A.6"),
-    "cusk-all-rowsharded": (["cusk-all", *CUSK[1:], "--panel-mode", "rowsharded"],
-                            "--panel-mode rowsharded is not ported yet: ROADMAP A.6"),
+                      "--mesh 0 (every card) needs --device cuda"),
+    "cuskss-mesh": (["cuskss", *PXP, "--marker-indices", "i", "--mesh", "0"],
+                    "--mesh 0 (every card) needs --device cuda"),
+    "cusk-rowsharded": (["cusk", *CUSK, *CARDS, "--panel-mode", "rowsharded"], "--mesh 64: "),
+    "cusk-all-rowsharded": (["cusk-all", *CUSK[1:], *CARDS, "--panel-mode", "rowsharded"],
+                            "--mesh 64: "),
+    "cuskss-cards": (["cuskss", *PXP, "--marker-indices", "i", *CARDS], "--mesh 64: "),
+    "cusk-all-partition-cards": (["cusk-all", *CUSK[1:], *CARDS, "--num-partitions", "2",
+                                  "--partition-index", "1"], "--mesh 64: "),
     "cuskss-no-markers": (["cuskss", *PXP], "Either blockfile + block index or marker indices"),
     "cuskss-one-se": (["cuskss", *PXP, "--marker-indices", "i", "--mxp-se", "se.txt"],
                       "Please provide no or both pxp and mxp standard error files."),
@@ -103,8 +112,9 @@ REFUSED = {
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_refusals_exit_with_their_message(name):
-    """What is not ported, and the three `cuskss` argument errors: a
-    non-zero exit with the message, before any file is touched."""
+    """A mesh that cannot be had (every card on the CPU; more cards than are
+    visible, which never shrinks to fewer), and the three `cuskss` argument
+    errors: a non-zero exit with the message, before any file is touched."""
     argv, message = REFUSED[name]
     with pytest.raises(SystemExit) as exc:
         main(argv)
@@ -210,6 +220,49 @@ def test_single_block_cusk_command_equals_cusk_all(drive, tmp_path):
           "--device", "cpu"])
     one = dir_bytes(tmp_path)
     assert one and all(dir_bytes(out)[f] == data for f, data in one.items())
+
+
+MESH_COMMANDS = {
+    "cusk": ["cusk", "0", "{blocks}", "{stem}", "{stem}.phen", "1e-3", "3", "14", "1", "{out}"],
+    "cusk-all": ["cusk-all", "{blocks}", "{stem}", "{stem}.phen", "1e-3", "3", "14", "1", "{out}"],
+    "cuskss-rowsharded": ["cuskss", "--mxm", "{data}/small_mxm.bin",
+                          "--mxp", "{data}/marker_trait_summary_stats.txt",
+                          "--pxp", "{data}/trait_summary_stats.txt",
+                          "--marker-indices", "{data}/marker_indices.bin", "--alpha", "1e-4",
+                          "--num-samples", "500000", "--max-level-two", "1", "--outdir", "{out}",
+                          "--panel-mode", "rowsharded"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(MESH_COMMANDS))
+def test_mesh_commands_match_the_jax_cli(drive, tmp_path, name):
+    """`cusk`, `cusk-all` and `cuskss --panel-mode rowsharded` with `--mesh 4
+    --device cpu` write the JAX CLI's files with `--mesh 4` (decision files
+    byte-identical, `.corr` within atol 1e-6) and, for the first two, the
+    port's one-device files byte for byte."""
+    from cigwas_tpu.cli import main as jax_main
+
+    _, stem, blockfile, out = drive
+    data = os.path.join(os.path.dirname(__file__), "data", "test_files")
+    got, exp = tmp_path / "port", tmp_path / "jax"
+    for d, run, extra in ((got, main, ["--device", "cpu"]), (exp, jax_main, [])):
+        d.mkdir()
+        if name.startswith("cuskss"):
+            n_ix = np.fromfile(os.path.join(data, "marker_indices.bin"), dtype=np.int32).size
+            np.arange(n_ix, dtype=np.int32).tofile(str(d / "merged_blocks.ixs"))
+        argv = [a.format(blocks=blockfile, stem=stem, out=d, data=data)
+                for a in MESH_COMMANDS[name]]
+        run(argv + ["--mesh", "4"] + extra)
+    got_b, exp_b = dir_bytes(got), dir_bytes(exp)
+    scm = [f for f in exp_b if f.endswith("_scm.mtx")]
+    assert_block_dirs_match({f: b for f, b in got_b.items() if f not in scm},
+                            {f: b for f, b in exp_b.items() if f not in scm})
+    for f in scm:
+        a, b = (np.loadtxt(str(d / f), skiprows=2) for d in (got, exp))
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+    if not name.startswith("cuskss"):
+        one = {f: b for f, b in dir_bytes(out).items() if f in got_b}
+        assert one and one == got_b
 
 
 def test_orient_v_structs_command(drive):

@@ -112,7 +112,8 @@ _IMPORT_ALL = textwrap.dedent(
                 "parallel.block_scheduler", "parallel.runner", "utils.timing",
                 "merge.mr_assumptions", "pag.rfci", "pag.davs", "pag.simulations",
                 "mr.mvivw", "mr.cause", "mr.competitors", "io.tables", "phen_prep", "sim",
-                "analysis", "vis", "skeleton.second_stage"):
+                "analysis", "vis", "skeleton.second_stage", "parallel.mesh",
+                "parallel.sharded", "parallel.distributed"):
         assert "cigwas_tpu_torch." + new in names, new
     from cigwas_tpu_torch.cli import build_parser
     build_parser().parse_args(["sepselect", "stem", "1e-4", "10"])
@@ -230,6 +231,28 @@ def test_port_api_modules_never_import_jax_pandas_or_matplotlib():
     second stage through the port: none of jax, the JAX package, pandas or
     matplotlib is imported (only the plot helpers import matplotlib)."""
     proc = subprocess.run([sys.executable, "-c", _API_DRIVE], capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+_MESH_DRIVE = textwrap.dedent(
+    """
+    import cigwas_tpu_torch.parallel as par
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    assert par.process_partition() == (1, 0)
+    """
+) + _TINY_BLOCK.replace('verbose=False, device="cpu")',
+                        'verbose=False, mesh=["cpu"] * 3, panel_mode="rowsharded")') + _NO_JAX
+
+
+def test_parallel_imports_without_a_process_group_or_jax():
+    """A fresh interpreter imports `cigwas_tpu_torch.parallel` without any
+    process group (its partition is then (1, 0)) and runs a tiny block over a
+    3-entry CPU mesh with the row-sharded engine: neither jax nor the JAX
+    package is imported."""
+    proc = subprocess.run([sys.executable, "-c", _MESH_DRIVE], capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
