@@ -7,10 +7,10 @@ and the script exits non-zero:
 
 1. environment: versions, the card's name and power limit (nvidia-smi);
    fails without a CUDA device;
-2. build: compiles the three CUDA sources under ``cigwas_tpu_torch/csrc`` in
+2. build: compiles the four CUDA sources under ``cigwas_tpu_torch/csrc`` in
    parallel and prints ptxas' registers and spills per kernel; then reads
-   each sweep kernel's inner loop out of ``cuobjdump -sass`` (instructions
-   per test, for ``issue_ms``);
+   each sweep kernel's and the dense kernel's inner loop out of
+   ``cuobjdump -sass`` (instructions per test, for ``issue_ms``);
 3. kernels, each against its plain PyTorch version on the card, on seeded
    8192-variable panels with NaNs, LD-clustered and scattered neighbour
    lists, ragged degrees (one node with level + 1 neighbours, one with
@@ -27,6 +27,10 @@ and the script exits non-zero:
    both ``ess_mode``s, a time index), with one launch the size of a
    level-2 and level-3 bucket (1024 nodes x width 48) timed beside its
    bound and beside the one-thread-per-slot route it replaced;
+   the dense level-1 sweeps (``dense_l1``, ``hetcor_dense_l1``; rho, s and
+   margins bit-identical) on x slabs against every y, ragged slabs, ring-
+   sized slabs and panels of repeated variables (the smallest s must win),
+   a 256 x 8192 launch of each timed beside its bounds;
 4. the ``cusk`` slice: a small block on the card and on the CPU (plain
    versions) must write the same decisions, with every kernel launch of the
    card's run held bitwise to its plain version; then the reference's default
@@ -120,11 +124,38 @@ and the script exits non-zero:
    the visible cards exits with its message); ``mesh_make_blocks``
    (``make_blocks`` over 4 shards writes the chromosome's ``.blocks``
    bytes). Scaling across cards and copies between cards cannot be
-   measured on one card.
+   measured on one card;
+11. the routes of levels 1-3 (``routes``, last of all), each forced by the
+   skeleton's module attributes, with the launch counts set to 0 just
+   before each run and read just after: ``routes_11k`` (the 11k block by
+   the list route, the device-resident loop and the dense level 1: walls
+   per level, the card's peak memory, every file equal to the default
+   run's, sha256 equal to the parent's, each level's hits and their rho
+   bitwise equal to the list route's), ``routes_10k`` (the 10k input by
+   the list route and the hetcor dense level 1: likewise, the level-1 hit
+   margins bitwise), ``routes_small`` (the 1,500-marker block through
+   every route, the combinatorial levels 1-3 included, on the card and
+   the CPU, every card launch bitwise equal to plain: files equal to the
+   default run's), ``routes_engines`` (both engines over 4 shards of the
+   card with the list route at level 1, where the mesh phase ran their
+   default, the dense level 1, the 11k block and the 10k input: files
+   equal to one device's, each shard's largest launch bitwise equal to
+   plain), ``routes_spmd`` (``build_multichip_cusk_step`` over 2 blocks x
+   2,048 markers of the 11k block x 16,384 x 8 traits on a (2, 2, 2) mesh
+   of the card, equal to the (1, 1, 1) mesh's; a small step equal on cuda
+   and cpu); then the kernel line's entries of the dense kernel: its
+   launches in the dense 11k and 10k runs, the largest launch held bitwise
+   to plain and timed beside its bounds, a ring-sized slab beside it; and
+   the list route's largest sweep launches at the 11k block (levels 1-3)
+   and the 10k input (level 1), which the default routes no longer make
+   there, held to plain and timed under ``list_route_largest``.
 
 Both older slices print the sha256 of their decision files beside those of
 the commit before the gather's redesign, so two versions of the kernels can
-be held to the same decisions.
+be held to the same decisions; the chromosome's and the genome's merged
+decision files must equal those of the commit before the routes of levels
+1-3. The plain version of a largest launch is timed on the one run that
+the kernel is compared with.
 
 Every kernel's line gives its time beside ``bound_ms``, the least time the
 card could take for the same work: the larger of the bytes the function must
@@ -149,7 +180,8 @@ the gather) and the pMax phases' (``launches_pmax_11k``,
 phase's (``launches_mesh_11k_{replicated,rowsharded}``,
 ``launches_mesh_10k_{replicated,rowsharded}``).
 
-``--kernels-only`` stops after phase 3.
+``--kernels-only`` stops after phase 3; ``--routes-only`` runs phase 3, the
+small reference block, both slices' default runs and phase 11.
 
 The last lines are the kernel summary (JSON), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -196,11 +228,12 @@ from cigwas_tpu_torch.ops import pcorr
 from cigwas_tpu_torch.ops.corr import DEFAULT_SAMPLE_CHUNK, marker_pearson_corr
 from cigwas_tpu_torch.ops.corr import PANEL_ROW_TILE as ROW_TILE
 from cigwas_tpu_torch.ops.kernels import build
+from cigwas_tpu_torch.ops.kernels import dense_l1 as dk
 from cigwas_tpu_torch.ops.kernels import hetcor_sweep as hs
 from cigwas_tpu_torch.ops.kernels import local_sweep as ls
 from cigwas_tpu_torch.ops.kernels import panel_gather as pg
 from cigwas_tpu_torch.merge import check_ivs, merge_block_outputs
-from cigwas_tpu_torch.parallel import sharded
+from cigwas_tpu_torch.parallel import build_multichip_cusk_step, make_mesh, sharded
 from cigwas_tpu_torch.mr import run_mvivw_filtered
 from cigwas_tpu_torch.pag.davs import estimate_ace
 from cigwas_tpu_torch.phen_prep import PhenotypesFile, make_merged_pheno_file
@@ -218,7 +251,10 @@ cusk_pipeline = importlib.import_module("cigwas_tpu_torch.pipelines.cusk")
 # file:line of the function that reaches pl.pallas_call, per kernel
 PALLAS = "cigwas_tpu/ops/pallas/panel_gather.py"
 REPLACES = {"local_sweep": f"{PALLAS}:671", "panel_gather": f"{PALLAS}:138",
-            "panel_gather2": f"{PALLAS}:615", "hetcor_sweep": f"{PALLAS}:615"}
+            "panel_gather2": f"{PALLAS}:615", "hetcor_sweep": f"{PALLAS}:615",
+            # no Pallas kernel: the JAX package's plain XLA dense sweeps
+            "dense_l1": "cigwas_tpu/ops/pcorr.py:820",
+            "hetcor_dense_l1": "cigwas_tpu/ops/pcorr.py:900"}
 # the reference's default block and CLI parameters
 M11K, N11K, P11K = 11000, 16384, 8
 ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH = 1e-4, 3, 14, 1
@@ -244,6 +280,89 @@ PARENT_SHA256 = {
     "cuskss": {".adj": "dd8726c43ce6c5a1eda98c9f5ecf5c64be0ac670db861a4fbf02bca59c8b0ed6",
                ".ixs": "ae50a24e2dd5ea43fa670fa68b3797d26f8889bb6de3e380a01abf85bef7bd3a",
                ".mdim": "780b845574304e5b44ffde556510b7a81ddba11354bb7d315a9ed20dbe547ab2"},
+    # the chromosome's and the genome's merged decision files at the commit
+    # before the routes of levels 1-3 (the list route throughout), which
+    # every route must reproduce
+    "chr50k_uniform": {
+        "blocks":
+            "692a8acd8e8ebe3a95776d7a5dfda4714db1e3ec02a0977b4a654a9aff627718",
+        "max_sep_min_pc.atr":
+            "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855",
+        "max_sep_min_pc.mdim":
+            "cadbca3add2501e20698796dcfbfcf65c9faa7c1ed1cabe5a231a05a0e4f810f",
+        "max_sep_min_pc.ssm":
+            "da7b085b3c0adeff1835a30bfc2dc48124e682d21197361f35e37f98756433a8",
+        "max_sep_min_pc.ut":
+            "baa88d0c2118ca2b257968a36bfc1af180d7474b3c7baa113c5474d86f707de2",
+        "max_sep_min_pc_sam.mtx":
+            "52648be664e5f850c3bc15d4040216b5392c7d099ad2a46982a9070965a7e112",
+        "max_sep_min_pc_scm.mtx":
+            "550808fcc833b00b18ee6ae5e1fd06ea40517d1d6e688d45087940fe7bae86da",
+        "max_sep_min_pc_spm.mtx":
+            "ad985dfa1e7769cf3128ded7571055c5e1417e2cfa0e0b9e53f62f428bb1b6ad",
+        "merged_blocks.ixs":
+            "6a069d2e2a3dab17d89750e328ccd285eb82323ddb91b5c033e4fa426741da67",
+        "merged_blocks.mdim":
+            "ca97dc7374c8b944155873d5408aa123772a911b3e08cfe9855afe5d8cba9f62",
+        "merged_blocks_sam.mtx":
+            "1a0fa5a888932747daeeb7f2635f8900766b41fffc1cca497f9016b0b9cb1475",
+        "merged_blocks_scm.mtx":
+            "1fdb1617ba4e879609236e6745be4730d39e7ba29b412631211a548d852d73c8",
+    },
+    "chr50k_locus": {
+        "blocks":
+            "692a8acd8e8ebe3a95776d7a5dfda4714db1e3ec02a0977b4a654a9aff627718",
+        "max_sep_min_pc.atr":
+            "77c98c59757be7d0c7adaf43bf33e7e5647be7cc281946cde339e576c2fd9e77",
+        "max_sep_min_pc.mdim":
+            "b63071ddb3cd0b43dd845d79dfe402abc4b2ce1dbf109d326ed22229d6dc35aa",
+        "max_sep_min_pc.ssm":
+            "b0e22b446d00dbb7b143bb827a46838ad311ddfbd26e6e34dcf975a1d3dc258b",
+        "max_sep_min_pc.ut":
+            "b5823372026d44a07dcb4cbfc3fb46711d6c0a8556f8611378989114f9948cab",
+        "max_sep_min_pc_sam.mtx":
+            "88bdd9ad3d05dd69140973e8c1a1d0cdad823671f1290a19728b3f34d8e4d801",
+        "max_sep_min_pc_scm.mtx":
+            "230b87ae334bd88e8245c51daab14ecb7f61f255a5d0c64b55ced0854f5ab59a",
+        "max_sep_min_pc_spm.mtx":
+            "44ead37f3ed6c174f03921530ee680f812535efcc05fc17ab6d4e2c8eedbb666",
+        "merged_blocks.ixs":
+            "8e6dd683a1d91bb8aaf7aa2e6c2895b68848ec348c62285937ca26bd8d8e1bc2",
+        "merged_blocks.mdim":
+            "078b6c320a7de8a0b1eaf1e26b7c89e33730567bdc32fbf2c78df0a6a3989257",
+        "merged_blocks_sam.mtx":
+            "931eea2787021a1c620b3866c739d536968a1ff5919bc32f856bea7efa5b133b",
+        "merged_blocks_scm.mtx":
+            "e91548ac89c0ab8ede6a75c101edd1209d9bbfff3a6e15b1dda552c707932094",
+    },
+    "genome": {
+        "blocks":
+            "88fa1310cd21a9dd9e7ba511c513ead5de2f634ab7188c5df2f0d655908750ff",
+        "max_sep_min_pc.atr":
+            "247c171c533ad51bb800455636bd3e548f2bed5a3e1221687ebcf5f744b597e4",
+        "max_sep_min_pc.mdim":
+            "4516e1068dd50588de363cec43002d74e11474c1425801df97c79edf253edce5",
+        "max_sep_min_pc.ssm":
+            "68ca7d50a63fe3d6b4b3a415f68c4ad537935cf1aa9274e470b5928a3436e20e",
+        "max_sep_min_pc.ut":
+            "7f04a7940494f01f4db87feb476e6155e3d9ce2be81948e27c078dfee1fdc8f9",
+        "max_sep_min_pc_estimated_pag.mtx":
+            "471c53784a425f63660417859eaf547692d10eb408cefe6ab29c386e4193cc59",
+        "max_sep_min_pc_sam.mtx":
+            "23414474f8a81f7be414896e519a37b25bf55f714dbc20e57ecc66a9e395f807",
+        "max_sep_min_pc_scm.mtx":
+            "e56c3dbe4bd7a25f13ae551d9f896550cc9c65ba9515bef846439b16bcf1daa4",
+        "max_sep_min_pc_spm.mtx":
+            "8782441431e51cb834509bfd43c6b4a9da7066de39c19d5806b877c046e70703",
+        "merged_blocks.ixs":
+            "b41f53a53b2cb6313a36e1342449fac5a9e71eccb6ce933b0715106731a92452",
+        "merged_blocks.mdim":
+            "784053c456418bf77976e8a9efe0c66ff7b6b8bf6dfd644d5a02865624a0ea40",
+        "merged_blocks_sam.mtx":
+            "bad451feed23b9133fe2c841eec529c3fffd70e73ac7f4ed56667784e2bb9ff4",
+        "merged_blocks_scm.mtx":
+            "36e5ca7ddddd7038f9c959f06a55174e4276766f39c4a1039d57a94b787c711a",
+    },
 }
 # float32 operations per test, read off the kernels' inner loops (a sqrt, a
 # division and a tanh count as one each): the rho recursion and the compare
@@ -251,6 +370,12 @@ PARENT_SHA256 = {
 # (four per term), the threshold (six) and the margin for hetcor_sweep
 SWEEP_OPS = {1: 12, 2: 15, 3: 19}
 HETCOR_OPS = {1: 29, 2: 49, 3: 69}
+# the same for a test of the dense level-1 kernel (R and P come precomputed):
+# three products, a difference, an absolute value, the compare; for hetcor
+# also the ESS sums and counts of three terms (four per term), the threshold
+# (a division, a difference, a sqrt, a division, a tanh), the margin and the
+# time and finiteness checks
+DENSE_OPS = {"dense_l1": 6, "hetcor_dense_l1": 26}
 # the kernel entries that the pMax phases launch, whose counts the `kernels`
 # line carries under those phases' keys
 PMAX_KERNELS = ("local_sweep_l1", "local_sweep_l2", "local_sweep_l3", "panel_gather")
@@ -274,7 +399,8 @@ def ptxas_summary(log: str) -> list:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = re.search(r"\d((?:h?sweep|panel)\w*?_kernel(?:I(?:L[ib]\d+E)+)?)", m.group(1))
+            name = re.search(r"\d((?:h?sweep|panel|dense)\w*?_kernel(?:I(?:L[ib]\d+E)+)?)",
+                             m.group(1))
             out.append({"kernel": name.group(1) if name else m.group(1)})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and out:
@@ -407,6 +533,19 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def once_ms(fn) -> tuple:
+    """(fn(), device milliseconds of that one call): for the plain versions
+    of the largest launches, which take seconds, so that the run that is
+    compared is the run that is timed."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def kernel_device_ms(fn, reps: int, pattern: str) -> dict:
     """Mean device milliseconds of the kernels whose name matches pattern
     over reps runs of fn(), from torch.profiler's kernel records: the time
@@ -474,13 +613,14 @@ def addressed(node_ixs, nbrs, deg, vp: int, pads_read_node: bool) -> tuple[int, 
 
 def sweep_bound(node_ixs, nbrs, deg, vp: int, l: int, panels: int, ops: dict) -> dict:
     """Bound of a levels 1-3 launch from its real lists: every slot y of a
-    node meets each conditioning set of its other deg - 1 neighbours once;
+    node meets each conditioning set of its other deg - 1 neighbours once (a
+    node of degree 0, as the device-resident loop launches them, none);
     the distinct panel entries the lists address are read once from each
     panel (and, for hetcor, the time index of each distinct variable), the
     index lists once, the (nt, d) outputs written once."""
     dg = deg.cpu().numpy().astype(np.int64)
     nt, d = nbrs.shape
-    tests = int(sum(int(g) * math.comb(int(g) - 1, l) for g in dg))
+    tests = int(sum(int(g) * math.comb(max(int(g) - 1, 0), l) for g in dg))
     entries, variables, _ = addressed(node_ixs, nbrs, deg, vp, pads_read_node=False)
     n_in = 4 * panels * entries + 4 * (nt * d + 2 * nt) + (4 * variables if panels == 2 else 0)
     n_out = 4 * nt * d * ((1 + l) if panels == 1 else 1)
@@ -865,6 +1005,14 @@ def ar1_block(m: int, n: int, p: int, seed: int):
     return G, Y, planted
 
 
+def held_sha(which: str, got: dict) -> None:
+    """The merged decision files' sha256 (the MR tables apart) equal to
+    PARENT_SHA256[which]."""
+    want = PARENT_SHA256[which]
+    differ = sorted(f for f in want if got.get(f) != want[f])
+    assert not differ, f"{which}: {differ} differ from the parent's"
+
+
 def file_hashes(base: str, exts) -> dict:
     """sha256 of the decision files base + ext: two runs that decide alike
     print the same digests."""
@@ -908,6 +1056,17 @@ def assert_same_outputs(tag: str, cuda: dict, cpu: dict) -> float:
 # the kernel wrappers the skeleton calls through `cupc`
 WRAPPED = ("local_sweep", "hetcor_local_sweep", "gather_local_panels",
                   "gather_local_panels2")
+# the dense level-1 entries, which the skeleton and the engines call through
+# the wrapper's module, and their plain versions
+DENSE = ("dense_l1", "hetcor_dense_l1")
+DENSE_PLAIN = {"dense_l1": dk.dense_l1_plain, "hetcor_dense_l1": dk.hetcor_dense_l1_plain}
+
+
+def dense_slab(name: str, args: tuple) -> tuple:
+    """(nx, ny, x0, y0) of a dense launch's arguments."""
+    if name == "dense_l1":
+        return args[0].shape[0], args[4].shape[1], int(args[6]), int(args[7])
+    return args[0].shape[0], args[5].shape[1], int(args[9]), int(args[10])
 
 
 class EveryLaunchChecked:
@@ -918,10 +1077,11 @@ class EveryLaunchChecked:
     at fault, if one is. `names` narrows the check to those wrappers (the
     genome's gathers)."""
 
-    def __init__(self, names: tuple = WRAPPED):
+    def __init__(self, names: tuple = WRAPPED + DENSE):
         self.checked = 0
         self.names = names
         self.saved = {n: getattr(cupc, n) for n in WRAPPED}
+        self.saved_dense = {n: getattr(dk, n) for n in DENSE}
 
     def __enter__(self):
         saved = self.saved
@@ -959,16 +1119,36 @@ class EveryLaunchChecked:
                 self.checked += 1
             return out
 
+        def dense(name):
+            kern, plain = self.saved_dense[name], DENSE_PLAIN[name]
+
+            def run(*args):
+                out = kern(*args)
+                if args[0].is_cuda:
+                    tag = f"launch {self.checked}: {name} (nx, ny, x0, y0) {dense_slab(name, args)}"
+                    if name == "dense_l1":
+                        compare_bits(tag, out, plain(*args))
+                    else:
+                        compare_margin(tag, out, plain(*args))
+                    self.checked += 1
+                return out
+            return run
+
         for n, fn in (("local_sweep", local_sweep), ("hetcor_local_sweep", hetcor_local_sweep),
                       ("gather_local_panels", gather_local_panels),
                       ("gather_local_panels2", gather_local_panels2)):
             if n in self.names:
                 setattr(cupc, n, fn)
+        for n in DENSE:
+            if n in self.names:
+                setattr(dk, n, dense(n))
         return self
 
     def __exit__(self, *exc):
         for n, fn in self.saved.items():
             setattr(cupc, n, fn)
+        for n, fn in self.saved_dense.items():
+            setattr(dk, n, fn)
 
 
 def phase_small_reference(tmp: str) -> None:
@@ -1003,6 +1183,7 @@ class Recorder:
     def __init__(self):
         self.largest: dict = {}
         self.saved = {n: getattr(cupc, n) for n in WRAPPED}
+        self.saved_dense = {n: getattr(dk, n) for n in DENSE}
 
     def _keep(self, key, work, args):
         if work > self.largest.get(key, (0,))[0]:
@@ -1031,27 +1212,41 @@ class Recorder:
                        (C, N, node_ixs, nbrs, deg))
             return saved["gather_local_panels2"](C, N, node_ixs, nbrs, deg, **kw)
 
+        def dense(name):
+            kern = self.saved_dense[name]
+
+            def run(*args):
+                nx, ny, _, _ = dense_slab(name, args)
+                self._keep((name,), nx * ny, args)
+                return kern(*args)
+            return run
+
         for n, fn in (("local_sweep", local_sweep), ("hetcor_local_sweep", hetcor_local_sweep),
                       ("gather_local_panels", gather_local_panels),
                       ("gather_local_panels2", gather_local_panels2)):
             setattr(cupc, n, fn)
+        for n in DENSE:
+            setattr(dk, n, dense(n))
         return self
 
     def __exit__(self, *exc):
         for n, fn in self.saved.items():
             setattr(cupc, n, fn)
+        for n, fn in self.saved_dense.items():
+            setattr(dk, n, fn)
 
 
 def reset_all_launches() -> None:
     ls.reset_launches()
     hs.reset_launches()
     pg.reset_launches()
+    dk.reset_launches()
 
 
 def all_launches() -> dict:
     """The launch count of every kernel entry, sweeps by level."""
     return {**{f"local_sweep_l{l}": n for l, n in ls.launches.items()}, **pg.launches,
-            **{f"hetcor_sweep_l{l}": n for l, n in hs.launches.items()}}
+            **{f"hetcor_sweep_l{l}": n for l, n in hs.launches.items()}, **dk.launches}
 
 
 def kernel_entry(name: str, module, replaces: str, launches: int, err: float, ms: float,
@@ -1076,7 +1271,8 @@ def sweep_entries(tag: str, rec: Recorder, launches: dict, rho_th: dict, loops: 
     for l in (1, 2, 3):
         C, node_ixs, nbrs, deg, _ = rec.largest[("local_sweep", l)][1]
         rho_k, pos_k = ls.local_sweep(C, node_ixs, nbrs, deg, l)
-        rho_p, pos_p = pcorr.local_sweep_plain(C, node_ixs, nbrs, deg, l)
+        (rho_p, pos_p), plain_ms = once_ms(
+            lambda: pcorr.local_sweep_plain(C, node_ixs, nbrs, deg, l))
         err = compare(f"{tag} level {l}", rho_k, pos_k, rho_p, pos_p, deg, rho_th[l])
         bnd = sweep_bound(node_ixs, nbrs, deg, C.shape[0], l, 1, SWEEP_OPS)
         more = {"plan": ls.plan(l, nbrs.shape[1]),
@@ -1089,7 +1285,7 @@ def sweep_entries(tag: str, rec: Recorder, launches: dict, rho_th: dict, loops: 
             f"local_sweep_l{l}", ls, "local_sweep", launches[f"local_sweep_l{l}"], err,
             cuda_ms(lambda: ls.local_sweep(C, node_ixs, nbrs, deg, l,
                                            index_range_checked=True), reps=5),
-            cuda_ms(lambda: pcorr.local_sweep_plain(C, node_ixs, nbrs, deg, l), reps=2),
+            plain_ms,
             bnd, None, {"nodes": int(nbrs.shape[0]), "width": int(nbrs.shape[1])}, **more,
         ))
     return kernels
@@ -1147,7 +1343,8 @@ def phase_slice(tmp: str, rho_th: dict, loops: dict, clock_hz: float):
                    DEPTH, out, 0, verbose=False, device="cuda", stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-        launches = {**{f"local_sweep_l{l}": n for l, n in ls.launches.items()}, **pg.launches}
+        launches = {**{f"local_sweep_l{l}": n for l, n in ls.launches.items()}, **pg.launches,
+                    **dk.launches}
 
     s1, s2 = stats["stage1"], stats["stage2"]
     ran = set(s1.get("level_wall_s", {})) | set(s2.get("level_wall_s", {}))
@@ -1173,7 +1370,8 @@ def phase_slice(tmp: str, rho_th: dict, loops: dict, clock_hz: float):
         "slice_cusk", t0, cusk_wall_s=wall, prepare_s=stats["prepare_s"],
         prescreen_s=stats["prescreen_s"], panel_s=stats["panel_s"],
         l0_s=s1["l0_wall_s"], sepset_alloc_s=s1["sepset_alloc_s"],
-        level_wall_s=s1["level_wall_s"], level_detail=s1["level_detail"],
+        level_wall_s=s1["level_wall_s"], level_route=s1["level_route"],
+        level_detail=s1.get("level_detail", {}), final_fetch_s=s1.get("final_fetch_s"),
         reduce_s=stats["reduce_s"], stage2_s=stats["stage2_s"],
         stage2_level_wall_s=s2.get("level_wall_s", {}),
         launches=launches, buckets={l: len(v) for l, v in s1["launches"].items()},
@@ -1297,7 +1495,8 @@ def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list):
                      stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-        launches = {**{f"hetcor_sweep_l{l}": n for l, n in hs.launches.items()}, **pg.launches}
+        launches = {**{f"hetcor_sweep_l{l}": n for l, n in hs.launches.items()}, **pg.launches,
+                    **dk.launches}
 
     s1, s2 = stats["stage1"], stats["stage2"]
     ran = set(s1.get("level_wall_s", {})) | set(s2.get("level_wall_s", {}))
@@ -1322,8 +1521,8 @@ def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list):
     emit(
         "slice_cuskss", t0, cuskss_wall_s=wall, load_s=stats["load_s"],
         assemble_s=stats["assemble_s"], l0_s=s1["l0_wall_s"],
-        level_wall_s=s1["level_wall_s"], level_detail=s1["level_detail"],
-        reduce_s=s1["reduce_s"], stage2_l0_s=s2["l0_wall_s"],
+        level_wall_s=s1["level_wall_s"], level_route=s1["level_route"],
+        level_detail=s1.get("level_detail", {}), reduce_s=s1["reduce_s"], stage2_l0_s=s2["l0_wall_s"],
         stage2_level_wall_s=s2["level_wall_s"], stage2_reduce_s=s2["reduce_s"],
         launches=launches, buckets={l: len(v) for l, v in s1["launches"].items()},
         final_level=s1["final_level"], final_level_two=s2["final_level"],
@@ -1334,12 +1533,30 @@ def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list):
 
     # the largest launch of each kernel, kernel vs plain on the card
     t0 = time.perf_counter()
+    kernels = hetcor_entries("cuskss", rec, launches, (1, 2, 3), loops, clock_hz, bucket)
+    kernels += gather_entries("10k input", rec, launches)
+    emit("largest_launch_cuskss", t0, kernels=kernels)
+
+    def again():
+        out2 = os.path.join(tmp, "out_ss_profiled")
+        os.makedirs(out2)
+        cuskss(CuskssArgs.from_paths(outdir=out2, **kw), verbose=False, device="cuda")
+
+    return kernels, again, wall, kw
+
+
+def hetcor_entries(tag: str, rec: Recorder, launches: dict, levels, loops: dict,
+                   clock_hz: float, bucket: list) -> list:
+    """The largest hetcor_local_sweep launch of a run at each of `levels`,
+    kernel vs plain (margins bitwise equal) on the same tensors, timed
+    beside its bound and issue bound; at levels 2-3 the bucket-sized launch
+    of the kernel checks beside it."""
     kernels = []
-    for l in (1, 2, 3):
+    for l in levels:
         args = rec.largest[("hetcor_sweep", l)][1]
         C, node_ixs, nbrs, deg = args[0], args[3], args[4], args[5]
-        count, err = compare_margin(f"cuskss level {l}", hs.hetcor_local_sweep(*args),
-                                    pcorr.hetcor_local_sweep_plain(*args))
+        plain, plain_ms = once_ms(lambda: pcorr.hetcor_local_sweep_plain(*args))
+        count, err = compare_margin(f"{tag} level {l}", hs.hetcor_local_sweep(*args), plain)
         bnd = sweep_bound(node_ixs, nbrs, deg, C.shape[0], l, 2, HETCOR_OPS)
         loop = loops[("hetcor_sweep", l)]
         more = {"plan": hs.plan(l, nbrs.shape[1]), **issue_bound(bnd["tests"], loop, clock_hz)}
@@ -1352,19 +1569,11 @@ def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list):
         kernels.append(kernel_entry(
             f"hetcor_sweep_l{l}", hs, "hetcor_sweep", launches[f"hetcor_sweep_l{l}"], err,
             cuda_ms(lambda: hs.hetcor_local_sweep(*args, index_range_checked=True), reps=5),
-            cuda_ms(lambda: pcorr.hetcor_local_sweep_plain(*args), reps=2),
+            plain_ms,
             bnd, None, {"nodes": int(nbrs.shape[0]), "width": int(nbrs.shape[1]),
                         "margins_bit_identical": count}, **more,
         ))
-    kernels += gather_entries("10k input", rec, launches)
-    emit("largest_launch_cuskss", t0, kernels=kernels)
-
-    def again():
-        out2 = os.path.join(tmp, "out_ss_profiled")
-        os.makedirs(out2)
-        cuskss(CuskssArgs.from_paths(outdir=out2, **kw), verbose=False, device="cuda")
-
-    return kernels, again, wall, kw
+    return kernels
 
 
 def pack_bed_rows(G: np.ndarray) -> np.ndarray:
@@ -1706,13 +1915,15 @@ def chromosome_run(tag: str, stem: str, out: str, phen_set: tuple, rows_of: dict
     merged = {f: hashlib.sha256(data).hexdigest() for f, data in block_files(out).items()
               if f.startswith(("merged_blocks", "max_sep_min_pc"))}
     assert len(merged) >= 8, sorted(merged)
+    sha = {"blocks": hashlib.sha256(open(blocks, "rb").read()).hexdigest(), **merged}
+    held_sha(f"chr50k_{tag}", sha)
     emit("chr50k_commands_" + tag, t0, phen=os.path.basename(phen), wall_s_by_command=walls,
          blocks=len(sizes), block_sizes=sizes,
          largest_block_within_tol=MAX_BLOCK - max(sizes) <= 100, per_block=per_block,
          launches=launches, merged_variables=gm.num_var, merged_edges=len(gm.sam),
          planted_adjacent=int(adjacent), planted=len(planted), planted_pass_plain_screen=int(screen),
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
-         sha256={"blocks": hashlib.sha256(open(blocks, "rb").read()).hexdigest(), **merged})
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, sha256=sha,
+         sha256_equal_to_parent=True)
     return launches, blocks, walls
 
 
@@ -1938,6 +2149,8 @@ def phase_genome(tmp: str, rho_th: dict, loops: dict, clock_hz: float) -> dict:
     api_wall = time.perf_counter() - t1
     hashes = {f: hashlib.sha256(data).hexdigest() for f, data in block_files(out).items()
               if f.startswith(("merged_blocks", "max_sep_min_pc"))}
+    sha = {"blocks": hashlib.sha256(open(blocks, "rb").read()).hexdigest(), **hashes}
+    held_sha("genome", sha)
     emit("genome_commands", t0, wall_s_by_command=walls, api_wall_s=api_wall,
          blocks=len(sizes), block_sizes=sizes, per_block=per_block,
          blocks_without_retained_markers=sum(b["retained_markers"] is None for b in per_block),
@@ -1950,8 +2163,8 @@ def phase_genome(tmp: str, rho_th: dict, loops: dict, clock_hz: float) -> dict:
          mvivw={f"T{s}->T{t}": {"plain": plain[(s, t)], "s": skel[(s, t)],
                                  "filtered": filtered[(s, t)]} for s, t in GENOME_EDGES},
          mvivw_false_positives_p_1e3=false_pos, iv_rows=len(ivs), ace=ace,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
-         sha256={"blocks": hashlib.sha256(open(blocks, "rb").read()).hexdigest(), **hashes})
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, sha256=sha,
+         sha256_equal_to_parent=True)
 
     def again():
         out2 = os.path.join(d, "out_profiled")
@@ -2458,6 +2671,9 @@ def shard_checks(tag: str, rec: ShardRecorder) -> list:
             _, err = compare_margin(label, hs.hetcor_local_sweep(*args),
                                     pcorr.hetcor_local_sweep_plain(*args))
             C, nbrs, entry = args[0], args[4], f"hetcor_sweep_l{args[7]}"
+        elif name in DENSE:
+            out.append({"kernel": name, "shard": shard, **dense_check(label, name, args)})
+            continue
         else:
             kern, plain = ((pg.gather_local_panels, pg.gather_local_panels_plain)
                            if name == "panel_gather" else
@@ -2559,6 +2775,7 @@ def mesh_engine_runs(tag: str, run, one_dir: str, base: str, exts: tuple, parent
         s1 = stats.get("stage1", {})
         lines[mode] = {
             "wall_s": wall, "level_wall_s": s1.get("level_wall_s", {}),
+            "level_route": s1.get("level_route", {}),
             "stage2_level_wall_s": stats.get("stage2", {}).get("level_wall_s", {}),
             "launches": launches[mode], "device_peak_bytes": peaks,
             **engine_memory(stats["engine_record"]),
@@ -2767,14 +2984,574 @@ def phase_mesh(tmp: str, ss_kw: dict, chr_dir: str) -> dict:
     of = {name: {**{f"launches_mesh_11k_{m}": l11k[m][name] for m in MESH_MODES},
                  **{f"launches_mesh_10k_{m}": l10k[m][name] for m in MESH_MODES}}
           for name in all_launches()}
-    for names, run in ((("local_sweep_l1", "local_sweep_l2", "local_sweep_l3", "panel_gather"),
+    # the engines' level 1 takes the dense route at both inputs (the gates)
+    for names, run in ((("dense_l1", "local_sweep_l2", "local_sweep_l3", "panel_gather"),
                         "11k"),
-                       (("hetcor_sweep_l1", "hetcor_sweep_l2", "hetcor_sweep_l3",
+                       (("hetcor_dense_l1", "hetcor_sweep_l2", "hetcor_sweep_l3",
                          "panel_gather2"), "10k")):
         for name in names:
             assert all(of[name][f"launches_mesh_{run}_{m}"] > 0 for m in MESH_MODES), (
                 name, of[name])
     return of
+
+
+# --- the dense level-1 kernel and the routes of levels 1-3 ---------------------
+
+
+def dense_loop(instrs: list, arrays: int) -> dict:
+    """The loop over a warp's live s in the dense kernel's SASS: the innermost
+    loop that broadcasts by shuffle (SHFL) and loads from global memory. Each
+    test loads `arrays` values of the y side (R_sy, P_sy and, for hetcor,
+    N_ys), which counts the tests of one pass. Returns the static count of
+    instructions in the loop's body and the instructions per test."""
+    loops = []
+    for addr, text in instrs:
+        m = _SASS_BRANCH.search(text)
+        if m and int(m.group(1), 16) <= addr:
+            loops.append((int(m.group(1), 16), addr))
+    best = None
+    for lo, hi in loops:
+        if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in loops):
+            continue
+        ops = [re.sub(r"^@!?U?P\d+\s+", "", t).split()[0] for a, t in instrs if lo <= a <= hi]
+        ldg = sum(o.startswith("LDG") for o in ops)
+        if any(o.startswith("SHFL") for o in ops) and ldg >= arrays and (
+                best is None or ldg > best["ldg"]):
+            best = {"ldg": ldg, "loop_instructions": len(ops), "loop": f"{lo:#x}-{hi:#x}",
+                    "tests_per_pass": ldg // arrays,
+                    "instructions_per_test": len(ops) / (ldg // arrays)}
+    assert best is not None, "no test loop found in the dense kernel's SASS"
+    return best
+
+
+def dense_loops(lib) -> dict:
+    """{entry: dense_loop} of the two instantiations of the dense kernel."""
+    fns = sass_functions(sass_of(lib))
+    out = {}
+    for entry, het, arrays in (("dense_l1", "Lb0", 2), ("hetcor_dense_l1", "Lb1", 3)):
+        (name,) = [n for n in fns if re.search(rf"dense_l1_kernelI{het}E", n)]
+        out[entry] = {"function": name, **dense_loop(fns[name], arrays)}
+    return out
+
+
+def dense_bound(name: str, args: tuple) -> dict:
+    """Bound of a dense launch from its real slabs: each x row meets every y
+    of the y slab once for each of its live s (a neighbour, not x; s == y
+    skipped), which is what the kernel evaluates. Bytes: each entry the
+    kernel reads, once. Every mask byte of the x rows; C_xy (and N_xy) of
+    the slab's pairs; R_xs, P_xs (and N_xs) of each live (x, s); the y
+    columns of R and P (and N) in the rows of the s live for any x row of
+    the slab, but (s, y) with s == y; for hetcor the time index of the x
+    rows, the y and those s. The (nx, ny) outputs written once."""
+    nx, ny, x0, y0 = dense_slab(name, args)
+    G_x, vp = args[3], args[0].shape[1]
+    dev = G_x.device
+    s_ix = torch.arange(vp, device=dev)
+    x_ix = x0 + torch.arange(nx, device=dev)
+    live = G_x & (s_ix[None, :] != x_ix[:, None])
+    n_live = int(live.sum())
+    tests = n_live * ny - int(live[:, y0 : y0 + ny].sum())
+    used = live.any(dim=0)  # the s some x row of the slab reads
+    y_rows = int(used.sum()) * ny - int(used[y0 : y0 + ny].sum())
+    het = name == "hetcor_dense_l1"
+    n_in = nx * vp + (4 + 4 * het) * nx * ny + (8 + 4 * het) * n_live + (8 + 4 * het) * y_rows
+    if het:
+        t_read = used.clone()
+        t_read[x0 : x0 + nx] = True
+        t_read[y0 : y0 + ny] = True
+        n_in += 4 * int(t_read.sum())
+    n_out = nx * ny * (4 if het else 8)
+    return {**bound(n_in + n_out, tests * DENSE_OPS[name]), "tests": tests,
+            "live_s": int(used.sum())}
+
+
+def dense_check(tag: str, name: str, args: tuple) -> dict:
+    """One dense launch against its plain version on the same tensors:
+    bitwise equal (rho and s, or the margins); returns its shape, max error
+    and the plain version's device milliseconds in that one call."""
+    kern, plain = getattr(dk, name), DENSE_PLAIN[name]
+    want, plain_ms = once_ms(lambda: plain(*args))
+    if name == "dense_l1":
+        err = compare_bits(tag, kern(*args), want)
+    else:
+        err = compare_margin(tag, kern(*args), want)[1]
+    nx, ny, x0, y0 = dense_slab(name, args)
+    return {"x_rows": nx, "y_rows": ny, "x0": x0, "y0": y0, "panel": int(args[0].shape[1]),
+            "bit_identical": True, "max_abs_err": err, "plain_ms": plain_ms}
+
+
+def dense_timed(tag: str, name: str, args: tuple, loops: dict, clock_hz: float) -> dict:
+    """dense_check, then the launch timed by CUDA events beside its plain
+    version, its bound and its issue bound."""
+    kern = getattr(dk, name)
+    out = dense_check(tag, name, args)
+    bnd = dense_bound(name, args)
+    return {**out, "ms": cuda_ms(lambda: kern(*args), reps=5), **bnd,
+            **issue_bound(bnd["tests"], loops[name], clock_hz),
+            "plan": dk.plan(name, out["x_rows"], out["y_rows"])}
+
+
+def dense_args(name: str, C, G, x0: int, x1: int, y0: int, y1: int, N=None, t_ix=None,
+               th: float = 0.0) -> tuple:
+    """The arguments of a dense launch over rows [x0, x1) x columns [y0, y1)
+    of a whole panel on the card."""
+    R, P = dk.factors(C)
+    xs = (C[x0:x1], R[x0:x1], P[x0:x1], G[x0:x1])
+    ys = (R[:, y0:y1].contiguous(), P[:, y0:y1].contiguous())
+    if name == "dense_l1":
+        return (*xs, *ys, x0, y0)
+    return (*xs, N[x0:x1], *ys, N[y0:y1].T.contiguous(), t_ix, x0, y0, th)
+
+
+def phase_dense_kernel(panels, loops: dict, clock_hz: float) -> dict:
+    """dense_l1 and hetcor_dense_l1 vs plain on the 8192-variable panels with
+    NaNs (made symmetric, then one row perturbed so that C[s, y] != C[y, s]
+    there: the kernel must read the entries the list route reads), under an
+    adjacency of an LD band (|x - s| <= 60) plus 0.2% scattered edges: x
+    slabs of 256 rows against every y, ragged slabs (100 x 2,000 at an
+    offset, the last rows of the panel), ring-sized slabs (256 x 2,048
+    against another stripe's columns), both ESS modes and a time index for
+    hetcor; and panels of repeated variables, where tied minima must resolve
+    to the smallest s. Then the 256 x 8192 launch of each entry timed beside
+    its plain version and its bounds."""
+    t0 = time.perf_counter()
+    rng, vp, Cd, Nd, td = panels
+    Cd = Cd.clone()
+    Cd[100] = Cd[100] * 0.999  # row 100 no longer equals column 100
+    ix = torch.arange(vp, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    G = ((ix[:, None] - ix[None, :]).abs() <= 60) | (
+        torch.rand((vp, vp), generator=gen, device="cuda") < 0.002)
+    G = (G | G.T) & (ix[:, None] != ix[None, :])
+    th = hetcor_threshold(ALPHA)
+    N_mode = {"float": Nd, "reference": pcorr.trunc_ref_ess(Nd)}
+    slabs = [(0, 256, 0, vp), (5000, 5100, 1234, 3234), (vp - 77, vp, 0, vp),
+             (2048, 2304, 6144, 8192)]
+    checked = []
+    for x0, x1, y0, y1 in slabs:
+        checked.append(dense_check(f"dense_l1 {x0}:{x1} x {y0}:{y1}", "dense_l1",
+                                   dense_args("dense_l1", Cd, G, x0, x1, y0, y1)))
+        for mode, N in N_mode.items():
+            checked.append(dense_check(
+                f"hetcor_dense_l1 {mode} {x0}:{x1} x {y0}:{y1}", "hetcor_dense_l1",
+                dense_args("hetcor_dense_l1", Cd, G, x0, x1, y0, y1, N, td, th)))
+    Ct, Nt, tt = tied_panels(Cd, Nd, td)
+    Gt = G[:1024, :1024]
+    tied = dense_args("dense_l1", Ct, Gt, 0, 256, 0, 1024)
+    checked.append(dense_check("dense_l1 ties", "dense_l1", tied))
+    checked.append(dense_check("hetcor_dense_l1 ties", "hetcor_dense_l1", dense_args(
+        "hetcor_dense_l1", Ct, Gt, 0, 256, 0, 1024, Nt, tt, th)))
+    rho, _ = dk.dense_l1(*tied)
+    assert bool((rho < pcorr.RHO_BIG).any()), "the tied panels gave no valid test"
+    timed = {name: dense_timed(f"{name} 256 x {vp}", name, dense_args(
+        name, Cd, G, 0, 256, 0, vp, Nd, td, th), loops, clock_hz) for name in DENSE}
+    emit("kernels_dense_l1", t0, cases=len(checked), bit_identical=True,
+         max_abs_err=max(c["max_abs_err"] for c in checked), timed=timed)
+    return timed
+
+
+class HitRecorder:
+    """While it is open, keeps the hits of every levels 1-3 launch, by panel
+    size and level: the ordered pairs (x, y) that a launch
+    condemns from x's side and their statistic (|rho| below tanh(Th[l]), or
+    a negative hetcor margin), as the list route's sweeps, the device loop's
+    launches and the dense route's slabs find them. Two routes that decide
+    alike give the same pairs; rho or margins bitwise equal say that no
+    test's value depends on the route or the launch width."""
+
+    def __init__(self, rho_th: dict):
+        self.rho_th = rho_th
+        self.hits: dict = {}
+        self.saved = {n: getattr(cupc, n) for n in ("local_sweep", "hetcor_local_sweep")}
+        self.saved_dense = {n: getattr(dk, n) for n in DENSE}
+
+    def _add(self, vp: int, l: int, x, y, stat) -> None:
+        self.hits.setdefault(vp, {}).setdefault(l, []).append((x.long() * vp + y.long(), stat))
+
+    def __enter__(self):
+        saved, dense = self.saved, self.saved_dense
+
+        def local_sweep(C, node_ixs, nbrs, deg, l, **kw):
+            rho, pos = saved["local_sweep"](C, node_ixs, nbrs, deg, l, **kw)
+            i, j = torch.nonzero(cupc._hit_mask(rho, self.rho_th[l], deg), as_tuple=True)
+            self._add(C.shape[0], l, node_ixs[i], nbrs[i, j], rho[i, j])
+            return rho, pos
+
+        def hetcor_local_sweep(C, N, t_ix, node_ixs, nbrs, deg, th, l, **kw):
+            m = saved["hetcor_local_sweep"](C, N, t_ix, node_ixs, nbrs, deg, th, l, **kw)
+            i, j = torch.nonzero(cupc._hit_mask(m, 0.0, deg), as_tuple=True)
+            self._add(C.shape[0], l, node_ixs[i], nbrs[i, j], m[i, j])
+            return m
+
+        def dense_l1(*args):
+            rho, s = dense["dense_l1"](*args)
+            nx, ny, x0, y0 = dense_slab("dense_l1", args)
+            xs, ys, _, r = pcorr.dense1_hits(rho, s, args[3][:, y0 : y0 + ny], x0, y0,
+                                             self.rho_th[1])
+            self._add(args[0].shape[1], 1, xs, ys, r)
+            return rho, s
+
+        def hetcor_dense_l1(*args):
+            m = dense["hetcor_dense_l1"](*args)
+            nx, ny, x0, y0 = dense_slab("hetcor_dense_l1", args)
+            xs, ys = pcorr.hetcor1_hits(m, args[3][:, y0 : y0 + ny], x0, y0)
+            self._add(args[0].shape[1], 1, xs, ys, m[xs - x0, ys - y0])
+            return m
+
+        cupc.local_sweep, cupc.hetcor_local_sweep = local_sweep, hetcor_local_sweep
+        dk.dense_l1, dk.hetcor_dense_l1 = dense_l1, hetcor_dense_l1
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(cupc, n, fn)
+        for n, fn in self.saved_dense.items():
+            setattr(dk, n, fn)
+
+    def by_level(self) -> dict:
+        """{level: (pair keys ascending, their statistics)} on the host, of
+        the widest panel's launches (stage 1's)."""
+        out = {}
+        for l, parts in self.hits.get(max(self.hits, default=0), {}).items():
+            keys = torch.cat([k.cpu() for k, _ in parts]).numpy()
+            stat = torch.cat([v.cpu() for _, v in parts]).numpy()
+            order = np.argsort(keys, kind="stable")
+            out[l] = (keys[order], stat[order])
+        return out
+
+
+def same_hits(tag: str, got: dict, ref: dict, levels) -> dict:
+    """The hits of two routes at the given levels: the same pairs, their
+    statistics bitwise equal; returns the pairs per level."""
+    out = {}
+    assert len(ref.get(1, ((),))[0]) > 0, f"{tag}: the reference route recorded no level-1 hit"
+    for l in levels:
+        (kg, vg), (kr, vr) = got.get(l, (np.empty(0),) * 2), ref.get(l, (np.empty(0),) * 2)
+        assert np.array_equal(kg, kr), f"{tag} level {l}: {len(kg)} hit pairs against {len(kr)}"
+        same = vg.astype(np.float32).view(np.int32) == vr.astype(np.float32).view(np.int32)
+        if not same.all():
+            k = int(np.argmin(same))
+            raise AssertionError(f"{tag} level {l}: pair key {int(kg[k])} (x vp + y): "
+                                 f"statistic {float(vg[k])!r} against {float(vr[k])!r}")
+        out[l] = len(kg)
+    return out
+
+
+# the gate values that force each route (cupc's module attributes)
+BIG = 1 << 60
+ROUTES = {
+    "list": {"DEV_RESIDENT_MAX": 0, "L1_LOCAL_MAX_WIDTH": BIG},
+    "device_loop": {"DEV_RESIDENT_MAX": BIG, "L1_LOCAL_MAX_WIDTH": BIG},
+    "dense": {"DEV_RESIDENT_MAX": 0, "L1_LOCAL_MAX_WIDTH": 0, "L1_LOCAL_COST_RATIO": BIG,
+              "DENSE_L1_MAX": BIG},
+    "combinatorial": {"DEV_RESIDENT_MAX": 0, "LOCAL_LEVELS": (), "L1_LOCAL_MAX_WIDTH": 0,
+                      "L1_LOCAL_COST_RATIO": BIG, "DENSE_L1_MAX": 0},
+}
+# the stage-1 level routes each forced route must show
+ROUTE_OF = {"list": "local", "device_loop": "device_loop", "dense": "dense",
+            "combinatorial": "combinatorial"}
+
+
+@contextlib.contextmanager
+def gates(route: str):
+    saved = {k: getattr(cupc, k) for k in ROUTES[route]}
+    for k, v in ROUTES[route].items():
+        setattr(cupc, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(cupc, k, v)
+
+
+def assert_routes(tag: str, route: str, stage1: dict) -> None:
+    """Stage 1's levels 1-3 took the forced route (levels 2-3 of the dense
+    one the list route); level 1 ran."""
+    got = stage1.get("level_route", {})
+    assert 1 in got, f"{tag} {route}: level 1 did not run"
+    for l in (1, 2, 3):
+        want = "local" if route == "dense" and l > 1 else ROUTE_OF[route]
+        assert l not in got or got[l] == want, f"{tag} {route}: level {l} took {got[l]}"
+
+
+def route_run(tag: str, route: str, run, out: str, one: dict, parent: dict | None,
+              base: str, exts: tuple, rho_th: dict) -> tuple:
+    """run(out, stats) under the route's gates, the launch counts set to 0
+    just before it and read just after: the wall, per-level walls and routes
+    of both stages, launches, the card's peak memory; every file equal to
+    the default route's run in `one` (the .corr files too), the decision
+    files' sha256 equal to `parent` where given. Returns (its line, its
+    hits by level, its Recorder)."""
+    os.makedirs(out)
+    stats: dict = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with gates(route), Recorder() as rec, HitRecorder(rho_th) as hits:
+        reset_all_launches()
+        t1 = time.perf_counter()
+        run(out, stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = all_launches()
+    got = block_files(out)
+    differ = [f for f in one if got.get(f) != one[f]]
+    assert got.keys() == one.keys() and not differ, f"{tag} {route}: {differ} differ"
+    sha = file_hashes(os.path.join(out, base), exts)
+    if parent is not None:
+        assert sha == parent, f"{tag} {route}: decision files differ from the parent's"
+    s1, s2 = stats.get("stage1", {}), stats.get("stage2", {})
+    line = {"wall_s": wall, "level_wall_s": s1.get("level_wall_s", {}),
+            "level_route": s1.get("level_route", {}), **gate_inputs(s1),
+            "stage2_level_wall_s": s2.get("level_wall_s", {}),
+            "final_fetch_s": s1.get("final_fetch_s"), "launches": launches,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "files_equal_to_default": True, "sha256": sha,
+            "sha256_equal_to_parent": parent is not None and sha == parent}
+    return line, hits.by_level(), rec
+
+
+def gate_inputs(stage1: dict) -> dict:
+    """What the gates of a stage-1 run read: each level's widths (the
+    device loop's one width, or the list route's bucket widths) and, for a
+    list-route level 1, the bucketed sum(d_pad^2) slots that
+    `cupc._l1_route_local` weighs against vp^3."""
+    launches = stage1.get("launches", {})
+    out = {"widths": {l: sorted({d for d, _ in v}) for l, v in launches.items()}}
+    if 1 in launches and stage1.get("level_route", {}).get(1) == "local":
+        out["l1_slots"] = int(sum(n * d * d for d, n in launches[1]))
+    return out
+
+
+def routes_11k(tmp: str, rho_th: dict) -> tuple:
+    """The 11k block through cusk by the list route, the device-resident
+    loop and the dense level 1: every file equal to the default run's, the
+    decision files' sha256 equal to the parent's, the stage-1 hits of every
+    level 1-3 of the loop and of level 1 of the dense route bitwise equal
+    to the list route's. Returns (the lines, {route: its Recorder})."""
+    b11k = os.path.join(tmp, "b11k")
+    stem, blocks = os.path.join(b11k, "sim"), os.path.join(b11k, "sim.blocks")
+    one = block_files(os.path.join(tmp, "out11k"))
+
+    def run(out, stats):
+        cusk(stem + ".phen", stem, blocks, ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH, out, 0,
+             verbose=False, device="cuda", stats=stats)
+
+    t0 = time.perf_counter()
+    lines, hits, recs = {}, {}, {}
+    for route in ("list", "device_loop", "dense"):
+        lines[route], hits[route], recs[route] = route_run(
+            "11k", route, run, os.path.join(tmp, f"routes11k_{route}"), one,
+            PARENT_SHA256["cusk"], f"1_0_{M11K - 1}", CUSK_FILES, rho_th)
+    emit("routes_11k", t0, routes=lines)  # before the checks, so that a failure has its walls
+    for route in lines:
+        assert_routes("11k", route, lines[route])
+    emit("routes_11k_hits", t0, device_loop_equal_to_list=same_hits(
+        "11k device loop", hits["device_loop"], hits["list"], (1, 2, 3)),
+        dense_equal_to_list=same_hits("11k dense", hits["dense"], hits["list"], (1,)))
+    return lines, recs
+
+
+def routes_10k(tmp: str, ss_kw: dict) -> tuple:
+    """The 10k summary-statistic input through cuskss by the list route and
+    the dense level 1: files equal to the default run's, sha256 equal to the
+    parent's, level-1 hits (margins < 0) bitwise equal. Returns (the lines,
+    {route: its Recorder})."""
+    one = block_files(os.path.join(tmp, "out_ss"))
+
+    def run(out, stats):
+        cuskss(CuskssArgs.from_paths(outdir=out, **ss_kw), verbose=False, device="cuda",
+               stats=stats)
+
+    t0 = time.perf_counter()
+    lines, hits, recs = {}, {}, {}
+    for route in ("list", "dense"):
+        lines[route], hits[route], recs[route] = route_run(
+            "10k", route, run, os.path.join(tmp, f"routes10k_{route}"), one,
+            PARENT_SHA256["cuskss"], f"1_0_{MSS - 1}", CUSKSS_FILES, {})
+    emit("routes_10k", t0, routes=lines)
+    for route in lines:
+        assert_routes("10k", route, lines[route])
+    emit("routes_10k_hits", t0, dense_equal_to_list=same_hits(
+        "10k dense", hits["dense"], hits["list"], (1,)))
+    return lines, recs
+
+
+def routes_small(tmp: str) -> dict:
+    """The 1,500-marker block of `phase_small_reference` through every route
+    (list, device loop, dense level 1, combinatorial levels 1-3) on the card
+    and on the CPU, every launch on the card held bitwise to plain: every
+    file equal to that device's default run. Walls per route and device."""
+    stem, blocks = os.path.join(tmp, "small", "sim"), os.path.join(tmp, "small", "sim.blocks")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        one = block_files(os.path.join(tmp, f"small_{dev}"))
+        for route in ROUTES:
+            d = os.path.join(tmp, f"routes_small_{dev}_{route}")
+            os.makedirs(d)
+            stats: dict = {}
+            with gates(route), EveryLaunchChecked() as chk:
+                t1 = time.perf_counter()
+                cusk(stem + ".phen", stem, blocks, ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH, d, 0,
+                     verbose=False, device=dev, stats=stats)
+                sync(dev)
+                wall = time.perf_counter() - t1
+            got = block_files(d)
+            differ = [f for f in one if got.get(f) != one[f]]
+            assert got.keys() == one.keys() and not differ, (dev, route, differ)
+            assert_routes(f"small {dev}", route, stats["stage1"])
+            out[f"{dev}_{route}"] = {
+                "wall_s": wall, "level_wall_s": stats["stage1"].get("level_wall_s", {}),
+                "level_route": stats["stage1"].get("level_route", {}),
+                "launches_bit_identical": chk.checked, **gate_inputs(stats["stage1"])}
+            if dev == "cuda":  # the checks above slow the card's run: once more, unchecked
+                shutil.rmtree(d)
+                os.makedirs(d)
+                stats = {}
+                with gates(route):
+                    t1 = time.perf_counter()
+                    cusk(stem + ".phen", stem, blocks, ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH,
+                         d, 0, verbose=False, device=dev, stats=stats)
+                    sync(dev)
+                    out[f"{dev}_{route}"].update(
+                        unchecked_wall_s=time.perf_counter() - t1,
+                        unchecked_level_wall_s=stats["stage1"].get("level_wall_s", {}))
+                assert block_files(d) == got, (dev, route)
+    assert all(v["launches_bit_identical"] > 0 for k, v in out.items() if k.startswith("cuda"))
+    return out
+
+
+def routes_engines(tmp: str, ss_kw: dict) -> tuple:
+    """Both engines over MESH_D shards of the card with the list route
+    forced at level 1 (the mesh phase ran their default, the dense level
+    1), the 11k block and the 10k input: files equal to the one-device
+    run's, sha256 equal to the parent's, the bytes crossed between shards,
+    each shard's largest launch of each kernel bitwise equal to plain.
+    Returns (the lines, {run: launches})."""
+    b11k = os.path.join(tmp, "b11k")
+    lines, launches = {}, {}
+    with gates("list"):
+        for tag, run, one_dir, base, exts, parent in (
+                ("11k", mesh_cusk_runner(os.path.join(b11k, "sim"),
+                                         os.path.join(b11k, "sim.blocks")),
+                 os.path.join(tmp, "out11k"), f"1_0_{M11K - 1}", CUSK_FILES,
+                 PARENT_SHA256["cusk"]),
+                ("ss", mesh_cuskss_runner(ss_kw), os.path.join(tmp, "out_ss"),
+                 f"1_0_{MSS - 1}", CUSKSS_FILES, PARENT_SHA256["cuskss"])):
+            got, l_of = mesh_engine_runs(f"routes_{tag}", run, one_dir, base, exts, parent)
+            for mode in MESH_MODES:
+                name = "local_sweep_l1" if tag == "11k" else "hetcor_sweep_l1"
+                assert l_of[mode][name] > 0, (tag, mode, l_of[mode])
+                assert got[mode]["level_route"].get(1) == "local", (tag, mode, got[mode])
+                launches[f"{tag}_{mode}"] = l_of[mode]
+            lines[tag] = got
+    return lines, launches
+
+
+def spmd_inputs(tmp: str, B: int, m: int):
+    """B blocks of m consecutive markers of the 11k block's `.bed` as 2-bit
+    codes (B, m, N11K) and its traits (B, P11K, N11K), on the card."""
+    stem = os.path.join(tmp, "b11k", "sim")
+    raw = np.fromfile(stem + ".bed", dtype=np.uint8, offset=3).reshape(M11K, N11K // 4)
+    codes = corr_ops.unpack_bed_codes(torch.from_numpy(raw[: B * m]).cuda())
+    phen = torch.from_numpy(load_phen(stem + ".phen").data).cuda()
+    return (codes.reshape(B, m, N11K).to(torch.int32),
+            phen[None].expand(B, -1, -1).contiguous())
+
+
+def routes_spmd(tmp: str) -> dict:
+    """build_multichip_cusk_step over 2 blocks x 2,048 markers of the 11k
+    block x 16,384 individuals x 8 traits on a (block 2, marker 2, sample 2)
+    mesh of the card: G equal to the same step on a (1, 1, 1) mesh; then 2
+    blocks x 256 markers x 2,048 individuals, the (2, 2, 2) mesh of the card
+    against that of the CPU: equal."""
+    card = torch.device("cuda", 0)
+    th = threshold_array(N11K, ALPHA)
+    res = {}
+    codes, phen = spmd_inputs(tmp, 2, 2048)
+    Gs = {}
+    for shape in ((2, 2, 2), (1, 1, 1)):
+        mesh = make_mesh(math.prod(shape), *shape, devices=[card] * math.prod(shape))
+        step = build_multichip_cusk_step(mesh, float(th[0]), float(th[1]))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        Gs[shape] = step(codes, phen)
+        torch.cuda.synchronize()
+        res[f"wall_s_{'x'.join(map(str, shape))}"] = time.perf_counter() - t1
+    G8, G1 = Gs[(2, 2, 2)], Gs[(1, 1, 1)]
+    assert G8.shape == (2, 2056, 2056), G8.shape
+    flips = int((G8 != G1).sum())
+    assert flips == 0, f"{flips} adjacency entries differ between the (2,2,2) and (1,1,1) meshes"
+    res.update(edges=int(G8.sum()) // 2, equal_to_one_device=True)
+    th_small = threshold_array(2048, ALPHA)
+    small = (codes[:, :256, :2048].contiguous(), phen[:, :, :2048].contiguous())
+    Gd = {}
+    for dev in (card, torch.device("cpu")):
+        mesh = make_mesh(8, 2, 2, 2, devices=[dev] * 8)
+        step = build_multichip_cusk_step(mesh, float(th_small[0]), float(th_small[1]))
+        Gd[dev.type] = step(*(t.to(dev) for t in small)).cpu()
+    assert torch.equal(Gd["cuda"], Gd["cpu"]), "the small step differs between cuda and cpu"
+    res.update(small_edges=int(Gd["cpu"].sum()) // 2, small_cuda_equals_cpu=True)
+    return res
+
+
+def ring_slab(name: str, args: tuple) -> tuple:
+    """A one-card launch's x slab (against every y) cut to the second of
+    MESH_D stripes of its y columns: the slab pair a step of the
+    row-sharded ring launches."""
+    vp = args[0].shape[1]
+    L = vp // MESH_D
+    y = slice(L, 2 * L)
+    if name == "dense_l1":
+        return (*args[:4], args[4][:, y].contiguous(), args[5][:, y].contiguous(), args[6], L)
+    return (*args[:5], *(a[:, y].contiguous() for a in args[5:8]), args[8], args[9], L,
+            args[11])
+
+
+def phase_routes(tmp: str, ss_kw: dict, rho_th: dict, loops: dict, clock_hz: float,
+                 timed: dict) -> tuple:
+    """Every route of levels 1-3 driven at full width and held to the
+    default route (see routes_11k, routes_10k, routes_small, routes_engines,
+    routes_spmd); then the kernel line's entries of dense_l1 and
+    hetcor_dense_l1: their launches in the 11k / 10k runs by the dense
+    route, the largest launch of each held bitwise to plain and timed beside
+    its bounds, with the row-sharded engine's ring-sized launch beside it;
+    and the list route's largest local_sweep (levels 1-3) and
+    hetcor_local_sweep (level 1) launches at these inputs, where the
+    default routes no longer launch them. Returns (the dense entries, the
+    list route's entries by name)."""
+    lines_11k, recs_11k = routes_11k(tmp, rho_th)
+    lines_10k, recs_10k = routes_10k(tmp, ss_kw)
+    t0 = time.perf_counter()
+    emit("routes_small", t0, runs=routes_small(tmp))
+    t0 = time.perf_counter()
+    emit("routes_engines", t0, shards=MESH_D, engines=routes_engines(tmp, ss_kw)[0])
+    t0 = time.perf_counter()
+    emit("routes_spmd", t0, **routes_spmd(tmp))
+
+    t0 = time.perf_counter()
+    kernels = []
+    for name, rec, run in (("dense_l1", recs_11k["dense"], lines_11k["dense"]),
+                           ("hetcor_dense_l1", recs_10k["dense"], lines_10k["dense"])):
+        args = rec.largest[(name,)][1]
+        main = dense_timed(f"{name} largest", name, args, loops, clock_hz)
+        more = {"plan": main["plan"], "issue_ms": main["issue_ms"],
+                "instructions_per_test": main["instructions_per_test"],
+                "synthetic_256_rows": timed[name],
+                "ring_slab": dense_timed(f"{name} ring", name, ring_slab(name, args),
+                                         loops, clock_hz)}
+        kernels.append(kernel_entry(
+            name, dk, name, run["launches"][name], main["max_abs_err"], main["ms"],
+            main["plain_ms"], main, None,
+            {k: main[k] for k in ("x_rows", "y_rows", "x0", "y0", "panel", "live_s")}, **more))
+    emit("largest_launch_dense", t0, kernels=kernels)
+
+    t0 = time.perf_counter()
+    listed = sweep_entries("11k list route", recs_11k["list"], lines_11k["list"]["launches"],
+                           rho_th, loops, clock_hz)
+    listed += hetcor_entries("10k list route", recs_10k["list"], lines_10k["list"]["launches"],
+                             (1,), loops, clock_hz, [])
+    emit("largest_launch_list_route", t0, kernels=listed)
+    return kernels, {k["name"]: k for k in listed}
 
 
 def profile_run(tag: str, run, unprofiled_wall_s: float, cpu: bool = True) -> dict:
@@ -2809,6 +3586,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the build and the kernel checks (prints no result line)")
+    ap.add_argument("--routes-only", action="store_true",
+                    help="after the kernel checks run only what the routes phase needs and "
+                         "the routes phase (prints no result line)")
     opts = ap.parse_args()
     t0 = time.perf_counter()
     require_cuda()
@@ -2818,7 +3598,7 @@ def main() -> int:
          device_count=torch.cuda.device_count(), nvidia_smi=smi)
 
     t0 = time.perf_counter()
-    names = ("local_sweep", "panel_gather", "hetcor_sweep")
+    names = ("local_sweep", "panel_gather", "hetcor_sweep", "dense_l1")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, together
         libs = list(pool.map(build.build, names))
     for name, lib in zip(names, libs):
@@ -2826,9 +3606,11 @@ def main() -> int:
         emit("build", t0, source=name, library=lib.name, ptxas=ptxas_summary(log))
     t0 = time.perf_counter()
     loops = inner_loops(dict(zip(names, libs)))
+    dloops = dense_loops(libs[names.index("dense_l1")])
     clock_hz = sm_clock_hz()
     emit("inner_loops", t0, sm_clock_mhz=clock_hz / 1e6,
-         loops={f"{k}_l{l}": v for (k, l), v in loops.items()})
+         loops={**{f"{k}_l{l}": v for (k, l), v in loops.items()}, **dloops})
+    loops.update(dloops)
 
     th = threshold_array(N11K, ALPHA)
     rho_th = {l: float(np.float32(np.tanh(float(th[l])))) for l in (1, 2, 3)}
@@ -2836,13 +3618,14 @@ def main() -> int:
     phase_kernels(rho_th, panels)
     phase_gather_kernel(panels)
     bucket = phase_hetcor_kernel(panels)
+    timed_dense = phase_dense_kernel(panels, loops, clock_hz)
     if opts.kernels_only:
         return 1
     del panels
     torch.cuda.empty_cache()
 
     expected = [f"local_sweep_l{l}" for l in (1, 2, 3)] + ["panel_gather"] + [
-        f"hetcor_sweep_l{l}" for l in (1, 2, 3)] + ["panel_gather2"]
+        f"hetcor_sweep_l{l}" for l in (1, 2, 3)] + ["panel_gather2"] + list(DENSE)
     tmp = tempfile.mkdtemp(prefix="cigwas_chip_smoke_")
     try:
         phase_small_reference(tmp)
@@ -2850,6 +3633,10 @@ def main() -> int:
         phase_small_cuskss(tmp)
         kernels_ss, cuskss_again, wall_ss, ss_kw = phase_cuskss(tmp, loops, clock_hz,
                                                                bucket)
+        if opts.routes_only:
+            del capture
+            phase_routes(tmp, ss_kw, rho_th, loops, clock_hz, timed_dense)
+            return 1
         kernels += kernels_ss
         # device time of all launches of each sweep level on its slice, from
         # the profiled second run, whose launches must repeat the first's
@@ -2896,6 +3683,18 @@ def main() -> int:
         shutil.rmtree(os.path.join(tmp, "chr50k"))
         for k in kernels:  # the pMax phases' launches of the same entries
             k.update(of_pmax.get(k["name"], {}), **of_sim.get(k["name"], {}))
+        # the forced routes of levels 1-3 last of all, so that every phase
+        # above runs in the process state it always ran in
+        dense, listed = phase_routes(tmp, ss_kw, rho_th, loops, clock_hz, timed_dense)
+        for k in dense:  # the engines' default level 1 in the mesh phase
+            k.update(of_mesh[k["name"]])
+        keep = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "shape",
+                "issue_ms")
+        for k in kernels:  # where the default routes no longer make the list route's launches
+            if k["name"] in listed:
+                k["list_route_largest"] = {key: v for key, v in listed[k["name"]].items()
+                                           if key in keep}
+        kernels += dense
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     bad = sorted(k for k in sys.modules

@@ -13,7 +13,8 @@ easy to find:
 - :mod:`cigwas_tpu_torch.blocking`  — LD blocking of a chromosome
 - :mod:`cigwas_tpu_torch.pipelines` — ``make_blocks``, the per-block ``cusk`` and the
   summary-statistic ``cuskss`` pipelines
-- :mod:`cigwas_tpu_torch.parallel`  — the multi-block runner
+- :mod:`cigwas_tpu_torch.parallel`  — the multi-block runner, the device mesh, the engines,
+  the multi-device step
 - :mod:`cigwas_tpu_torch.merge`     — merge of block outputs, sepselect, v-structures, IV checks
 - :mod:`cigwas_tpu_torch.pag`       — sRFCI (the trait PAG) and sDAVS causal effects
 - :mod:`cigwas_tpu_torch.mr`        — MVIVW and the MR competitors
@@ -28,7 +29,8 @@ the host-side modules above are its own copies. Nor does it import pandas or
 matplotlib; the plot helpers import matplotlib when they are called.
 """
 
+from cigwas_tpu_torch.constants import ML
 from cigwas_tpu_torch.device import require_cuda
 
 __version__ = "0.1.0"
-__all__ = ["require_cuda", "__version__"]
+__all__ = ["ML", "require_cuda", "__version__"]

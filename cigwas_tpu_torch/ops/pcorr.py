@@ -13,8 +13,17 @@ skeleton's |rho| tests and the hetcor skeleton's margin tests
 * :func:`hetcor_local_sweep_plain` — the hetcor levels 1-3, the plain
   version of ``csrc/hetcor_sweep.cu`` in the same way
   (:func:`cigwas_tpu_torch.ops.kernels.hetcor_sweep.hetcor_local_sweep`);
-* :func:`level_scan_minrho`, :func:`level_scan_hetcor` — levels >= 4 over
-  colex chunks of conditioning sets, with one-hot selection matmuls like the
+* :func:`level1_dense_minrho`, :func:`level1_dense_screen`,
+  :func:`hetcor1_dense_margin` — level 1 of
+  either skeleton as a dense sweep of x-row slabs against every y, each
+  slab one launch of ``csrc/dense_l1.cu``
+  (:mod:`cigwas_tpu_torch.ops.kernels.dense_l1`, whose plain versions run
+  for CPU tensors); the same tests and ties as the level-1 local sweeps.
+  Each folds the launches of :func:`dense1_sweeps` (the engines' launches
+  go through the same :func:`dense1_slab_sweeps`) with
+  :func:`dense1_gather` or :func:`dense1_screen`;
+* :func:`level_scan_minrho`, :func:`level_scan_hetcor` — any level over
+  colex chunks of conditioning sets (the combinatorial route), with one-hot selection matmuls like the
   JAX package, so a NaN in a local panel sends a test to ``RHO_BIG`` the
   same way. Each is the gather of the local panels
   (:mod:`cigwas_tpu_torch.ops.kernels.panel_gather`: the kernel
@@ -30,8 +39,10 @@ this file agree bit for bit. Neither is bit-identical to JAX, whose CPU
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from cigwas_tpu_torch.ops.kernels import dense_l1 as dk
 from cigwas_tpu_torch.ops.kernels.panel_gather import (
     gather_local_panels,
     gather_local_panels2,
@@ -232,6 +243,155 @@ def local_sweep_plain(C, node_ixs, nbrs, deg, l: int):
     return torch.cat(rhos), torch.cat(poss)
 
 
+def _inv_unrolled(M: list, l: int) -> list:
+    """Closed-form inverse of an unrolled l x l matrix (l <= 3) whose
+    entries are same-shaped tensors (`cigwas_tpu.ops.pcorr._inv_unrolled`,
+    the same operations in the same order)."""
+    if l == 1:
+        return [[1.0 / M[0][0]]]
+    if l == 2:
+        a, b = M[0]
+        c, d = M[1]
+        det = a * d - b * c
+        return [[d / det, -b / det], [-c / det, a / det]]
+    (m00, m01, m02), (m10, m11, m12), (m20, m21, m22) = M
+    c00 = m11 * m22 - m12 * m21
+    c01 = m02 * m21 - m01 * m22
+    c02 = m01 * m12 - m02 * m11
+    c10 = m12 * m20 - m10 * m22
+    c11 = m00 * m22 - m02 * m20
+    c12 = m02 * m10 - m00 * m12
+    c20 = m10 * m21 - m11 * m20
+    c21 = m01 * m20 - m00 * m21
+    c22 = m00 * m11 - m01 * m10
+    det = m00 * c00 + m10 * c01 + m20 * c02
+    return [[c00 / det, c01 / det, c02 / det],
+            [c10 / det, c11 / det, c12 / det],
+            [c20 / det, c21 / det, c22 / det]]
+
+
+def as_bool_adjacency(G, device) -> torch.Tensor:
+    """A host or device adjacency as a bool tensor on device."""
+    if isinstance(G, torch.Tensor):
+        return G.to(device=device, dtype=torch.bool)
+    return torch.from_numpy(np.ascontiguousarray(G, dtype=bool)).to(device)
+
+
+def dense1_hits(rho, s, G_rows, x0: int, y0: int, rho_th: float) -> tuple:
+    """The ordered pairs one dense launch condemns from x's side, rho <
+    rho_th on an edge, as device tensors (xs, ys, s_sel, rho_sel) in row-major
+    order; G_rows is the launch's block of the adjacency."""
+    xi, yj = torch.nonzero((rho < rho_th) & G_rows, as_tuple=True)
+    return xi + x0, yj + y0, s[xi, yj], rho[xi, yj]
+
+
+def hetcor1_hits(margin, G_rows, x0: int, y0: int) -> tuple:
+    """(xs, ys) of the pairs one hetcor dense launch condemns: margin < 0
+    on an edge."""
+    xi, yj = torch.nonzero((margin < 0) & G_rows, as_tuple=True)
+    return xi + x0, yj + y0
+
+
+def fetch_hits(hits: list) -> tuple:
+    """The launches' hits (a non-empty list of equal-length tuples of
+    tensors, on any devices) concatenated in launch order, on the host."""
+    return tuple(torch.cat([h[k].cpu() for h in hits]).numpy() for k in range(len(hits[0])))
+
+
+def dense1_slab_sweeps(C_x, R_x, P_x, G_x, ys: tuple, x0: int, y0: int, N_x=None,
+                       t_ix=None, th: float = 0.0, rows: int = dk.ROWS, on_launch=None):
+    """The dense level-1 launches of a block of x rows against a y slab,
+    ``rows`` x rows a launch: C_x, R_x, P_x, G_x (and N_x for hetcor) are rows
+    x0, x0 + 1, ... of C, R, P, the bool adjacency (and N); ys the y slab's
+    column blocks (R[:, y0:y0+ny], P[:, y0:y0+ny] and, for hetcor, those
+    columns of N transposed). One card, the replicated engine's shards and
+    the row-sharded ring's steps all launch through here. Calls on_launch()
+    before each launch and yields (the launch's x0, y0, its adjacency rows,
+    its output: (rho, s), or the margin when N_x is given)."""
+    for a in range(0, C_x.shape[0], rows):
+        b = min(a + rows, C_x.shape[0])
+        if on_launch is not None:
+            on_launch()
+        if N_x is None:
+            out = dk.dense_l1(C_x[a:b], R_x[a:b], P_x[a:b], G_x[a:b], *ys, x0 + a, y0)
+        else:
+            out = dk.hetcor_dense_l1(C_x[a:b], R_x[a:b], P_x[a:b], G_x[a:b], N_x[a:b], *ys,
+                                     t_ix, x0 + a, y0, th)
+        yield x0 + a, y0, G_x[a:b], out
+
+
+def dense1_sweeps(C: torch.Tensor, G, N: torch.Tensor | None = None, t_ix=None,
+                  th: float = 0.0, rows: int = dk.ROWS):
+    """One card's dense level-1 launches: every x-row slab of the panel
+    against every y (see :func:`dense1_slab_sweeps`). C (and N) (vp, vp), G
+    (vp, vp) bool, numpy or tensor."""
+    Gd = as_bool_adjacency(G, C.device)
+    R, P = dk.factors(C)
+    ys = (R, P) if N is None else (R, P, N.T.contiguous())
+    return dense1_slab_sweeps(C, R, P, Gd, ys, 0, 0, N, t_ix, th, rows)
+
+
+def dense1_gather(sweeps, vp: int, device) -> tuple | torch.Tensor:
+    """The outputs of dense launches (:func:`dense1_sweeps` or an engine's
+    ``dense1_sweeps``) assembled into (vp, vp) tensors on device:
+    (rho_min, s_argmin), or the margin."""
+    full = None
+    for x0, y0, _, out in sweeps:
+        parts = out if isinstance(out, tuple) else (out,)
+        if full is None:
+            full = [torch.empty((vp, vp), dtype=o.dtype, device=device) for o in parts]
+        for f, o in zip(full, parts):
+            f[x0 : x0 + o.shape[0], y0 : y0 + o.shape[1]] = o.to(device)
+    return tuple(full) if len(full) > 1 else full[0]
+
+
+def dense1_screen(sweeps, vp: int, rho_th: float | None = None):
+    """The pairs that dense launches condemn from x's side, only the hits
+    leaving the device. Level 1 (rho_th = tanh(Th[1])): (side (vp, vp) bool,
+    xs, ys, s_sel, rho_sel) on the host, the arrays in launch and row-major
+    order. Hetcor (rho_th None, the launches' margins): side alone."""
+    hits = []
+    for x0, y0, g, out in sweeps:
+        ny = (out[0] if rho_th is not None else out).shape[1]
+        g = g[:, y0 : y0 + ny]
+        hits.append(hetcor1_hits(out, g, x0, y0) if rho_th is None
+                    else dense1_hits(*out, g, x0, y0, rho_th))
+    got = fetch_hits(hits)
+    side = np.zeros((vp, vp), dtype=bool)
+    side[got[0], got[1]] = True
+    return side if rho_th is None else (side, *got)
+
+
+def level1_dense_minrho(C: torch.Tensor, G, rows: int = dk.ROWS):
+    """Level 1 of the skeleton as dense launches over x-row slabs
+    (`cigwas_tpu.ops.pcorr.level1_dense_minrho`): rho_min[x, y] the min over
+    the neighbours s of x (s != x, y) of |rho_{xy|s}|, s_argmin the smallest
+    such s; (2.0, 0) where none is valid. C (vp, vp) and G (vp, vp) bool
+    (numpy or tensor); returns two (vp, vp) tensors on C's device."""
+    return dense1_gather(dense1_sweeps(C, G, rows=rows), C.shape[0], C.device)
+
+
+def level1_dense_screen(C: torch.Tensor, G, rho_th: float, rows: int = dk.ROWS):
+    """The level-1 screen of :func:`level1_dense_minrho` with only the hits
+    leaving the device (`cigwas_tpu.ops.pcorr.level1_dense_screen`): returns
+    (side (vp, vp) bool, xs, ys, s_sel, rho_sel) on the host, side[x, y]
+    meaning "x's sweep condemned (x, y)", the arrays listing those pairs in
+    row-major order with their minimizing s and |rho|."""
+    return dense1_screen(dense1_sweeps(C, G, rows=rows), C.shape[0], rho_th)
+
+
+def hetcor1_dense_margin(C: torch.Tensor, N: torch.Tensor, t_ix: torch.Tensor, G,
+                         th: float, rows: int = dk.ROWS) -> torch.Tensor:
+    """Hetcor level 1 as dense launches over x-row slabs
+    (`cigwas_tpu.ops.pcorr.hetcor1_dense_margin`): margin[x, y] the min over
+    the neighbours s of x (s != x, y, t_s <= max(t_x, t_y)) of |rho_{xy|s}|
+    - tanh(th / sqrt(mean_ess({x, y, s}) - 4)); MARGIN_BIG where none is
+    valid. C, N (vp, vp), t_ix (vp,) int32, G (vp, vp) bool; returns (vp, vp)
+    on C's device. The caller removes an edge where the margin of either
+    side is negative."""
+    return dense1_gather(dense1_sweeps(C, G, N, t_ix, th, rows), C.shape[0], C.device)
+
+
 def _combo_onehots(combos: torch.Tensor, d: int, l: int):
     """One-hot selection matrices for each combo position, l x (K, d)."""
     slot = torch.arange(d, device=combos.device)[None, :]
@@ -241,20 +401,21 @@ def _combo_onehots(combos: torch.Tensor, d: int, l: int):
 def _pcorr_rho_local(C_x, c_row, deg, left, sel, combos, l: int):
     """Level-l |rho| of a node tile from local panels, (nt, K, d).
 
-    Batched `cigwas_tpu.ops.pcorr._pcorr_rho_local` (l >= 4 there uses a
-    batched LU inverse; so does this). Rows of the conditioning sets are
+    Batched `cigwas_tpu.ops.pcorr._pcorr_rho_local`: the closed-form
+    inverse for l <= 3 (the combinatorial route of levels 1-3), a batched LU
+    inverse for l >= 4, as there. Rows of the conditioning sets are
     selected with one-hot matmuls, so a NaN anywhere in a selected row
     smears through 0 * NaN and sends the test to RHO_BIG, as in JAX."""
     K, d = sel[0].shape
     rows = [torch.matmul(sel[i], C_x) for i in range(l)]  # l x (nt, K, d)
     Cx = [torch.sum(sel[i] * c_row[:, None, :], dim=2) for i in range(l)]  # (nt, K)
-    M2d = torch.stack(
-        [torch.stack([torch.sum(rows[i] * sel[j], dim=2) for j in range(l)], -1)
-         for i in range(l)],
-        -2,
-    )  # (nt, K, l, l)
-    M2inv_d = torch.linalg.inv_ex(M2d)[0]  # singular -> inf/NaN -> RHO_BIG
-    M2inv = [[M2inv_d[..., i, j] for j in range(l)] for i in range(l)]
+    M2 = [[torch.sum(rows[i] * sel[j], dim=2) for j in range(l)] for i in range(l)]
+    if l <= 3:
+        M2inv = _inv_unrolled(M2, l)
+    else:
+        M2d = torch.stack([torch.stack(M2[i], -1) for i in range(l)], -2)  # (nt, K, l, l)
+        M2inv_d = torch.linalg.inv_ex(M2d)[0]  # singular -> inf/NaN -> RHO_BIG
+        M2inv = [[M2inv_d[..., i, j] for j in range(l)] for i in range(l)]
     t = [sum(M2inv[i][j] * Cx[j] for j in range(l)) for i in range(l)]
     H00 = 1.0 - sum(Cx[i] * t[i] for i in range(l))  # (nt, K)
     H01 = c_row[:, None, :] - sum(rows[i] * t[i][..., None] for i in range(l))

@@ -26,8 +26,15 @@ kernels on its part of the work:
   same); a part whose U is wider than a stripe holds is split into several
   launches. No device of the row-sharded engine holds a (vp, vp) tensor.
 
-Level 1 is the list route of the one-device skeleton, not the JAX package's
-dense x-row-slab sweep (both decide the same).
+Level 1 takes the route the one-device skeleton takes (the same gate,
+:func:`cigwas_tpu_torch.skeleton.cupc._level_route`). Its dense route
+(``csrc/dense_l1.cu``) runs here as the JAX package's engines run it: the
+replicated engine's shard k sweeps its x-row slab of the panel against
+every y of its copy; the row-sharded engine's shard k sweeps its stripe's x
+rows against each stripe's y columns in turn: the column block of R = 1 /
+sqrt(|1 - C^2|) and P = C R gathered from every stripe's rows, N's rows of
+that stripe transposed, both copied to shard k. Every (x, y) is swept over
+all s in one launch, so no minimum depends on the order of the ring.
 
 Every engine keeps a record of what it did (``engine.record``): each tensor
 it placed (what, shard, device, shape), the bytes copied from one shard's
@@ -64,6 +71,8 @@ from cigwas_tpu_torch.ops.decode import (
     geno_onehot,
     unpack_bed_codes,
 )
+from cigwas_tpu_torch.ops import pcorr
+from cigwas_tpu_torch.ops.kernels import dense_l1 as dk
 from cigwas_tpu_torch.ops.kernels.checks import check_index_range
 from cigwas_tpu_torch.parallel.mesh import Mesh, flat_mesh, visible_devices
 
@@ -254,6 +263,47 @@ class ShardedEngine:
         lists = tuple(self._copy(torch.from_numpy(np.ascontiguousarray(a)), None, k)
                       for a in (nodes, nbrs, deg))
         return tuple(P.parts[k] for P in panels), lists, tuple(v[dev] for v in vectors)
+
+    # --- the dense level 1 ----------------------------------------------------
+
+    def _g_rows(self, G: np.ndarray, k: int, a: int, b: int) -> torch.Tensor:
+        """Rows [a, b) of the host adjacency on shard k's device."""
+        return self._copy(torch.from_numpy(np.ascontiguousarray(G[a:b], dtype=bool)), None, k)
+
+    def dense1_sweeps(self, C: ShardedPanel, G: np.ndarray, N: ShardedPanel | None = None,
+                      t_ix: dict | None = None, th: float = 0.0):
+        """Every launch of a dense level 1 (`cigwas_tpu.parallel.sharded.
+        make_level1_sharded` / `make_hetcor1_sharded`): shard k sweeps its
+        x-row slab split_even(vp, D)[k] against every y of its copy of the
+        panel (:func:`cigwas_tpu_torch.ops.pcorr.dense1_slab_sweeps`; t_ix
+        the engine's replicated time index for hetcor). Fold them with
+        ``pcorr.dense1_gather`` or ``pcorr.dense1_screen``."""
+        factors = {}
+        entry = "dense_l1" if N is None else "hetcor_dense_l1"
+        for k, (a, b) in enumerate(split_even(C.vp, self.ndev)):
+            if b == a:
+                continue
+            Ck = C.parts[k]
+            if id(Ck) not in factors:  # one per distinct device, N transposed with them
+                R, P = dk.factors(Ck)
+                factors[id(Ck)] = (R, P) if N is None else (R, P, N.parts[k].T.contiguous())
+            ys = factors[id(Ck)]
+            yield from pcorr.dense1_slab_sweeps(
+                Ck[a:b], ys[0][a:b], ys[1][a:b], self._g_rows(G, k, a, b), ys, a, 0,
+                None if N is None else N.parts[k][a:b],
+                None if N is None else t_ix[self.devices[k]], th,
+                on_launch=lambda k=k: self.call(k, entry))
+
+    def level1_dense_minrho(self, C: ShardedPanel, G: np.ndarray):
+        """`pcorr.level1_dense_minrho` over the shards: (rho_min, s_argmin),
+        (vp, vp) on the host."""
+        return tuple(t.numpy() for t in pcorr.dense1_gather(self.dense1_sweeps(C, G), C.vp,
+                                                            "cpu"))
+
+    def hetcor1_dense_margin(self, C: ShardedPanel, N: ShardedPanel, t_ix: dict,
+                             G: np.ndarray, th: float) -> np.ndarray:
+        """`pcorr.hetcor1_dense_margin` over the shards, (vp, vp) on the host."""
+        return pcorr.dense1_gather(self.dense1_sweeps(C, G, N, t_ix, th), C.vp, "cpu").numpy()
 
     # --- the correlation panel ------------------------------------------------
 
@@ -492,6 +542,37 @@ class RowShardedEngine(ShardedEngine):
             piece = P.parts[src].index_select(0, torch.from_numpy(rows).to(sdev))
             out[lo:hi] = self._copy(piece.index_select(1, cols[sdev]), src, k)
         return self._placed("compact", k, out)
+
+    def dense1_sweeps(self, C: ShardedPanel, G: np.ndarray, N: ShardedPanel | None = None,
+                      t_ix: dict | None = None, th: float = 0.0):
+        """Row-sharded (`cigwas_tpu.parallel.sharded._dense1_ring_body` /
+        `_hetcor1_ring_body`): shard k sweeps the x rows of its stripe
+        against the y columns of stripe k, k + 1, ... (mod D) in turn: the
+        column block of R and P over those y gathered from every stripe's
+        rows (each stripe's (L, L) piece copied from its shard), and stripe
+        src's rows of N transposed. Every (x, y) meets all its s in one
+        launch."""
+        L = C.vp // self.ndev
+        factors = [dk.factors(part) for part in C.parts]  # elementwise: each stripe's rows
+        entry = "dense_l1" if N is None else "hetcor_dense_l1"
+
+        def column_block(i: int, src: int, k: int) -> torch.Tensor:
+            cols = slice(src * L, (src + 1) * L)
+            return torch.cat([self._copy(factors[o][i][:, cols], o, k)
+                              for o in range(self.ndev)])
+
+        for k in range(self.ndev):
+            Gk = self._g_rows(G, k, k * L, (k + 1) * L)
+            for step in range(self.ndev):
+                src = (k + step) % self.ndev
+                ys = [column_block(0, src, k), column_block(1, src, k)]
+                if N is not None:
+                    ys.append(self._copy(N.parts[src].T.contiguous(), src, k))
+                yield from pcorr.dense1_slab_sweeps(
+                    C.parts[k], *factors[k], Gk, ys, k * L, src * L,
+                    None if N is None else N.parts[k],
+                    None if N is None else t_ix[self.devices[k]], th,
+                    on_launch=lambda k=k: self.call(k, entry))
 
     def local(self, panels: tuple, k: int, nodes: np.ndarray, nbrs: np.ndarray,
               deg: np.ndarray, vectors: tuple = (), kernel: str = "") -> tuple:

@@ -225,6 +225,8 @@ class CuskContext:
                     f"last_ix: {b.last_marker_ix}"
                 )
         self.Th = threshold_array(self.dims.num_samples, alpha)
+        # kept across blocks: the GB-sized sepset buffers (`skeleton(scratch=)`)
+        self.scratch: dict = {}
 
     def prepare(self, block_index: int) -> dict:
         """Host I/O plus the pre-screen sums on the device (no fetch)."""
@@ -315,6 +317,7 @@ class CuskContext:
         res1 = skeleton(
             C, self.Th, self.max_level, device=self.device, n_var=v_panel,
             verbose=self.verbose, stats=stats["stage1"], want_pmax=False, engine=engine,
+            scratch=self.scratch,
         )
         t = time.perf_counter()
         keep = subset_variables(res1.G, num_var, num_markers, self.depth)
@@ -332,7 +335,7 @@ class CuskContext:
         res2 = skeleton(
             gcs.C, self.Th, self.max_level_two, device=self.device,
             verbose=self.verbose, stats=stats["stage2"], want_pmax=False,
-            engine=engine.for_stage2() if engine is not None else None,
+            engine=engine.for_stage2() if engine is not None else None, scratch=self.scratch,
         )
         keep2 = subset_variables(res2.G, gcs.num_var, gcs.num_markers(), self.depth)
         gcs2 = reduce_gcs(

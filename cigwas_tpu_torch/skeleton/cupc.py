@@ -3,25 +3,40 @@
 summary statistics (correlations plus per-pair effective sample sizes).
 
 * level 0 is the Fisher-z screen of the whole panel, on the device;
-* levels 1-3 run per degree bucket through the local-sweep kernel
-  (:func:`cigwas_tpu_torch.ops.kernels.local_sweep.local_sweep`; its plain
-  version on CPU tensors): one launch covers every node of a bucket and
-  returns, per neighbour slot, the min |rho| over all conditioning sets and
-  its positions; only the hits ``rho < tanh(Th[l])`` and their positions
-  leave the device;
-* levels >= 4 gather each node tile's local panels with the gather kernel
+* levels 1-3, the list route: per degree bucket through the
+  local-sweep kernel (:func:`cigwas_tpu_torch.ops.kernels.local_sweep.
+  local_sweep`; its plain version on CPU tensors): one launch covers every
+  node of a bucket and returns, per neighbour slot, the min |rho| over all
+  conditioning sets and its positions; only the hits ``rho < tanh(Th[l])``
+  and their positions leave the device;
+* levels 1-3, the device-resident loop (panels up to ``DEV_RESIDENT_MAX``
+  whose level-0 width is at most 152, no engine; checked first): the
+  adjacency stays on the device, each level compacts the neighbour lists
+  there and makes one local-sweep launch over all nodes at the level's
+  width;
+* level 1, the dense route (where :func:`_l1_route_local` finds level 1
+  hub-heavy, up to ``DENSE_L1_MAX``): x-row slabs against every y through
+  the dense kernel (:mod:`cigwas_tpu_torch.ops.kernels.dense_l1`);
+* the combinatorial route (every level >= 4; levels 2-3 left out of
+  ``LOCAL_LEVELS``; level 1 above ``DENSE_L1_MAX`` when the gate says
+  dense): gather each node tile's local panels with the gather kernel
   (:mod:`cigwas_tpu_torch.ops.kernels.panel_gather`) and stream colex chunks
   of conditioning sets through
   :func:`cigwas_tpu_torch.ops.pcorr.level_scan_minrho_pre`, in the JAX
   package's waves, so a node stops at the same point and its sepset is the
   same.
 
+Every route decides what the others decide (the same tests, the lowest
+colex rank among tied minima); the module attributes above choose among
+them, as in the JAX package, from the port's own measurements.
+
 The hetcor skeleton has the same levels with per-test thresholds
 tanh(th / sqrt(mean_ess - l - 3)) and a time constraint on the conditioning
 sets: levels 1-3 through
-:func:`cigwas_tpu_torch.ops.kernels.hetcor_sweep.hetcor_local_sweep`, levels
->= 4 through the two-panel gather and
-:func:`cigwas_tpu_torch.ops.pcorr.level_scan_hetcor_pre`. It keeps no sepsets.
+:func:`cigwas_tpu_torch.ops.kernels.hetcor_sweep.hetcor_local_sweep`, level
+1 also by the dense route, the combinatorial route through the two-panel
+gather and :func:`cigwas_tpu_torch.ops.pcorr.level_scan_hetcor_pre`. It keeps
+no sepsets and has no device-resident loop.
 
 Deletions apply between levels (PC-stable). The separation set of a deleted
 ordered pair (x, y) is the argmin-|rho| set from x's side, the lowest colex
@@ -50,12 +65,44 @@ from cigwas_tpu_torch.ops.kernels.panel_gather import (
 from cigwas_tpu_torch.utils.combinatorics import colex_combinations_chunk, colex_unrank
 from cigwas_tpu_torch.utils.stats import fisher_z
 
-# combos per chunk of the level >= 4 scan
+# combos per chunk of the combinatorial scan
 CHUNK = 512
 # max chunks per scan launch
 MAX_CHUNKS_PER_LAUNCH = 256
 # cap on (nodes x combos x neighbours x l) elements live per scan call
 ELEM_BUDGET = 1 << 26
+
+# Route gates (`cigwas_tpu.skeleton.cupc`'s names; tests and chip_smoke.py
+# monkeypatch them). Every route decides the same. The values are the port's
+# own, not the JAX package's TPU values: a route is the default where its
+# walls beat the other routes' by more than the ~15% the walls move between
+# calls, from chip_smoke.py's `routes` phase on one NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md §6).
+# levels 2-3 that run on the local sweep; the others take the combinatorial
+# route (on the 1,500-marker block the combinatorial levels 1-3 took 0.321 s
+# against the list route's 0.067 s)
+LOCAL_LEVELS = (2, 3)
+# largest panel whose level 1 may take the dense route: the largest measured
+DENSE_L1_MAX = 12288
+# largest panel whose levels 1-3 run in the device-resident loop, before
+# the level-1 gate below: the loop beat both other routes at every size
+# measured, the 1,500-marker block (vp 1,536; levels 1-3 0.007 s against
+# 0.036 s on the list route) and the 11k block (vp 12,288; block 1.62 s
+# against 3.65 s on the list route and 3.09 s with the dense level 1)
+DEV_RESIDENT_MAX = 12288
+# widest padded level-0 max degree the loop takes: the widest measured (the
+# 11k block's 152; the JAX package's TPU value is 128)
+_DEV_RESIDENT_WIDTH = 152
+# level 1 takes the list route whenever the padded max degree is at most this
+L1_LOCAL_MAX_WIDTH = 128
+# above it, the list route's sum(d_pad^2) slots times this ratio against the
+# dense route's vp^3 decide. The dense level 1 beat the list route's level 1
+# at every panel measured wider than L1_LOCAL_MAX_WIDTH: the 10k input (vp
+# 10,112; 0.410 against 0.700 s, sending it dense needs 6,331), the 11k block
+# (vp 12,288; 0.346 against 0.707 s, 11,502) and the engines' 11k block (vp
+# 11,008; 0.288 against 0.650 s, 8,270): the smallest round ratio that sends
+# them all dense
+L1_LOCAL_COST_RATIO = 12000
 
 
 @dataclass
@@ -70,6 +117,55 @@ class SkeletonResult:
 
 def _next_pow2(v: int) -> int:
     return 1 << max(0, (v - 1).bit_length())
+
+
+def _pad8(d: int) -> int:
+    return max(8, -(-int(d) // 8) * 8)
+
+
+def _l1_route_local(deg: np.ndarray, vp: int) -> bool:
+    """True when level 1 should take the list route
+    (`cigwas_tpu.skeleton.cupc._l1_route_local`): always while the padded
+    max degree is at most L1_LOCAL_MAX_WIDTH; above it, when the degree
+    buckets' sum(d_pad^2) slots, charged L1_LOCAL_COST_RATIO each, cost less
+    than the dense route's vp^3."""
+    dmax = int(deg.max()) if deg.size else 0
+    if _pad8(dmax) <= L1_LOCAL_MAX_WIDTH:
+        return True
+    active = deg >= 2
+    if not active.any():
+        return True
+    d_pad = np.maximum(8, ((deg[active].astype(np.int64) + 7) // 8) * 8)
+    return int((d_pad * d_pad).sum()) * L1_LOCAL_COST_RATIO < vp**3
+
+
+def _level_route(l: int, deg: np.ndarray, vp: int) -> str:
+    """The route of host-loop level l: ``local`` (the local-sweep kernels
+    over degree buckets), ``dense`` (level 1's dense sweep) or
+    ``combinatorial`` (the colex scan), chosen as the JAX package chooses."""
+    if l == 1:
+        if _l1_route_local(deg, vp):
+            return "local"
+        if vp <= DENSE_L1_MAX:
+            return "dense"
+    return "local" if l <= 3 and l in LOCAL_LEVELS else "combinatorial"
+
+
+def _sepset_buffer(n: int, depth: int, scratch: dict | None) -> np.ndarray:
+    """An (n, n, depth) int32 sepset filled with -1: fresh, or the buffer
+    kept in scratch under ("sepset", n, depth), which the result then
+    aliases (a run over many blocks allocates it once per size; one buffer
+    per depth is kept, so blocks of many sizes do not pile buffers up)."""
+    if scratch is None:
+        return np.full((n, n, depth), -1, dtype=np.int32)
+    key = ("sepset", n, depth)
+    buf = scratch.get(key)
+    if buf is None:
+        for old in [k for k in scratch if k[0] == "sepset" and k[2] == depth]:
+            del scratch[old]
+        buf = scratch[key] = np.empty((n, n, depth), dtype=np.int32)
+    buf.fill(-1)
+    return buf
 
 
 def _compact_neighbors(G: np.ndarray, nodes: np.ndarray, d_max: int):
@@ -152,10 +248,15 @@ def _part_args(engine, panels: tuple, k, nodes, nbrs, deg, on_dev, vectors: tupl
     return engine.local(panels, k, nodes, nbrs, deg, vectors, kernel)
 
 
+def _hit_mask(stat: torch.Tensor, cut: float, deg_t: torch.Tensor) -> torch.Tensor:
+    """The live slots whose statistic is below cut, on the device."""
+    slot_ok = torch.arange(stat.shape[1], device=stat.device)[None, :] < deg_t[:, None]
+    return (stat < cut) & slot_ok
+
+
 def _hits(stat: torch.Tensor, cut: float, deg_t: torch.Tensor):
     """(row, slot) of the live slots whose statistic is below cut, on the device."""
-    slot_ok = torch.arange(stat.shape[1], device=stat.device)[None, :] < deg_t[:, None]
-    return torch.nonzero((stat < cut) & slot_ok, as_tuple=True)
+    return torch.nonzero(_hit_mask(stat, cut, deg_t), as_tuple=True)
 
 
 def _fisher_z_inplace(c: np.ndarray) -> None:
@@ -245,10 +346,104 @@ def _run_level_local_hetcor(C, N, t_ix, G: np.ndarray, l: int, th: float,
     return cond | cond.T
 
 
+def _run_level_dense1(C, G: np.ndarray, rho_threshold: float, engine=None):
+    """Level 1 by the dense route (`cigwas_tpu.skeleton.cupc.
+    _run_level_dense1` / `_run_level_dense1_engine`): one dense launch per
+    x-row slab (per slab of each shard with an engine), only the hits
+    fetched. Returns (removed, xs, ys, sep (k, 1), rho_sel) as
+    :func:`_run_level_local` returns them."""
+    sweeps = (pcorr.dense1_sweeps if engine is None else engine.dense1_sweeps)(C, G)
+    _, xs, ys, s_sel, rho_sel = pcorr.dense1_screen(sweeps, G.shape[0], rho_threshold)
+    removed = np.zeros(G.shape, dtype=bool)
+    removed[xs, ys] = True
+    removed[ys, xs] = True
+    return removed, xs, ys, s_sel.astype(np.int32)[:, None], rho_sel
+
+
+def _level_local_dev_step(C: torch.Tensor, Gd: torch.Tensor, rho_th: float, l: int,
+                          d_pad: int, want_rho: bool):
+    """One level l <= 3 of the device-resident loop
+    (`cigwas_tpu.skeleton.cupc._level_local_dev_step`): the neighbour lists
+    compacted on the device (an ascending sort of where(G, iota, n) along
+    rows, the first d_pad kept, pad slots set to 0), one local-sweep launch
+    over every node at the level's width d_pad, and G updated on the device
+    by the hits alone (a node below degree l + 1 has no test, a pad slot is
+    no hit). Returns (G_new, its degrees, side (n, d_pad) bool, the lists,
+    the hits' positions (k, l) in row-major order, their rho or None)."""
+    n = Gd.shape[0]
+    dev = Gd.device
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    keys = torch.where(Gd, iota[None, :], torch.full((), n, dtype=torch.int32, device=dev))
+    nbrs = torch.sort(keys, dim=1).values[:, :d_pad]
+    del keys
+    nbrs = torch.where(nbrs >= n, 0, nbrs).contiguous()
+    deg = Gd.sum(dim=1, dtype=torch.int32)
+    # the lists are in range by construction: each entry is a column index
+    # below n or the pad 0, and no degree exceeds d_pad (the level's max)
+    rho, pos = local_sweep(C, iota, nbrs, deg, l, index_range_checked=True)
+    side = _hit_mask(rho, rho_th, deg)
+    xs, slots = torch.nonzero(side, as_tuple=True)
+    hit = torch.zeros((n, n), dtype=torch.bool, device=dev)
+    hit[xs, nbrs[xs, slots].long()] = True  # only the hits: pad slots share index 0
+    Gd = Gd & ~(hit | hit.T)
+    return (Gd, Gd.sum(dim=1, dtype=torch.int32), side, nbrs, pos[side],
+            rho[side] if want_rho else None)
+
+
+def _run_levels_local_dev(C: torch.Tensor, Gd: torch.Tensor, deg0: np.ndarray,
+                          th: np.ndarray, lmax: int, sepset: np.ndarray,
+                          pmax: np.ndarray | None, verbose: bool, stats: dict | None):
+    """Levels 1..lmax (<= 3) with the adjacency on the device
+    (`cigwas_tpu.skeleton.cupc._run_levels_local_dev`): per level one
+    launch, then the new degrees, the side mask, the lists and the hits'
+    positions (and rho for pMax) are fetched and the sepsets folded on the
+    host. Returns (G on the host, final level, stopped: whether the graph
+    ran out of tests before lmax)."""
+    n = Gd.shape[0]
+    deg = deg0
+    final_level = 0
+    for l in range(1, lmax + 1):
+        nprime = int(deg.max()) if n else 0
+        if nprime - 1 < l:
+            return _final_fetch(Gd, stats), l - 1, True
+        if verbose:
+            print(f"[skeleton] level {l}: max degree {nprime} (device loop)")
+        t_level = time.perf_counter()
+        d_pad = _pad8(nprime)
+        rho_th = float(np.float32(np.tanh(float(th[l]))))
+        Gd, deg_d, side_d, nbrs_d, pos_d, rho_d = _level_local_dev_step(
+            C, Gd, rho_th, l, d_pad, pmax is not None)
+        deg = deg_d.cpu().numpy()
+        side = side_d.cpu().numpy()
+        nbrs = nbrs_d.cpu().numpy()
+        pos = pos_d.cpu().numpy()
+        xs, slots = np.nonzero(side)
+        ys = nbrs[xs, slots]
+        sepset[xs, ys, l:] = -1
+        sepset[xs, ys, :l] = nbrs[xs[:, None], pos]  # positions -> variable indices
+        if pmax is not None:
+            pmax[xs, ys] = fisher_z(rho_d.cpu().numpy())
+        if stats is not None:
+            stats.setdefault("level_wall_s", {})[l] = time.perf_counter() - t_level
+            stats.setdefault("launches", {})[l] = [(d_pad, n)]
+            stats.setdefault("level_route", {})[l] = "device_loop"
+        final_level = l
+    return _final_fetch(Gd, stats), final_level, False
+
+
+def _final_fetch(Gd: torch.Tensor, stats: dict | None) -> np.ndarray:
+    t_mark = time.perf_counter()
+    G = Gd.cpu().numpy()
+    if stats is not None:
+        stats["final_fetch_s"] = time.perf_counter() - t_mark
+    return G
+
+
 def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
-               hetcor_args=None, engine=None):
-    """All level-l tests (l >= 4) over colex chunks; returns (removed,
-    rho_min_full, rank_full) like `cigwas_tpu.skeleton.cupc._run_level`.
+               hetcor_args=None, engine=None, chunk: int = CHUNK):
+    """All level-l tests (any l >= 1) over colex chunks of conditioning
+    sets, the combinatorial route; returns (removed, rho_min_full,
+    rank_full) like `cigwas_tpu.skeleton.cupc._run_level`.
 
     rho_threshold is tanh(Th[l]) for the plain skeleton. For hetcor it is
     None and hetcor_args = (N, t_ix, th): the scan returns margins, removal
@@ -259,7 +454,7 @@ def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
     With an engine each tile is split into the shards' parts (the tile is
     ndev times longer), every part launched before any result is fetched.
 
-    Waves: every bucket scans its next CHUNK * n_chunks combos, then nodes
+    Waves: every bucket scans its next chunk * n_chunks combos, then nodes
     whose combos are exhausted or whose edges are all condemned stop. The
     wave sizes follow the JAX package exactly and come from the whole
     bucket, because where a node stops decides which later sets it never
@@ -291,16 +486,16 @@ def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
         next_work = []
         for d_pad, remaining, offset in work:
             nodes = np.array(remaining, dtype=np.int32)
-            node_tile = max(1, min(len(nodes), ELEM_BUDGET // (CHUNK * d_pad * l)))
+            node_tile = max(1, min(len(nodes), ELEM_BUDGET // (chunk * d_pad * l)))
             if engine is not None:
                 node_tile = min(len(nodes), node_tile * engine.ndev)
             max_left = max(total_combos[x] - offset for x in remaining)
             n_chunks = _next_pow2(
-                min(MAX_CHUNKS_PER_LAUNCH, max(1, -(-min(max_left, 1 << 30) // CHUNK)))
+                min(MAX_CHUNKS_PER_LAUNCH, max(1, -(-min(max_left, 1 << 30) // chunk)))
             )
             combos = torch.from_numpy(
-                colex_combinations_chunk(offset, CHUNK * n_chunks, l)
-                .reshape(n_chunks, CHUNK, l).astype(np.int64)
+                colex_combinations_chunk(offset, chunk * n_chunks, l)
+                .reshape(n_chunks, chunk, l).astype(np.int64)
             )
             combos_of = ({dev: combos.to(dev)} if engine is None
                          else engine.replicate(combos))
@@ -308,11 +503,11 @@ def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
                 tile = nodes[s0 : s0 + node_tile]
                 nbrs, deg = _compact_neighbors(G, tile, d_pad)
                 totals = np.array(
-                    [min(total_combos[int(x)] - offset, CHUNK * n_chunks) for x in tile],
+                    [min(total_combos[int(x)] - offset, chunk * n_chunks) for x in tile],
                     dtype=np.int64,
                 )
-                bases = CHUNK * np.arange(n_chunks, dtype=np.int64)[:, None]
-                left = np.clip(totals[None, :] - bases, 0, CHUNK)
+                bases = chunk * np.arange(n_chunks, dtype=np.int64)[:, None]
+                left = np.clip(totals[None, :] - bases, 0, chunk)
                 on_dev = None if engine is not None else _upload_lists(tile, nbrs, deg, n, dev)
                 launched = []
                 for k, sl in _shard_parts(engine, C, tile, nbrs):
@@ -349,7 +544,7 @@ def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
                 stat_full[x_idx[better], y_idx[better]] = vals[better]
                 if rank_c is not None:
                     rank_full[x_idx[better], y_idx[better]] = rank_c[valid][better]
-            next_work.append((d_pad, remaining, offset + CHUNK * n_chunks))
+            next_work.append((d_pad, remaining, offset + chunk * n_chunks))
         cond = (stat_full < cut) & G
         live_edge = G & ~(cond | cond.T)
         work = []
@@ -367,18 +562,20 @@ def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
 def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
              n_var: int | None = None, verbose: bool = False,
              stats: dict | None = None, want_pmax: bool = True,
-             engine=None) -> SkeletonResult:
+             engine=None, chunk: int = CHUNK, scratch: dict | None = None) -> SkeletonResult:
     """PC-stable skeleton over a dense correlation panel (`Skeleton`,
     `cuPC-S.cu:61-450`; level 0 overwrites the adjacency from C).
 
     C: a numpy panel (padded here, see :func:`panel_from_numpy`) or a device
     tensor; n_var marks a tensor that is already padded with inert
     variables (the `ops.corr` panels). stats, if given, collects
-    ``l0_wall_s``, ``sepset_alloc_s``, ``level_wall_s`` {level: s}, the
-    per-bucket ``launches`` {level: [(d_pad, nodes)]} and, for levels 1-3,
-    ``level_detail`` {level: {compact_s, sweep_s}} (host compaction and
-    upload; kernel launches up to the fetch of their hits); with want_pmax
-    also ``c_fetch_wall_s`` (the panel's fetch for level 0's pMax) and
+    ``l0_wall_s``, ``sepset_alloc_s``, ``level_wall_s`` {level: s},
+    ``level_route`` {level: local, dense, combinatorial or device_loop}, the
+    per-bucket ``launches`` {level: [(d_pad, nodes)]} and, for levels 1-3 of
+    the list route, ``level_detail`` {level: {compact_s, sweep_s}} (host
+    compaction and upload; kernel launches up to the fetch of their hits);
+    after the device-resident loop ``final_fetch_s``; with want_pmax also
+    ``c_fetch_wall_s`` (the panel's fetch for level 0's pMax) and
     ``pmax_wall_s`` (level 0's pMax and the final pass, on the host).
 
     want_pmax (the JAX package's default) also returns pMax
@@ -396,10 +593,16 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
     the engine's own panel, with n_var); the results are the one-device
     path's, bit for bit, and ``device`` is not used.
 
-    Not ported: the JAX package's alternative level-1-3 routes, which all
-    decide the same.
+    chunk: conditioning sets per chunk of the combinatorial route. scratch:
+    a dict kept across calls (``CuskContext.scratch``): the sepset buffer
+    is reused from it, and the result's sepset then aliases it, so consume
+    the result before the next call with the same scratch.
+
+    The routes of levels 1-3 (the module attributes LOCAL_LEVELS,
+    DENSE_L1_MAX, DEV_RESIDENT_MAX, L1_LOCAL_MAX_WIDTH, L1_LOCAL_COST_RATIO
+    choose them, see the module docstring) all decide the same.
     """
-    require_full_f32()  # the level >= 4 one-hot selections must be exact
+    require_full_f32()  # the combinatorial route's one-hot selections must be exact
     th = np.asarray(thresholds, dtype=np.float32)
     if engine is not None:
         v_real = n_var if n_var is not None else C.shape[0]
@@ -408,7 +611,7 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
         G = engine.screen((C,), lambda c: pcorr.level0_keep(c, float(th[0])))
         np.fill_diagonal(G, False)
         return _skeleton_levels(C, G, th, max_level, v_real, verbose, stats, want_pmax,
-                                t_mark, engine)
+                                t_mark, engine, chunk=chunk, scratch=scratch)
     device = resolve(device)
     if isinstance(C, torch.Tensor):
         v_real = n_var if n_var is not None else C.shape[0]
@@ -420,21 +623,25 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
         v_real = n_var if n_var is not None else np.asarray(C).shape[0]
         C = panel_from_numpy(C, v_real, device)
     t_mark = time.perf_counter()
-    G = pcorr.level0_screen(C, float(th[0])).cpu().numpy()
-    return _skeleton_levels(C, G, th, max_level, v_real, verbose, stats, want_pmax, t_mark)
+    G0_dev = pcorr.level0_screen(C, float(th[0]))
+    G = G0_dev.cpu().numpy()
+    return _skeleton_levels(C, G, th, max_level, v_real, verbose, stats, want_pmax, t_mark,
+                            G0_dev=G0_dev, chunk=chunk, scratch=scratch)
 
 
 def _skeleton_levels(C, G: np.ndarray, th: np.ndarray, max_level: int, v_real: int,
                      verbose: bool, stats: dict | None, want_pmax: bool, t_mark: float,
-                     engine=None) -> SkeletonResult:
-    """:func:`skeleton` from its level-0 adjacency G on: the sepsets, pMax
-    and levels 1 up; t_mark is when level 0 began."""
+                     engine=None, G0_dev: torch.Tensor | None = None, chunk: int = CHUNK,
+                     scratch: dict | None = None) -> SkeletonResult:
+    """:func:`skeleton` from its level-0 adjacency G (and, without an engine,
+    the same adjacency on the device, G0_dev) on: the sepsets, pMax and
+    levels 1 up; t_mark is when level 0 began."""
     n = G.shape[0]
     if stats is not None:
         stats["l0_wall_s"] = time.perf_counter() - t_mark
     t_mark = time.perf_counter()
-    sep_depth = max(1, min(ML, max_level))
-    sepset = np.full((n, n, sep_depth), -1, dtype=np.int32)
+    lmax = min(ML, max_level)
+    sepset = _sepset_buffer(n, max(1, lmax), scratch)
     if stats is not None:
         stats["sepset_alloc_s"] = time.perf_counter() - t_mark
 
@@ -455,9 +662,19 @@ def _skeleton_levels(C, G: np.ndarray, th: np.ndarray, max_level: int, v_real: i
         np.fill_diagonal(pmax, 0.0)
         pmax_s += time.perf_counter() - t_mark
 
-    final_level = 0
-    for l in range(1, min(ML, max_level) + 1):
-        nprime = int(G.sum(axis=1).max()) if n else 0
+    final_level, start_l = 0, 1
+    deg0 = G.sum(axis=1)
+    # the loop before the level-1 gate (the JAX package checks the gate
+    # first, to dispatch a dense level 1 early; on the card the loop won)
+    if (G0_dev is not None and LOCAL_LEVELS == (2, 3) and lmax >= 1 and n
+            and _pad8(deg0.max()) <= _DEV_RESIDENT_WIDTH and n <= DEV_RESIDENT_MAX):
+        G, final_level, stopped = _run_levels_local_dev(
+            C, G0_dev, deg0, th, min(lmax, 3), sepset, pmax, verbose, stats)
+        start_l = lmax + 1 if stopped else final_level + 1
+    del G0_dev
+    for l in range(start_l, lmax + 1):
+        deg = G.sum(axis=1)
+        nprime = int(deg.max()) if n else 0
         if nprime - 1 < l:
             final_level = l - 1
             break
@@ -466,15 +683,19 @@ def _skeleton_levels(C, G: np.ndarray, th: np.ndarray, max_level: int, v_real: i
         t_level = time.perf_counter()
         # f32-rounded threshold, compared in f32 on the device
         rho_th = float(np.float32(np.tanh(float(th[l]))))
-        if l <= 3:  # the local-sweep kernel
-            removed, xs, ys, sep, rho_sel = _run_level_local(
-                C, G, l, rho_th, stats, want_rho=want_pmax, engine=engine)
+        route = _level_route(l, deg, n)
+        if route != "combinatorial":
+            if route == "local":
+                removed, xs, ys, sep, rho_sel = _run_level_local(
+                    C, G, l, rho_th, stats, want_rho=want_pmax, engine=engine)
+            else:
+                removed, xs, ys, sep, rho_sel = _run_level_dense1(C, G, rho_th, engine)
             sepset[xs, ys, l:] = -1
             sepset[xs, ys, :l] = sep
             if pmax is not None:
                 pmax[xs, ys] = fisher_z(rho_sel)
         else:
-            removed, rho_min, rank = _run_level(C, G, l, rho_th, engine=engine)
+            removed, rho_min, rank = _run_level(C, G, l, rho_th, engine=engine, chunk=chunk)
             if rho_min is not None:
                 xs, ys = np.nonzero((rho_min < rho_th) & G)
                 if pmax is not None:
@@ -489,6 +710,7 @@ def _skeleton_levels(C, G: np.ndarray, th: np.ndarray, max_level: int, v_real: i
         G = G & ~removed
         if stats is not None:
             stats.setdefault("level_wall_s", {})[l] = time.perf_counter() - t_level
+            stats.setdefault("level_route", {})[l] = route
         final_level = l
 
     if pmax is not None:  # both sides' max; the kept edges' sentinel; 1 on the diagonal
@@ -517,7 +739,8 @@ def _as_panel(M, device) -> torch.Tensor:
 def hetcor_skeleton(C, G: np.ndarray, N, threshold: float, max_level: int,
                     time_index: np.ndarray | None = None, device="cuda",
                     verbose: bool = False, ess_mode: str = "reference",
-                    stats: dict | None = None, engine=None) -> SkeletonResult:
+                    stats: dict | None = None, engine=None,
+                    chunk: int = CHUNK) -> SkeletonResult:
     """Skeleton with per-pair effective sample sizes and time constraints
     (`cigwas_tpu.skeleton.cupc.hetcor_skeleton`; `hetcor-cuPC-S.cu:75-341`):
     honours the incoming adjacency (level 0 only deletes), uses per-test
@@ -532,9 +755,13 @@ def hetcor_skeleton(C, G: np.ndarray, N, threshold: float, max_level: int,
     reference's int conversion); ``"float"`` keeps full precision and leaves
     NaN pairs out of the mean. Level 0 always reads the raw per-pair N.
 
-    stats, if given, collects ``l0_wall_s``, ``level_wall_s`` {level: s}, the
-    per-bucket ``launches`` {level: [(d_pad, nodes)]} and ``level_detail`` of
-    levels 1-3.
+    stats, if given, collects ``l0_wall_s``, ``level_wall_s`` {level: s},
+    ``level_route`` {level: local, dense or combinatorial}, the per-bucket
+    ``launches`` {level: [(d_pad, nodes)]} and ``level_detail`` of levels
+    1-3 on the list route. Level 1 takes the list, dense or combinatorial
+    route as :func:`skeleton`'s does (:func:`_level_route`), levels 2-3 the
+    list route unless LOCAL_LEVELS leaves them out; all decide the same.
+    chunk: conditioning sets per chunk of the combinatorial route.
 
     engine: a :class:`cigwas_tpu_torch.parallel.sharded.ShardedEngine` (or
     ``RowShardedEngine``) places C and N as it keeps panels (padded to its
@@ -589,17 +816,25 @@ def hetcor_skeleton(C, G: np.ndarray, N, threshold: float, max_level: int,
         if verbose:
             print(f"[hetcor_skeleton] level {l}: max degree {nprime}")
         t_level = time.perf_counter()
-        if l <= 3:  # the hetcor sweep kernel
+        route = _level_route(l, G.sum(axis=1), n)
+        if route == "local":  # the hetcor sweep kernel
             removed = _run_level_local_hetcor(
                 C, N_lvl, t_ix, G, l, float(threshold), stats, engine=engine
             )
+        elif route == "dense":
+            sweeps = (pcorr.dense1_sweeps if engine is None else engine.dense1_sweeps)(
+                C, G, N_lvl, t_ix, float(threshold))
+            cond = pcorr.dense1_screen(sweeps, n)
+            removed = cond | cond.T
         else:
             removed, _, _ = _run_level(
-                C, G, l, None, hetcor_args=(N_lvl, t_ix, float(threshold)), engine=engine
+                C, G, l, None, hetcor_args=(N_lvl, t_ix, float(threshold)), engine=engine,
+                chunk=chunk,
             )
         G = G & ~removed
         if stats is not None:
             stats.setdefault("level_wall_s", {})[l] = time.perf_counter() - t_level
+            stats.setdefault("level_route", {})[l] = route
 
     return SkeletonResult(
         G=G[:v_real, :v_real].astype(np.int32), sepset=None, final_level=final_level

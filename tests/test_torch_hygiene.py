@@ -113,7 +113,8 @@ _IMPORT_ALL = textwrap.dedent(
                 "merge.mr_assumptions", "pag.rfci", "pag.davs", "pag.simulations",
                 "mr.mvivw", "mr.cause", "mr.competitors", "io.tables", "phen_prep", "sim",
                 "analysis", "vis", "skeleton.second_stage", "parallel.mesh",
-                "parallel.sharded", "parallel.distributed"):
+                "parallel.sharded", "parallel.distributed", "parallel.spmd",
+                "ops.kernels.dense_l1"):
         assert "cigwas_tpu_torch." + new in names, new
     from cigwas_tpu_torch.cli import build_parser
     build_parser().parse_args(["sepselect", "stem", "1e-4", "10"])

@@ -12,11 +12,14 @@ the plan must be launchable on sm_90 (threads a multiple of 32 and at most
 1024, shared memory within the 232,448-byte opt-in limit and at least what
 the route's layout needs), cover every slot y < d, and change route exactly
 at the stated widths. ``panel_gather.plan(d, panels)`` is held to the
-launcher of ``csrc/panel_gather.cu`` likewise, for every width 1..13000.
+launcher of ``csrc/panel_gather.cu`` likewise, for every width 1..13000, and
+``dense_l1.plan(entry, nx, ny)`` to the launcher of ``csrc/dense_l1.cu`` for
+the slabs of the skeleton's sweeps and of the engines' rings.
 """
 
 import pytest
 
+from cigwas_tpu_torch.ops.kernels import dense_l1 as dk
 from cigwas_tpu_torch.ops.kernels import hetcor_sweep as hs
 from cigwas_tpu_torch.ops.kernels import local_sweep as ls
 from cigwas_tpu_torch.ops.kernels import panel_gather as pg
@@ -193,3 +196,42 @@ def test_gather_plan_refuses_what_the_kernel_does_not_serve():
     for d, panels in ((0, 1), (-4, 2), (8, 0), (8, 3)):
         with pytest.raises(ValueError):
             pg.plan(d, panels)
+
+
+# --- dense_l1 -----------------------------------------------------------------
+
+
+def _check_dense(entry: str, nx: int, ny: int) -> None:
+    """What `launch` of csrc/dense_l1.cu refuses or needs: the compiled
+    block shape, a grid that covers every (x, y) once, grid.y within its
+    limit, no shared memory."""
+    p = dk.plan(entry, nx, ny)
+    where = f"dense_l1 {entry} {nx} x {ny}: {p}"
+    assert p["threads"] == 32 * dk.TX and p["rows_per_cta"] == dk.TX, where
+    assert p["cols_per_cta"] == 32 * dk.YPL[entry], where
+    gx, gy = p["grid"]
+    assert (gx - 1) * p["cols_per_cta"] < ny <= gx * p["cols_per_cta"], where
+    assert (gy - 1) * p["rows_per_cta"] < nx <= gy * p["rows_per_cta"], where
+    assert 1 <= gy <= dk.GRID_Y_MAX and gx <= 2**31 - 1, where
+    assert p["smem_bytes"] == 0, where
+
+
+@pytest.mark.parametrize("entry", ["dense_l1", "hetcor_dense_l1"])
+def test_dense_plan_is_launchable_for_the_main_paths_slabs(entry):
+    """One card's slabs (ROWS x-rows, the last one ragged, against every y of
+    panels up to 16,384 and beyond) and the ring's (a stripe of vp / D rows)."""
+    for vp in (128, 1536, 10112, 11008, 16384, 65536):
+        for nx in sorted({1, 7, dk.ROWS - 1, dk.ROWS, vp % dk.ROWS or dk.ROWS}):
+            _check_dense(entry, nx, vp)
+            for D in (2, 3, 4, 8):
+                _check_dense(entry, nx, -(-vp // D))
+    _check_dense(entry, dk.GRID_Y_MAX * dk.TX, 128)
+
+
+@pytest.mark.parametrize("entry", ["dense_l1", "hetcor_dense_l1"])
+def test_dense_plan_refuses_what_the_kernel_does_not_serve(entry):
+    for nx, ny in ((0, 8), (8, 0), (-1, 4)):
+        with pytest.raises(ValueError):
+            dk.plan(entry, nx, ny)
+    with pytest.raises(ValueError):
+        dk.plan("dense", 8, 8)

@@ -1,7 +1,7 @@
 """The port's block partitions, partition workers, process group and device
 meshes (`cigwas_tpu_torch.parallel`) against the JAX package's, on the CPU:
 the counterparts of the non-`spmd` tests of tests/test_parallel.py (the
-`spmd` step is not ported).
+`spmd` step's are in tests/test_torch_spmd.py).
 
 Merged outputs of partitioned runs are compared byte for byte with the
 one-partition run; the partition assignment and the mesh rules with the JAX

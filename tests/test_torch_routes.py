@@ -1,0 +1,416 @@
+"""The routes of levels 1-3 of the port's skeletons (`skeleton/cupc.py`) on
+the CPU: the list route, the device-resident loop (one card's default up
+to its size and width, checked before the level-1 gate), the dense level 1
+and the combinatorial route, each forced by the module attributes
+the JAX package's tests patch (tests/test_skeleton.py, tests/
+test_hetcor_property.py). Under each route the port's skeleton is held to
+the JAX skeleton under the same route and to the port's default: adjacency
+and sepsets identical, pMax within the JAX package's tolerance between its
+own routes (bitwise between the port's list, loop and dense routes, which
+share their arithmetic). Also the
+gate itself, `skeleton(chunk=, scratch=)` and `CuskContext.scratch`.
+"""
+
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import ar1_panel, set_threads
+
+from cigwas_tpu.utils.stats import hetcor_threshold, threshold_array
+
+set_threads()
+
+BIG = 1 << 60
+# the gate values that force each route, in both packages (the JAX
+# package's default for these small panels is its device-resident loop)
+PORT_ROUTES = {
+    "list": {},
+    "device_loop": {"DEV_RESIDENT_MAX": BIG},
+    "dense": {"L1_LOCAL_MAX_WIDTH": 0, "L1_LOCAL_COST_RATIO": BIG},
+    "combinatorial": {"LOCAL_LEVELS": (), "L1_LOCAL_MAX_WIDTH": 0, "L1_LOCAL_COST_RATIO": BIG,
+                      "DENSE_L1_MAX": 0},
+}
+JAX_ROUTES = {**PORT_ROUTES, "list": {"DEV_RESIDENT_MAX": 0}}
+WANT = {"list": "local", "device_loop": "device_loop", "dense": "dense",
+        "combinatorial": "combinatorial"}
+
+
+@contextlib.contextmanager
+def _gates(module, values: dict):
+    saved = {k: getattr(module, k) for k in values}
+    for k, v in values.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def _port(route: str):
+    from cigwas_tpu_torch.skeleton import cupc
+
+    base = {"DEV_RESIDENT_MAX": 0, "L1_LOCAL_MAX_WIDTH": 128, "L1_LOCAL_COST_RATIO": 0}
+    return _gates(cupc, {**base, **PORT_ROUTES[route]})
+
+
+def _jax(route: str):
+    from cigwas_tpu.skeleton import cupc
+
+    return _gates(cupc, JAX_ROUTES[route])
+
+
+def _factor_panel(seed: int, v: int = 40, n: int = 20000):
+    """The panel of tests/test_skeleton.py's level 2-3 route test: each
+    variable a sum of up to three earlier ones, so levels 2-4 remove edges."""
+    rng = np.random.default_rng(seed)
+    X = np.zeros((v, n))
+    X[0] = rng.normal(size=n)
+    for i in range(1, v):
+        ps = rng.choice(i, size=min(i, 3), replace=False)
+        X[i] = sum(0.4 * X[p] for p in ps) + rng.normal(size=n)
+    return np.corrcoef(X).astype(np.float32), n
+
+
+def _panels():
+    C1, n1 = _factor_panel(0)
+    C2, n2 = _factor_panel(2)
+    return {
+        "factor0": (C1, threshold_array(n1, 0.01), 4),
+        "factor2": (C2, threshold_array(n2, 0.01), 4),
+        "ar1": (ar1_panel(5, 96, 900, 96), threshold_array(900, 1e-2), 3),
+    }
+
+
+PANELS = _panels()
+
+
+def _assert_same(a, b, pmax_exact: bool) -> None:
+    assert a.final_level == b.final_level
+    np.testing.assert_array_equal(a.G, b.G)
+    np.testing.assert_array_equal(a.sepset, b.sepset)
+    if pmax_exact:
+        assert np.array_equal(a.pmax.view(np.int32), b.pmax.view(np.int32))
+    else:  # the combinatorial route's inverse: tests/test_skeleton.py:355's tolerance
+        np.testing.assert_allclose(a.pmax, b.pmax, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("panel", sorted(PANELS))
+@pytest.mark.parametrize("route", sorted(PORT_ROUTES))
+def test_skeleton_route_matches_jax_and_the_default(route, panel):
+    from cigwas_tpu.skeleton import cupc as jc
+    from cigwas_tpu_torch.skeleton import cupc
+
+    C, th, lmax = PANELS[panel]
+    stats = {}
+    with _port(route):
+        got = cupc.skeleton(C, th, lmax, device="cpu", stats=stats)
+    assert stats["level_route"][1] == WANT[route]
+    for l in (2, 3):
+        if l in stats["level_route"]:
+            assert stats["level_route"][l] == ("local" if route == "dense" else WANT[route])
+    with _jax(route):
+        ref = jc.skeleton(C, th, lmax)
+    np.testing.assert_array_equal(got.G, ref.G)
+    np.testing.assert_array_equal(got.sepset, ref.sepset)
+    # the JAX package's own tolerance between its routes' pMax
+    # (tests/test_skeleton.py:355): near-zero rho at level 4 amplifies the
+    # last-bit differences of the two packages' float32 operations
+    np.testing.assert_allclose(got.pmax, ref.pmax, rtol=1e-3, atol=1e-5)
+    assert got.final_level == ref.final_level
+    with _port("list"):
+        default = cupc.skeleton(C, th, lmax, device="cpu")
+    _assert_same(got, default, pmax_exact=route != "combinatorial")
+
+
+def test_device_loop_runs_levels_1_to_3_and_hands_over_to_the_host_loop():
+    """The loop serves levels 1-3, then the host loop's combinatorial level 4
+    starts from the loop's adjacency; the loop's width is the level's max
+    degree, one launch a level."""
+    from cigwas_tpu_torch.skeleton import cupc
+
+    C, th, _ = PANELS["factor0"]
+    stats = {}
+    with _port("device_loop"):
+        got = cupc.skeleton(C, th, 6, device="cpu", stats=stats)
+    routes = stats["level_route"]
+    assert [routes[l] for l in (1, 2, 3)] == ["device_loop"] * 3
+    assert all(routes[l] == "combinatorial" for l in routes if l > 3)
+    assert all(len(stats["launches"][l]) == 1 for l in (1, 2, 3))
+    assert "final_fetch_s" in stats
+    with _port("list"):
+        default = cupc.skeleton(C, th, 6, device="cpu")
+    _assert_same(got, default, pmax_exact=True)
+
+
+def test_device_loop_stops_when_the_graph_runs_out_of_tests():
+    """A graph whose max degree falls below l + 1 stops the loop at l - 1,
+    and the host loop runs no level after it, as in the JAX package."""
+    from cigwas_tpu.skeleton import cupc as jc
+    from cigwas_tpu_torch.skeleton import cupc
+
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(12, 3000))
+    X[1] += X[0]
+    X[2] += X[1]
+    C = np.corrcoef(X).astype(np.float32)
+    th = threshold_array(3000, 1e-3)
+    with _port("device_loop"):
+        got = cupc.skeleton(C, th, 14, device="cpu")
+    with _jax("device_loop"):
+        ref = jc.skeleton(C, th, 14)
+    assert got.final_level == ref.final_level < 3
+    np.testing.assert_array_equal(got.G, ref.G)
+    np.testing.assert_array_equal(got.sepset, ref.sepset)
+
+
+def test_level1_hub_route_follows_the_gate():
+    """A hub above the width gate: with the JAX package's gate values the
+    cost model routes it as JAX does (local for a lone hub, dense when the
+    ratio is huge); every route decides the same."""
+    from cigwas_tpu.skeleton import cupc as jc
+    from cigwas_tpu_torch.skeleton import cupc
+
+    rng = np.random.default_rng(3)
+    n, n_z, n_w = 4000, 150, 20
+    z = rng.normal(size=(n_z, n))
+    hub = z.sum(axis=0) / np.sqrt(n_z) + 0.5 * rng.normal(size=n)
+    w = np.zeros((n_w, n))
+    w[0] = rng.normal(size=n)
+    for i in range(1, n_w):
+        w[i] = 0.7 * w[i - 1] + np.sqrt(1 - 0.49) * rng.normal(size=n)
+    C = np.corrcoef(np.vstack([hub, z, w])).astype(np.float32)
+    th = threshold_array(n, 0.05)
+    out = {}
+    for ratio, want in ((16, "local"), (BIG, "dense")):
+        stats = {}
+        with _gates(cupc, {"L1_LOCAL_MAX_WIDTH": 128, "L1_LOCAL_COST_RATIO": ratio,
+                           "DEV_RESIDENT_MAX": 0}):
+            out[want] = cupc.skeleton(C, th, 3, device="cpu", stats=stats)
+            # the cost model sends a lone hub local
+            assert cupc._l1_route_local(np.array([n_z + 5]), 256) == (want == "local")
+        assert stats["level_route"][1] == want
+    with _gates(jc, {"L1_LOCAL_COST_RATIO": BIG}):
+        ref = jc.skeleton(C, th, 3)
+    for got in out.values():
+        np.testing.assert_array_equal(got.G, ref.G)
+        np.testing.assert_array_equal(got.sepset, ref.sepset)
+    assert np.array_equal(out["local"].pmax.view(np.int32), out["dense"].pmax.view(np.int32))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_l1_route_gate_matches_jax(seed):
+    """The gate decides as the JAX package's for the same attribute values."""
+    from cigwas_tpu.skeleton import cupc as jc
+    from cigwas_tpu_torch.skeleton import cupc
+
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 300, size=rng.integers(1, 400))
+    deg[rng.random(deg.size) < 0.01] = 3000
+    for width, ratio in ((128, 16), (0, 16), (64, 1), (256, 1 << 20)):
+        for vp in (128, 1024, 11008):
+            with _gates(cupc, {"L1_LOCAL_MAX_WIDTH": width, "L1_LOCAL_COST_RATIO": ratio}), \
+                    _gates(jc, {"L1_LOCAL_MAX_WIDTH": width, "L1_LOCAL_COST_RATIO": ratio}):
+                assert cupc._l1_route_local(deg, vp) == jc._l1_route_local(deg, vp)
+
+
+def _hetcor_case(seed: int, v: int = 14):
+    """tests/test_hetcor_property.py's inputs: a random correlation panel
+    of v variables from n samples, a per-pair ESS with NaN holes, a time
+    index in {0, 1}."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(2000, 8000))
+    X = rng.normal(size=(v, n))
+    for i in range(1, v):
+        X[i] += 0.6 * X[rng.integers(0, i)]
+    C = np.corrcoef(X).astype(np.float32)
+    N = rng.uniform(0.5 * n, n, size=(v, v)).astype(np.float32)
+    N = (N + N.T) / 2
+    hole = np.triu(rng.random((v, v)) < 0.1, 1)
+    N[hole | hole.T] = np.nan
+    return C, N, rng.integers(0, 2, size=v).astype(np.int32)
+
+
+@pytest.mark.parametrize("ess_mode", ["reference", "float"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("route", ["list", "dense", "combinatorial"])
+def test_hetcor_route_matches_jax_and_the_default(route, seed, ess_mode):
+    from cigwas_tpu.skeleton import cupc as jc
+    from cigwas_tpu_torch.skeleton import cupc
+
+    C, N, t = _hetcor_case(seed)
+    th = hetcor_threshold(1e-3)
+    G0 = np.ones(C.shape, np.int32)
+    stats = {}
+    with _port(route):
+        got = cupc.hetcor_skeleton(C, G0, N, th, 3, time_index=t, ess_mode=ess_mode,
+                                   device="cpu", stats=stats)
+    assert stats["level_route"][1] == WANT[route]
+    with _jax(route):
+        ref = jc.hetcor_skeleton(C, G0, N, th, 3, time_index=t, ess_mode=ess_mode)
+    with _port("list"):
+        default = cupc.hetcor_skeleton(C, G0, N, th, 3, time_index=t, ess_mode=ess_mode,
+                                       device="cpu")
+    np.testing.assert_array_equal(got.G, ref.G)
+    np.testing.assert_array_equal(got.G, default.G)
+    assert got.final_level == ref.final_level
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_chunk_of_the_combinatorial_route(chunk):
+    """A smaller chunk gives the default chunk's result, and the JAX
+    skeleton's under the same chunk."""
+    from cigwas_tpu.skeleton import cupc as jc
+    from cigwas_tpu_torch.skeleton import cupc
+
+    C, th, lmax = PANELS["factor2"]
+    with _port("combinatorial"):
+        got = cupc.skeleton(C, th, lmax, device="cpu", chunk=chunk)
+        default = cupc.skeleton(C, th, lmax, device="cpu")
+    with _jax("combinatorial"):
+        ref = jc.skeleton(C, th, lmax, chunk=chunk)
+    np.testing.assert_array_equal(got.G, ref.G)
+    np.testing.assert_array_equal(got.sepset, ref.sepset)
+    _assert_same(got, default, pmax_exact=False)
+
+
+def test_scratch_is_reused_across_blocks():
+    """Two panels of one size through one scratch dict equal fresh calls;
+    the sepset aliases the kept buffer; a third size replaces the buffer of
+    its depth and keeps the other depth's."""
+    from cigwas_tpu_torch.skeleton import cupc
+
+    (C1, th1, _), (C2, th2, _) = PANELS["factor0"], PANELS["factor2"]
+    scratch: dict = {}
+    fresh = [cupc.skeleton(C, th, 3, device="cpu") for C, th in ((C1, th1), (C2, th2))]
+    first = cupc.skeleton(C1, th1, 3, device="cpu", scratch=scratch)
+    buf = scratch[("sepset", 128, 3)]
+    assert np.shares_memory(first.sepset, buf)
+    _assert_same(first, fresh[0], pmax_exact=True)
+    first_sep = first.sepset.copy()
+    second = cupc.skeleton(C2, th2, 3, device="cpu", scratch=scratch)
+    assert scratch[("sepset", 128, 3)] is buf and np.shares_memory(second.sepset, buf)
+    _assert_same(second, fresh[1], pmax_exact=True)
+    assert not np.array_equal(first_sep, second.sepset)
+    cupc.skeleton(C2, th2, 5, device="cpu", scratch=scratch)
+    C3, th3, _ = PANELS["ar1"]
+    Cbig = np.zeros((200, 200), np.float32)
+    Cbig[:96, :96] = C3[:96, :96]
+    np.fill_diagonal(Cbig, 1.0)
+    cupc.skeleton(Cbig, th3, 3, device="cpu", scratch=scratch)
+    assert sorted(scratch) == [("sepset", 128, 5), ("sepset", 256, 3)]
+
+
+def test_cusk_context_keeps_one_scratch_for_both_stages(tmp_path):
+    """CuskContext passes its scratch to both stages; a second block through
+    the same context writes what a fresh context writes."""
+    from torch_parity import std, write_plink
+
+    from cigwas_tpu_torch.io import MarkerBlock, write_marker_blocks_to_file
+    from cigwas_tpu_torch.pipelines import CuskContext
+    from cigwas_tpu_torch.prep import prep_bed
+
+    rng = np.random.default_rng(12)
+    n, m = 2000, 60
+    G = (rng.random((m, n)) < 0.3).astype(np.float32) + (rng.random((m, n)) < 0.3)
+    y0 = 0.5 * std(G[5]) + 0.4 * std(G[40]) + rng.normal(size=n)
+    y1 = 0.5 * std(G[20]) + 0.3 * y0 + rng.normal(size=n)
+    Y = np.stack([y0, y1])
+    Y = (Y - Y.mean(1, keepdims=True)) / Y.std(1, keepdims=True)
+    stem = str(tmp_path / "sim")
+    write_plink(stem, G, Y)
+    prep_bed(stem)
+    blocks = stem + ".blocks"
+    write_marker_blocks_to_file([MarkerBlock("1", 0, 29), MarkerBlock("1", 30, 59)], blocks)
+    out_a, out_b = tmp_path / "a", tmp_path / "b"
+    out_a.mkdir()
+    out_b.mkdir()
+    ctx = CuskContext(stem + ".phen", stem, blocks, 1e-3, 3, 14, 1, str(out_a), verbose=False,
+                      device="cpu")
+    for bi in (0, 1):
+        assert ctx.finish(ctx.prepare(bi)) is not None
+    assert {k[2] for k in ctx.scratch} == {3, 14}
+    for bi in (0, 1):
+        fresh = CuskContext(stem + ".phen", stem, blocks, 1e-3, 3, 14, 1, str(out_b),
+                            verbose=False, device="cpu")
+        fresh.finish(fresh.prepare(bi))
+    names = sorted(p.name for p in out_a.iterdir())
+    assert names == sorted(p.name for p in out_b.iterdir()) and len(names) == 10
+    for name in names:
+        assert (out_a / name).read_bytes() == (out_b / name).read_bytes(), name
+
+
+def test_device_loop_scatters_only_the_hits():
+    """The loop's hit scatter: pad slots hold index 0, so a node with pads
+    and a hit elsewhere must not remove or keep the (x, 0) edge by the pads'
+    writes. A star around variable 0 keeps every (x, 0) edge whose own test
+    does not remove it."""
+    from cigwas_tpu_torch.skeleton import cupc
+
+    rng = np.random.default_rng(8)
+    X = rng.normal(size=(30, 5000))
+    X[1:] += 0.5 * X[0]
+    X[10:20] += 0.6 * X[5]
+    C = np.corrcoef(X).astype(np.float32)
+    th = threshold_array(5000, 1e-3)
+    with _port("device_loop"):
+        got = cupc.skeleton(C, th, 3, device="cpu")
+    with _port("list"):
+        default = cupc.skeleton(C, th, 3, device="cpu")
+    _assert_same(got, default, pmax_exact=True)
+    assert got.G[0].sum() > 5
+
+
+def test_default_gates_take_the_loop_before_the_dense_level1():
+    """Under the default gates a panel within the loop's size and width
+    takes the loop on one card even where the level-1 gate says dense; the
+    hetcor skeleton, which has no loop, takes the dense level 1 there."""
+    from cigwas_tpu_torch.skeleton import cupc
+
+    C, th, lmax = PANELS["ar1"]
+    stats = {}
+    with _gates(cupc, {"L1_LOCAL_MAX_WIDTH": 0, "L1_LOCAL_COST_RATIO": BIG}):
+        got = cupc.skeleton(C, th, lmax, device="cpu", stats=stats)
+        Ch, N, t = _hetcor_case(0)
+        hstats = {}
+        cupc.hetcor_skeleton(Ch, np.ones(Ch.shape, np.int32), N, hetcor_threshold(1e-3), 3,
+                             time_index=t, device="cpu", stats=hstats)
+    assert C.shape[0] <= cupc.DEV_RESIDENT_MAX
+    assert set(stats["level_route"].values()) == {"device_loop"}
+    assert hstats["level_route"][1] == "dense"
+    with _port("list"):
+        ref = cupc.skeleton(C, th, lmax, device="cpu")
+    _assert_same(got, ref, pmax_exact=True)
+
+
+def test_level_route_names_every_route():
+    from cigwas_tpu_torch.skeleton import cupc
+
+    deg = np.array([3, 200, 5])
+    with _gates(cupc, {"L1_LOCAL_MAX_WIDTH": 128, "L1_LOCAL_COST_RATIO": BIG,
+                       "DENSE_L1_MAX": 512, "LOCAL_LEVELS": (2,)}):
+        assert cupc._level_route(1, deg, 256) == "dense"
+        assert cupc._level_route(1, deg, 1024) == "combinatorial"
+        assert cupc._level_route(2, deg, 256) == "local"
+        assert cupc._level_route(3, deg, 256) == "combinatorial"
+        assert cupc._level_route(4, deg, 256) == "combinatorial"
+        assert cupc._level_route(1, np.array([3, 5]), 1024) == "local"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(PORT_ROUTES))
+def test_card_routes_equal_the_cpu(route):
+    """On the card: each route's skeleton equals the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the routes' kernels have no CPU build")
+    from cigwas_tpu_torch.skeleton import cupc
+
+    C, th, lmax = PANELS["factor0"]
+    with _port(route):
+        got = cupc.skeleton(C, th, lmax, device="cuda")
+        ref = cupc.skeleton(C, th, lmax, device="cpu")
+    np.testing.assert_array_equal(got.G, ref.G)
+    np.testing.assert_array_equal(got.sepset, ref.sepset)

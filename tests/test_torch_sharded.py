@@ -269,6 +269,82 @@ def test_engine_hetcor_margins_match_jax(l, mode):
     assert (exp[~big] < 0).any() and (exp[~big] > 0).any()
 
 
+DENSE_GATES = {"L1_LOCAL_MAX_WIDTH": 0, "L1_LOCAL_COST_RATIO": 1 << 60}
+
+
+@pytest.fixture
+def dense_level1(monkeypatch):
+    """Level 1 forced to the dense route, as tests/test_hetcor_property.py
+    forces it in the JAX package."""
+    from cigwas_tpu_torch.skeleton import cupc
+
+    for k, v in DENSE_GATES.items():
+        monkeypatch.setattr(cupc, k, v)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("D", [1, 2, 3, 4])
+def test_engines_dense_level1_cusk_byte_identical(sharded_dataset, dense_level1, D, mode):
+    """The engines' dense level 1 (replicated slabs, or the row-sharded
+    ring) through the two-stage cusk over D CPU shards: every block file
+    equal to the one-device run's (default routes) byte for byte, with the dense
+    launches counted per shard."""
+    tmp, stem, blockfile, plain = sharded_dataset
+    from cigwas_tpu_torch.ops.kernels import dense_l1 as dk
+    from cigwas_tpu_torch.pipelines import CuskContext
+
+    out = tmp / f"out_dense_{mode}_{D}"
+    os.makedirs(out, exist_ok=True)
+    ctx = CuskContext(stem + ".phen", stem, blockfile, 0.001, 3, 14, 1, str(out), verbose=False,
+                      mesh=["cpu"] * D, panel_mode=mode)
+    stats = {}
+    for bi in range(len(ctx.blocks)):
+        ctx.finish(ctx.prepare(bi), stats=stats)
+    assert _hashes(out) == plain
+    assert stats["stage1"]["level_route"][1] == "dense"
+    calls = sum(ctx.engine.record["calls"], start=Counter())
+    assert calls["dense_l1"] >= D
+    assert dk.launches["dense_l1"] == 0  # the CPU path launches no kernel
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("D", [1, 2, 3, 4])
+def test_engine_dense_sweeps_equal_one_device(D, mode):
+    """The engines' dense level-1 sweeps: rho, s and the hetcor margins
+    bitwise the one-card sweeps', and the screens' hits the same; the
+    row-sharded ring copies the other stripes' rows between shards."""
+    from cigwas_tpu_torch.ops import pcorr
+
+    C, N, t_ix = _heterogeneous(seed=4, v=100)
+    eng = ENGINE[mode].flat(["cpu"] * D)
+    Cp, Np = eng.put_panel(C), eng.put_panel(N, fill=10.0)
+    vp = Cp.vp
+    G = np.zeros((vp, vp), dtype=bool)
+    G[:100, :100] = np.abs(C) > 0.12
+    np.fill_diagonal(G, False)
+    Cf = torch.from_numpy(np.pad(C, ((0, vp - 100), (0, vp - 100))))
+    Nf = torch.from_numpy(np.pad(N, ((0, vp - 100), (0, vp - 100)), constant_values=10.0))
+    tf = torch.from_numpy(np.pad(t_ix, (0, vp - 100)).astype(np.int32))
+    t_of = eng.replicate(tf)
+    rho1, s1 = (t.numpy() for t in pcorr.level1_dense_minrho(Cf, G))
+    rho, s = eng.level1_dense_minrho(Cp, G)
+    assert np.array_equal(rho.view(np.int32), rho1.view(np.int32)) and np.array_equal(s, s1)
+    th = float(np.float32(0.1))
+    one = pcorr.level1_dense_screen(Cf, G, th)
+    got = pcorr.dense1_screen(eng.dense1_sweeps(Cp, G), vp, th)
+    order = np.lexsort((got[2], got[1]))
+    assert np.array_equal(got[0], one[0]) and got[0].sum() > 0
+    for a, b in zip(got[1:], one[1:]):
+        assert np.array_equal(a[order], b)
+    m1 = pcorr.hetcor1_dense_margin(Cf, Nf, tf, G, 2.5).numpy()
+    m = eng.hetcor1_dense_margin(Cp, Np, t_of, G, 2.5)
+    assert np.array_equal(m.view(np.int32), m1.view(np.int32))
+    cond = pcorr.dense1_screen(eng.dense1_sweeps(Cp, G, Np, t_of, 2.5), vp)
+    assert np.array_equal(cond, (m1 < 0) & G) and cond.sum() > 0
+    if mode == "rowsharded" and D > 1:
+        assert eng.record["crossed_bytes"] > 0
+
+
 def _banded_input(m: int):
     from cigwas_tpu_torch.io.bed import encode_bed_values
 

@@ -80,10 +80,11 @@ def test_skeleton_n10_golden_adjacency(n10_fixture):
     _assert_same(res, _jax_skeleton(C, th, 14))
 
 
-def test_skeleton_degree_300_level1_node():
+def test_skeleton_degree_300_level1_node(monkeypatch):
     """No width cap: a hub with ~300 neighbours at level 1 runs through the
-    local sweep and decides as the JAX package does (its dense level-1 route
-    at this width)."""
+    local sweep (the list route, pinned: the default gates send this
+    hub-heavy panel to the dense level 1) and decides as the JAX package
+    does (its dense level-1 route at this width), as does the default."""
     from cigwas_tpu_torch.skeleton import cupc, skeleton
 
     rng = np.random.default_rng(9)
@@ -94,11 +95,15 @@ def test_skeleton_degree_300_level1_node():
     X[1:311] += 0.45 * z  # 310 markers tied to the hub through z
     C = np.corrcoef(X).astype(np.float32)
     th = threshold_array(n, 1e-3)
+    default = skeleton(C, th, 1, device="cpu")
     stats = {}
-    res_t = skeleton(C, th, 1, device="cpu", stats=stats)
+    with monkeypatch.context() as m:
+        m.setattr(cupc, "L1_LOCAL_MAX_WIDTH", 1 << 60)
+        res_t = skeleton(C, th, 1, device="cpu", stats=stats)
     widths = [d for d, _ in stats["launches"][1]]
     assert max(widths) >= 300
     _assert_same(res_t, _jax_skeleton(C, th, 1))
+    _assert_same(default, _jax_skeleton(C, th, 1))
 
     # and the sweep itself at the hub: positions past 255 come back intact
     G = np.ones((v, v), bool)
