@@ -28,9 +28,13 @@ and the script exits non-zero:
    level-2 and level-3 bucket (1024 nodes x width 48) timed beside its
    bound and beside the one-thread-per-slot route it replaced;
    the dense level-1 sweeps (``dense_l1``, ``hetcor_dense_l1``; rho, s and
-   margins bit-identical) on x slabs against every y, ragged slabs, ring-
-   sized slabs and panels of repeated variables (the smallest s must win),
-   a 256 x 8192 launch of each timed beside its bounds;
+   margins bit-identical) on x slabs against every y, ragged slabs, slabs
+   of both ring widths, an LD band alone and scattered edges alone, ESS
+   panels with +-inf, NaN and too small entries, and panels of repeated
+   variables (the smallest s must win, across rows that share a copy and
+   rows that hold one alone), a 256 x 8192 launch of each timed beside its
+   bounds (for hetcor with the paths its tests take) and the live-s
+   histogram of its slab;
 4. the ``cusk`` slice: a small block on the card and on the CPU (plain
    versions) must write the same decisions, with every kernel launch of the
    card's run held bitwise to its plain version; then the reference's default
@@ -144,8 +148,11 @@ and the script exits non-zero:
    2,048 markers of the 11k block x 16,384 x 8 traits on a (2, 2, 2) mesh
    of the card, equal to the (1, 1, 1) mesh's; a small step equal on cuda
    and cpu); then the kernel line's entries of the dense kernel: its
-   launches in the dense 11k and 10k runs, the largest launch held bitwise
-   to plain and timed beside its bounds, a ring-sized slab beside it; and
+   launches in the dense 11k and 10k runs and their device time in all
+   (``total_ms``, CUDA events behind a spin kernel that hides the host's
+   gaps; the mesh phase's engines likewise), the largest launch
+   held bitwise to plain and timed beside its bounds with its slab's live-s
+   histogram, a ring-sized slab beside it; and
    the list route's largest sweep launches at the 11k block (levels 1-3)
    and the 10k input (level 1), which the default routes no longer make
    there, held to plain and timed under ``list_route_largest``.
@@ -165,8 +172,11 @@ however many nodes share it; the lists read once; outputs written once) over
 sheet). ``max_abs_err`` is the NaN-aware largest |kernel - plain| measured on
 that launch. The sweeps also carry ``issue_ms``, a second yardstick that an
 IEEE sqrt and division can be held to: tests x SASS instructions of the
-inner loop per test over 132 SMs x 128 lanes x the maximum SM clock. The
-gathers carry ``sector_ms`` (the distinct 32-byte sectors their lists
+inner loop per test over 132 SMs x 128 lanes x the maximum SM clock; for
+``hetcor_dense_l1`` the test path's instructions per test, plus the queue
+branch's for each warp that enters it (``branch_entries``) and the
+evaluation loop's for each test evaluated in full (``full_tests``: the
+others share the threshold computed once per pair). The gathers carry ``sector_ms`` (the distinct 32-byte sectors their lists
 address, since a 4-byte read moves a sector, plus lists and outputs, over
 3.35 TB/s), ``launch_floor_ms`` (an empty kernel timed the same way) and
 ``device_ms`` (the kernel's own time from the profiler's records, with how
@@ -437,6 +447,17 @@ def sass_functions(text: str) -> dict:
     return out
 
 
+def _backward_loops(instrs: list) -> list:
+    """(first, last) address of every loop of a SASS function: a branch back
+    to an address at or before its own."""
+    out = []
+    for addr, text in instrs:
+        m = _SASS_BRANCH.search(text)
+        if m and int(m.group(1), 16) <= addr:
+            out.append((int(m.group(1), 16), addr))
+    return out
+
+
 def test_loop(instrs: list, load_op: str) -> dict:
     """The loop over the conditioning sets of one kernel, found in its SASS:
     the innermost loop (a backward branch with no other inside it) that takes
@@ -448,11 +469,7 @@ def test_loop(instrs: list, load_op: str) -> dict:
     in the loop's body (the rarely taken fallbacks for operands outside the
     fast paths of sqrt and division included) and the instructions per
     test."""
-    loops = []
-    for addr, text in instrs:
-        m = _SASS_BRANCH.search(text)
-        if m and int(m.group(1), 16) <= addr:
-            loops.append((int(m.group(1), 16), addr))
+    loops = _backward_loops(instrs)
     best = None
     for lo, hi in loops:
         if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in loops):
@@ -2741,7 +2758,8 @@ def mesh_engine_runs(tag: str, run, one_dir: str, base: str, exts: tuple, parent
     """run(mode, outdir, stats) for both panel modes over MESH_D shards,
     the launch counts set to 0 just before each and read just after: its
     wall, per-level walls, the engine's record (the pipeline puts it into
-    stats), the card's peak memory, the decision files' sha256 (equal to
+    stats), the dense entries' device time over all their launches, the
+    card's peak memory, the decision files' sha256 (equal to
     `parent` where given) and every file byte-equal to the one-device run's
     in `one_dir`; then each shard's largest launch of each kernel held
     bitwise to plain. Returns the phase's lines and the launches per mode."""
@@ -2754,7 +2772,7 @@ def mesh_engine_runs(tag: str, run, one_dir: str, base: str, exts: tuple, parent
         if dev == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-        with ShardRecorder() as rec:
+        with DenseTimer() as timer, ShardRecorder() as rec:
             reset_all_launches()
             t1 = time.perf_counter()
             run(mode, out, stats)
@@ -2762,6 +2780,7 @@ def mesh_engine_runs(tag: str, run, one_dir: str, base: str, exts: tuple, parent
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t1
             launches[mode] = all_launches()
+        dense_ms = timer.totals() if dev == "cuda" else {}
         peaks = device_peaks(dev)
         got = block_files(out)
         differ = [f for f in one if got.get(f) != one[f]]
@@ -2777,7 +2796,7 @@ def mesh_engine_runs(tag: str, run, one_dir: str, base: str, exts: tuple, parent
             "wall_s": wall, "level_wall_s": s1.get("level_wall_s", {}),
             "level_route": s1.get("level_route", {}),
             "stage2_level_wall_s": stats.get("stage2", {}).get("level_wall_s", {}),
-            "launches": launches[mode], "device_peak_bytes": peaks,
+            "launches": launches[mode], "dense_total_ms": dense_ms, "device_peak_bytes": peaks,
             **engine_memory(stats["engine_record"]),
             "files_equal_to_one_device": True, "sha256": sha,
             "sha256_equal_to_parent": parent is not None and sha == parent,
@@ -2958,21 +2977,21 @@ def phase_mesh(tmp: str, ss_kw: dict, chr_dir: str) -> dict:
     card: the small block, the 11k block, the 10k summary-statistic input,
     the chromosome's block partitions in two processes, the CLI with --mesh
     and make_blocks over a mesh. Returns, per kernel entry, its launches
-    under the `mesh_*` keys."""
+    under the `mesh_*` keys (and the dense entries' device time over them)."""
     t0 = time.perf_counter()
     emit("mesh_small", t0, shards=[2, 3], **mesh_small(tmp))
 
     t0 = time.perf_counter()
     b11k = os.path.join(tmp, "b11k")
-    lines, l11k = mesh_engine_runs(
+    lines11, l11k = mesh_engine_runs(
         "11k", mesh_cusk_runner(os.path.join(b11k, "sim"), os.path.join(b11k, "sim.blocks")),
         os.path.join(tmp, "out11k"), f"1_0_{M11K - 1}", CUSK_FILES, PARENT_SHA256["cusk"])
-    emit("mesh_11k", t0, shards=MESH_D, engines=lines)
+    emit("mesh_11k", t0, shards=MESH_D, engines=lines11)
 
     t0 = time.perf_counter()
-    lines, l10k = mesh_engine_runs("ss", mesh_cuskss_runner(ss_kw), os.path.join(tmp, "out_ss"),
-                                   f"1_0_{MSS - 1}", CUSKSS_FILES, PARENT_SHA256["cuskss"])
-    emit("mesh_10k", t0, shards=MESH_D, engines=lines)
+    lines10, l10k = mesh_engine_runs("ss", mesh_cuskss_runner(ss_kw), os.path.join(tmp, "out_ss"),
+                                     f"1_0_{MSS - 1}", CUSKSS_FILES, PARENT_SHA256["cuskss"])
+    emit("mesh_10k", t0, shards=MESH_D, engines=lines10)
 
     t0 = time.perf_counter()
     emit("mesh_partitions", t0, **mesh_partitions(chr_dir))
@@ -2992,46 +3011,174 @@ def phase_mesh(tmp: str, ss_kw: dict, chr_dir: str) -> dict:
         for name in names:
             assert all(of[name][f"launches_mesh_{run}_{m}"] > 0 for m in MESH_MODES), (
                 name, of[name])
+    for name, lines in (("dense_l1", lines11), ("hetcor_dense_l1", lines10)):
+        for m in MESH_MODES:  # the device time of all its launches in the engine's run
+            of[name][f"total_ms_mesh_{m}"] = lines[m]["dense_total_ms"][name]["total_ms"]
     return of
 
 
 # --- the dense level-1 kernel and the routes of levels 1-3 ---------------------
 
 
-def dense_loop(instrs: list, arrays: int) -> dict:
-    """The loop over a warp's live s in the dense kernel's SASS: the innermost
-    loop that broadcasts by shuffle (SHFL) and loads from global memory. Each
-    test loads `arrays` values of the y side (R_sy, P_sy and, for hetcor,
-    N_ys), which counts the tests of one pass. Returns the static count of
-    instructions in the loop's body and the instructions per test."""
-    loops = []
-    for addr, text in instrs:
-        m = _SASS_BRANCH.search(text)
-        if m and int(m.group(1), 16) <= addr:
-            loops.append((int(m.group(1), 16), addr))
-    best = None
-    for lo, hi in loops:
-        if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in loops):
+def _global_load(op: str) -> bool:
+    """A load from global memory (LDG; not LDGSTS, the copies into shared
+    memory)."""
+    return re.match(r"^LDG(\.|$)", op) is not None
+
+
+def _shared_load(op: str) -> bool:
+    """A load from shared memory (LDS; not LDSM)."""
+    return re.match(r"^LDS(\.|$)", op) is not None
+
+
+def _queue_branch(instrs: list, lo: int, hi: int) -> tuple:
+    """(first, last) address of the queue branch inside hetcor's test loop
+    [lo, hi]: the block that the branch after the loop's `__any_sync`
+    (VOTE.ANY into a predicate) skips when no lane of the warp needs the
+    full threshold."""
+    body = [(a, t) for a, t in instrs if lo <= a <= hi]
+    for i, (a, t) in enumerate(body):
+        m = re.match(r"^VOTE\.ANY\s+(P\d+),", t)
+        if not m:
             continue
-        ops = [re.sub(r"^@!?U?P\d+\s+", "", t).split()[0] for a, t in instrs if lo <= a <= hi]
-        ldg = sum(o.startswith("LDG") for o in ops)
-        if any(o.startswith("SHFL") for o in ops) and ldg >= arrays and (
-                best is None or ldg > best["ldg"]):
-            best = {"ldg": ldg, "loop_instructions": len(ops), "loop": f"{lo:#x}-{hi:#x}",
-                    "tests_per_pass": ldg // arrays,
-                    "instructions_per_test": len(ops) / (ldg // arrays)}
-    assert best is not None, "no test loop found in the dense kernel's SASS"
-    return best
+        for b, u in body[i + 1:]:
+            if re.search(r"\bBRA\b", u):
+                j = re.match(rf"^@!{m.group(1)}\s+BRA\s+(?:\w+,\s*)?0x([0-9a-f]+)", u)
+                if j and b < int(j.group(1), 16) <= hi + 0x10:
+                    return b + 0x10, int(j.group(1), 16) - 0x10
+                break
+    raise AssertionError(f"no queue branch after a VOTE.ANY in the loop {lo:#x}-{hi:#x}")
+
+
+def dense_loop(instrs: list, arrays: int, het: bool, ypl: int) -> dict:
+    """The test loop of a dense kernel's SASS, which broadcasts by shuffle
+    (SHFL) and reads the y side of its tests (`arrays` values each: R_sy,
+    P_sy and, for hetcor, N_ys). dense_l1: the innermost such loop, over
+    groups of live s, each y value loaded from global memory, the loads
+    counting its tests; its static instruction count over its tests is the
+    instructions per test. hetcor: the loop over one row's live s of a
+    chunk (`ypl` tests a lane, the y values read from shared memory), whose
+    only inner loop is the queue's evaluation loop (innermost, with
+    MUFU.RSQ: 32 tests evaluated in full, one a lane, a pass). Its
+    instructions are split by the path that runs them: the test path every
+    pass takes (`instructions_per_test`, over its `ypl` tests), the queue
+    branch a warp enters only where one of its tests needs the full
+    threshold (`instructions_per_branch`, without the evaluation loop), and
+    the evaluation loop's body (`instructions_per_evaluation`). Static
+    counts: a conditional block inside a path counts in full."""
+    # not the branches back from the out-of-line paths past the last EXIT
+    # (a warp that diverged at a shuffle or a vote rejoins there), which
+    # would pass for loops spanning everything between
+    end = max(a for a, t in instrs if re.search(r"\bEXIT\b", t))
+    loops = [(lo, hi) for lo, hi in _backward_loops(instrs) if hi < end]
+
+    def ops_in(lo, hi):
+        return [re.sub(r"^@!?U?P\d+\s+", "", t).split()[0] for a, t in instrs if lo <= a <= hi]
+
+    def innermost(lo, hi):
+        return not any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in loops)
+
+    evals = [(lo, hi) for lo, hi in loops if innermost(lo, hi)
+             and any(o.startswith("MUFU.RSQ") for o in ops_in(lo, hi))] if het else []
+    load = _shared_load if het else _global_load
+    found = []
+    for lo, hi in loops:
+        inner = [(a, b) for a, b in loops if lo <= a and b <= hi and (a, b) != (lo, hi)]
+        ops = ops_in(lo, hi)
+        if (any(l not in evals for l in inner) or (het and not inner)
+                or not any(o.startswith("SHFL") for o in ops)):
+            continue
+        inner_ops = [ops_in(a, b) for a, b in inner]
+        loads = sum(load(o) for o in ops) - sum(load(o) for io in inner_ops for o in io)
+        tests = ypl if het else loads // arrays
+        if loads < arrays * ypl:
+            continue
+        entry = {"loads": loads, "loop_instructions": len(ops), "loop": f"{lo:#x}-{hi:#x}",
+                 "tests_per_pass": tests}
+        if het:
+            b0, b1 = _queue_branch(instrs, lo, hi)
+            branch = len(ops_in(b0, b1))
+            entry.update(
+                queue_branch=f"{b0:#x}-{b1:#x}",
+                instructions_per_test=(len(ops) - branch) / tests,
+                instructions_per_branch=branch - sum(
+                    len(io) for (a, b), io in zip(inner, inner_ops) if b0 <= a and b <= b1),
+                instructions_per_evaluation=max(len(io) for io in inner_ops))
+        else:
+            entry["instructions_per_test"] = len(ops) / tests
+        found.append(entry)
+    assert found, ("no test loop found in the dense kernel's SASS", [
+        (f"{lo:#x}-{hi:#x}", sorted(set(ops_in(lo, hi)))[:40]) for lo, hi in loops])
+    # the loop with the most tests a pass (dense_l1 has one for the last few
+    # live s of 32) and, of the copies the kernel has (segments inside and
+    # across the y slab's end; a warp's rows), the shortest
+    return max(found, key=lambda f: (f["tests_per_pass"], -f["instructions_per_test"]))
 
 
 def dense_loops(lib) -> dict:
-    """{entry: dense_loop} of the two instantiations of the dense kernel."""
+    """{entry: dense_loop} of the two kernels of csrc/dense_l1.cu."""
     fns = sass_functions(sass_of(lib))
     out = {}
-    for entry, het, arrays in (("dense_l1", "Lb0", 2), ("hetcor_dense_l1", "Lb1", 3)):
-        (name,) = [n for n in fns if re.search(rf"dense_l1_kernelI{het}E", n)]
-        out[entry] = {"function": name, **dense_loop(fns[name], arrays)}
+    for entry, pattern, arrays in (("dense_l1", r"\ddense_l1_kernelE", 2),
+                                   ("hetcor_dense_l1", r"\dhetcor_dense_l1_kernelE", 3)):
+        (name,) = [n for n in fns if re.search(pattern, n)]
+        out[entry] = {"function": name, **dense_loop(fns[name], arrays,
+                                                     entry == "hetcor_dense_l1", 2)}
     return out
+
+
+def dense_issue(tests: int, paths: dict, loop: dict, clock_hz: float) -> dict:
+    """issue_bound of a dense launch, each path at the instructions it runs:
+    every counted test at the test path's instructions per test; for hetcor
+    also each entry of a warp into the queue branch (32 lanes) and each test
+    evaluated in full (one lane), as `hetcor_paths` counts them."""
+    per_branch = loop.get("instructions_per_branch", 0)
+    per_eval = loop.get("instructions_per_evaluation", 0)
+    instr = (tests * loop["instructions_per_test"] + 32 * per_branch * paths.get(
+        "branch_entries", 0) + per_eval * paths.get("full_tests", 0))
+    return {"issue_ms": instr / (SMS * 128 * clock_hz) * 1e3,
+            **{k: v for k, v in loop.items() if k.startswith("instructions_per_")},
+            "loop_instructions": loop["loop_instructions"],
+            "tests_per_pass": loop["tests_per_pass"], "sm_clock_mhz": clock_hz / 1e6}
+
+
+def hetcor_paths(args: tuple) -> dict:
+    """Where the counted tests of a hetcor_dense_l1 launch go in the kernel,
+    counted on the card from its inputs: a test whose ESS sums (x, y) + (x,
+    s) + (y, s) equal those of the triple (N_xy, N_xy, N_xy) takes the
+    threshold computed once per (x, y); the others (`full_tests`, within the
+    time index and s != y) are evaluated in full, and each warp's pass over
+    one s of its row and its 64 y (a CTA's columns) that holds one of them
+    enters the queue branch once (`branch_entries`)."""
+    C_x, N_x, NT_y, t_ix, x0, y0 = args[0], args[4], args[7], args[8], args[9], args[10]
+    nx, vp = C_x.shape
+    ny = NT_y.shape[1]
+    dev = C_x.device
+    cols = dk.CTA_COLS["hetcor_dense_l1"]
+    nseg = -(-ny // cols)
+    yg = y0 + torch.arange(ny, device=dev)
+    t = t_ix.long()
+    nxy = N_x[:, y0 : y0 + ny]
+    exy, ecy = torch.nan_to_num(nxy), (~torch.isnan(nxy)).float()
+    totc, cntc = (exy + exy) + exy, (ecy + ecy) + ecy
+    t_pair = torch.maximum(t[x0 : x0 + nx, None], t[yg][None, :])
+    full = torch.zeros((), dtype=torch.int64, device=dev)
+    entries = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(nx):
+        live = args[3][i].clone()
+        live[x0 + i] = False  # x's neighbours other than x
+        s = torch.nonzero(live).flatten()
+        nys = NT_y[s]
+        exs = torch.nan_to_num(N_x[i, s])[:, None]
+        ecs = (~torch.isnan(N_x[i, s])).float()[:, None]
+        tot = (exy[i] + exs) + torch.nan_to_num(nys)
+        cnt = (ecy[i] + ecs) + (~torch.isnan(nys)).float()
+        need = (~((tot == totc[i]) & (cnt == cntc[i])) & (s[:, None] != yg[None, :])
+                & ~(t[s][:, None] > t_pair[i][None, :]))
+        full += need.sum()
+        pad = torch.nn.functional.pad(need, (0, nseg * cols - ny))
+        entries += pad.view(-1, nseg, cols).any(-1).sum()
+    return {"full_tests": int(full), "branch_entries": int(entries)}
 
 
 def dense_bound(name: str, args: tuple) -> dict:
@@ -3082,13 +3229,17 @@ def dense_check(tag: str, name: str, args: tuple) -> dict:
 
 def dense_timed(tag: str, name: str, args: tuple, loops: dict, clock_hz: float) -> dict:
     """dense_check, then the launch timed by CUDA events beside its plain
-    version, its bound and its issue bound."""
+    version (and as DenseTimer times a launch of a run: `gated_ms`), its
+    bound and its issue bound; for hetcor with the paths its tests take
+    (`hetcor_paths`) beside the tests that count."""
     kern = getattr(dk, name)
     out = dense_check(tag, name, args)
     bnd = dense_bound(name, args)
-    return {**out, "ms": cuda_ms(lambda: kern(*args), reps=5), **bnd,
-            **issue_bound(bnd["tests"], loops[name], clock_hz),
-            "plan": dk.plan(name, out["x_rows"], out["y_rows"])}
+    paths = hetcor_paths(args) if name == "hetcor_dense_l1" else {}
+    return {**out, "ms": cuda_ms(lambda: kern(*args), reps=5),
+            "gated_ms": DenseTimer.one_ms(name, args), **bnd, **paths,
+            **dense_issue(bnd["tests"], paths, loops[name], clock_hz),
+            "plan": dk.plan(name, out["x_rows"], out["y_rows"], out["panel"])}
 
 
 def dense_args(name: str, C, G, x0: int, x1: int, y0: int, y1: int, N=None, t_ix=None,
@@ -3103,51 +3254,206 @@ def dense_args(name: str, C, G, x0: int, x1: int, y0: int, y1: int, N=None, t_ix
     return (*xs, N[x0:x1], *ys, N[y0:y1].T.contiguous(), t_ix, x0, y0, th)
 
 
+def live_histogram(G_x, x0: int) -> dict:
+    """How the live s of a dense launch's x slab are shared: for each s, the
+    rows of the slab it is live in (a neighbour, not the row itself), as a
+    histogram of s and of (x, s) pairs (tests per y) by that row count;
+    the distance |s - x| of the pairs whose s is live in one row against
+    more, and of the rows that share an s with fewer than 9 rows from the
+    first of them; for groups of 8 to 256 consecutive rows (a CTA's rows,
+    as the kernels have them or might), the pairs per distinct s of a
+    group: how often a y segment copied once per CTA would be read."""
+    nx, vp = G_x.shape
+    dev = G_x.device
+    live = G_x & (torch.arange(vp, device=dev)[None, :]
+                  != (x0 + torch.arange(nx, device=dev))[:, None])
+    rows = live.sum(0)
+    edges = [1, 2, 3, 5, 9, 17, 33, 65, 129, max(nx, 129) + 1]
+    bins = []
+    for lo, hi in zip(edges, edges[1:]):
+        sel = (rows >= lo) & (rows < hi)
+        bins.append({"rows": f"{lo}-{hi - 1}", "s": int(sel.sum()), "pairs": int(rows[sel].sum())})
+    xi, si = torch.nonzero(live, as_tuple=True)
+    dist = (si - (x0 + xi)).abs().float()
+    alone = rows[si] == 1
+    q = torch.tensor([0.5, 0.9, 0.99], device=dev)
+
+    def quantiles(d):
+        return [float(v) for v in torch.quantile(d, q)] if d.numel() else []
+
+    # rows sharing a far s: their spread from the first row that has it
+    few = (rows[si] >= 2) & (rows[si] <= 8)
+    first = torch.full((vp,), nx, dtype=torch.long, device=dev).scatter_reduce(
+        0, si, xi, reduce="amin")
+    spread = (xi - first[si])[few].float()
+    reuse = {}
+    for group in (8, 32, 64, 128, 256):
+        distinct = sum(int(live[g0 : g0 + group].any(0).sum()) for g0 in range(0, nx, group))
+        reuse[group] = {"distinct_s_summed_over_groups": distinct,
+                        "pairs_per_distinct_s": int(live.sum()) / max(distinct, 1)}
+    return {"x_rows": nx, "panel": vp, "live_s": int((rows > 0).sum()), "pairs": int(live.sum()),
+            "rows_per_s": bins,
+            "distance_of_pairs_quantiles_0.5_0.9_0.99": {
+                "s_in_one_row": quantiles(dist[alone]), "s_in_more_rows": quantiles(dist[~alone])},
+            "rows_from_first_sharing_row_quantiles_s_in_2_to_8_rows": quantiles(spread),
+            "by_group_rows": reuse}
+
+
+def straddling_ties(Gd):
+    """An adjacency over the 1024-variable tied panels whose ties cross rows:
+    rows 0 .. 255 in pairs (x, x + 1), x even, with personal variables w =
+    64 + x % 32 and w' = 64 + (x + 1) % 32; x has copies 0 and 1 of w and
+    copy 2 of w', x + 1 copies 2 and 3 of w' and copy 1 of w. Copies 1 and 2
+    are live in both rows of a pair (one warp brings their y values in, the
+    other reads them again), copies 0 and 3 in one. Where w minimises rho
+    for x, copy 0 must win over copy 1; where w' does for x + 1, copy 2 over
+    copy 3."""
+    G = torch.zeros((1024, 1024), dtype=torch.bool, device=Gd.device)
+    for x in range(0, 256, 2):
+        w, w2 = 64 + x % 32, 64 + (x + 1) % 32
+        G[x, [4 * w, 4 * w + 1, 4 * w2 + 2]] = True
+        G[x + 1, [4 * w2 + 2, 4 * w2 + 3, 4 * w + 1]] = True
+    return G
+
+
+def edge_ess(Nd, gen):
+    """The ESS panel with the entries a threshold must survive: 1% +inf, 1%
+    -inf, 3% in [0, 6) (mean - 4 <= 0 where they weigh), and rows 0 .. 63
+    wholly in [2, 10)."""
+    N = Nd.clone()
+    u = torch.rand(N.shape, generator=gen, device=N.device)
+    N[u < 0.01] = math.inf
+    N[(u >= 0.01) & (u < 0.02)] = -math.inf
+    small = (u >= 0.02) & (u < 0.05)
+    N[small] = 6.0 * torch.rand(N.shape, generator=gen, device=N.device)[small]
+    N[:64] = 2.0 + 8.0 * torch.rand((64, N.shape[1]), generator=gen, device=N.device)
+    return N
+
+
 def phase_dense_kernel(panels, loops: dict, clock_hz: float) -> dict:
-    """dense_l1 and hetcor_dense_l1 vs plain on the 8192-variable panels with
-    NaNs (made symmetric, then one row perturbed so that C[s, y] != C[y, s]
-    there: the kernel must read the entries the list route reads), under an
-    adjacency of an LD band (|x - s| <= 60) plus 0.2% scattered edges: x
-    slabs of 256 rows against every y, ragged slabs (100 x 2,000 at an
-    offset, the last rows of the panel), ring-sized slabs (256 x 2,048
-    against another stripe's columns), both ESS modes and a time index for
-    hetcor; and panels of repeated variables, where tied minima must resolve
-    to the smallest s. Then the 256 x 8192 launch of each entry timed beside
-    its plain version and its bounds."""
+    """dense_l1 and hetcor_dense_l1 vs plain, bitwise, on the 8192-variable
+    panels with NaNs (made symmetric, then one row perturbed so that C[s, y]
+    != C[y, s] there: the kernel must read the entries the list route
+    reads), a time index in {0, 1, 2}, under an adjacency of an LD band
+    (|x - s| <= 60) plus 0.2% scattered edges: x slabs of 256 rows against
+    every y, ragged slabs (100 x 2,000 at an offset, 333 x 6,924, the last
+    77 rows), ring-sized slabs of both ring widths (256 x 2,048, 3,072 and
+    2,528 against other columns), both ESS modes for hetcor; a slab under
+    the band alone (s shared by many rows) and under the scattered edges
+    alone (s held by one or two); hetcor with +-inf ESS entries, entries
+    that make mean - 4 <= 0, rows of small ESS and a time index in 0 .. 5;
+    panels of repeated variables, where tied minima must resolve to the
+    smallest s, with ties across rows that share a copy and rows that hold
+    one alone. Then the 256 x 8192 launch of each entry timed beside its
+    plain version and its bounds."""
     t0 = time.perf_counter()
     rng, vp, Cd, Nd, td = panels
     Cd = Cd.clone()
     Cd[100] = Cd[100] * 0.999  # row 100 no longer equals column 100
     ix = torch.arange(vp, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(3)
-    G = ((ix[:, None] - ix[None, :]).abs() <= 60) | (
-        torch.rand((vp, vp), generator=gen, device="cuda") < 0.002)
-    G = (G | G.T) & (ix[:, None] != ix[None, :])
+    band = ((ix[:, None] - ix[None, :]).abs() <= 60) & (ix[:, None] != ix[None, :])
+    far = torch.rand((vp, vp), generator=gen, device="cuda") < 0.002
+    far = (far | far.T) & (ix[:, None] != ix[None, :])
+    G = band | far
     th = hetcor_threshold(ALPHA)
     N_mode = {"float": Nd, "reference": pcorr.trunc_ref_ess(Nd)}
-    slabs = [(0, 256, 0, vp), (5000, 5100, 1234, 3234), (vp - 77, vp, 0, vp),
-             (2048, 2304, 6144, 8192)]
+    slabs = [(0, 256, 0, vp), (5000, 5100, 1234, 3234), (13, 346, 77, 7001), (vp - 77, vp, 0, vp),
+             (2048, 2304, 6144, 8192), (2048, 2304, 4096, 7168), (2048, 2304, 1000, 3528)]
     checked = []
-    for x0, x1, y0, y1 in slabs:
-        checked.append(dense_check(f"dense_l1 {x0}:{x1} x {y0}:{y1}", "dense_l1",
-                                   dense_args("dense_l1", Cd, G, x0, x1, y0, y1)))
-        for mode, N in N_mode.items():
+
+    def both(tag, Gc, x0, x1, y0, y1, modes=N_mode, C=Cd, t_ix=td):
+        checked.append(dense_check(f"dense_l1 {tag} {x0}:{x1} x {y0}:{y1}", "dense_l1",
+                                   dense_args("dense_l1", C, Gc, x0, x1, y0, y1)))
+        for mode, N in modes.items():
             checked.append(dense_check(
-                f"hetcor_dense_l1 {mode} {x0}:{x1} x {y0}:{y1}", "hetcor_dense_l1",
-                dense_args("hetcor_dense_l1", Cd, G, x0, x1, y0, y1, N, td, th)))
+                f"hetcor_dense_l1 {tag} {mode} {x0}:{x1} x {y0}:{y1}", "hetcor_dense_l1",
+                dense_args("hetcor_dense_l1", C, Gc, x0, x1, y0, y1, N, t_ix, th)))
+
+    for x0, x1, y0, y1 in slabs:
+        both("band+far", G, x0, x1, y0, y1)
+    both("band only", band, 0, 256, 0, vp)
+    both("far only", far, 0, 256, 0, vp)
+    both("edge ESS", G, 0, 256, 0, vp, modes={"float": edge_ess(Nd, gen)})
+    both("edge ESS, time index 0..5", G, 4000, 4256, 0, vp, modes={"float": edge_ess(Nd, gen)},
+         t_ix=torch.randint(0, 6, (vp,), generator=gen, device="cuda", dtype=torch.int32))
     Ct, Nt, tt = tied_panels(Cd, Nd, td)
-    Gt = G[:1024, :1024]
-    tied = dense_args("dense_l1", Ct, Gt, 0, 256, 0, 1024)
-    checked.append(dense_check("dense_l1 ties", "dense_l1", tied))
-    checked.append(dense_check("hetcor_dense_l1 ties", "hetcor_dense_l1", dense_args(
-        "hetcor_dense_l1", Ct, Gt, 0, 256, 0, 1024, Nt, tt, th)))
-    rho, _ = dk.dense_l1(*tied)
+    both("ties", G[:1024, :1024], 0, 256, 0, 1024, modes={"float": Nt}, C=Ct, t_ix=tt)
+    rho, _ = dk.dense_l1(*dense_args("dense_l1", Ct, G[:1024, :1024], 0, 256, 0, 1024))
     assert bool((rho < pcorr.RHO_BIG).any()), "the tied panels gave no valid test"
+    Gs = straddling_ties(G)
+    both("ties across rows", Gs, 0, 256, 0, 1024, modes={"float": Nt}, C=Ct, t_ix=tt)
+    _, s_k = dk.dense_l1(*dense_args("dense_l1", Ct, Gs, 0, 256, 0, 1024))
+    x = torch.arange(256, device="cuda")[:, None]
+    copy, w = s_k % 4, s_k // 4
+    won_own = int(((x % 2 == 0) & (copy == 0) & (w == 64 + x % 32)).sum())
+    won_shared = int(((x % 2 == 1) & (copy == 2) & (w == 64 + x % 32)).sum())
+    assert won_own > 0 and won_shared > 0, (won_own, won_shared)
     timed = {name: dense_timed(f"{name} 256 x {vp}", name, dense_args(
         name, Cd, G, 0, 256, 0, vp, Nd, td, th), loops, clock_hz) for name in DENSE}
     emit("kernels_dense_l1", t0, cases=len(checked), bit_identical=True,
-         max_abs_err=max(c["max_abs_err"] for c in checked), timed=timed)
+         max_abs_err=max(c["max_abs_err"] for c in checked),
+         ties_across_rows={"own_copy_won": won_own, "shared_copy_won": won_shared},
+         histogram_256_rows=live_histogram(G[:256], 0),
+         timed=timed)
     return timed
+
+
+class DenseTimer:
+    """While it is open, every dense launch on the card is timed by CUDA
+    events around its wrapper's call (hetcor's memset, the pre-pass and the
+    sweep), so that a run gives each entry's device time over all its
+    launches. A spin kernel of GATE_CYCLES clocks goes on the stream before
+    the first event: the card spins while the host makes the call (the
+    scratch allocations, the ctypes call, the launches), so the events
+    span the work on the card and not the host's gaps (`gated_ms` of a
+    largest launch, beside its `ms` back to back, shows that they do). The
+    spins themselves fall outside the events. Open it before other wrappers
+    of the entries, so that it times the call alone."""
+
+    GATE_CYCLES = 1_000_000  # ~0.5 ms at 1980 MHz
+
+    @staticmethod
+    def one_ms(name: str, args: tuple, reps: int = 5) -> float:
+        """The mean over reps single launches of an entry timed as the open
+        timer times each launch of a run."""
+        with DenseTimer() as timer:
+            for _ in range(reps):
+                getattr(dk, name)(*args)
+        return timer.totals()[name]["total_ms"] / reps
+
+    def __init__(self):
+        self.events = {n: [] for n in DENSE}
+        self.saved = {n: getattr(dk, n) for n in DENSE}
+
+    def __enter__(self):
+        def timed(name):
+            kern = self.saved[name]
+
+            def run(*args, **kw):
+                if not args[0].is_cuda:
+                    return kern(*args, **kw)
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(self.GATE_CYCLES)
+                a.record()
+                out = kern(*args, **kw)
+                b.record()
+                self.events[name].append((a, b))
+                return out
+            return run
+
+        for n in DENSE:
+            setattr(dk, n, timed(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(dk, n, fn)
+
+    def totals(self) -> dict:
+        torch.cuda.synchronize()
+        return {n: {"total_ms": sum(a.elapsed_time(b) for a, b in ev), "timed_launches": len(ev)}
+                for n, ev in self.events.items() if ev}
 
 
 class HitRecorder:
@@ -3278,7 +3584,8 @@ def route_run(tag: str, route: str, run, out: str, one: dict, parent: dict | Non
               base: str, exts: tuple, rho_th: dict) -> tuple:
     """run(out, stats) under the route's gates, the launch counts set to 0
     just before it and read just after: the wall, per-level walls and routes
-    of both stages, launches, the card's peak memory; every file equal to
+    of both stages, launches, the dense entries' device time over all their
+    launches, the card's peak memory; every file equal to
     the default route's run in `one` (the .corr files too), the decision
     files' sha256 equal to `parent` where given. Returns (its line, its
     hits by level, its Recorder)."""
@@ -3286,7 +3593,7 @@ def route_run(tag: str, route: str, run, out: str, one: dict, parent: dict | Non
     stats: dict = {}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with gates(route), Recorder() as rec, HitRecorder(rho_th) as hits:
+    with gates(route), DenseTimer() as timer, Recorder() as rec, HitRecorder(rho_th) as hits:
         reset_all_launches()
         t1 = time.perf_counter()
         run(out, stats)
@@ -3304,6 +3611,7 @@ def route_run(tag: str, route: str, run, out: str, one: dict, parent: dict | Non
             "level_route": s1.get("level_route", {}), **gate_inputs(s1),
             "stage2_level_wall_s": s2.get("level_wall_s", {}),
             "final_fetch_s": s1.get("final_fetch_s"), "launches": launches,
+            "dense_total_ms": timer.totals(),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
             "files_equal_to_default": True, "sha256": sha,
             "sha256_equal_to_parent": parent is not None and sha == parent}
@@ -3507,6 +3815,35 @@ def ring_slab(name: str, args: tuple) -> tuple:
             args[11])
 
 
+def dense_entries(runs: dict, loops: dict, clock_hz: float, timed: dict) -> list:
+    """The kernel line's entries of dense_l1 and hetcor_dense_l1 from their
+    dense runs ({name: (Recorder, route_run line)}): the launches and the
+    device time over all of them in that run; the largest launch (the 11k
+    block's 256 x 12,288 slab, the 10k input's 256 x 10,112) held bitwise to
+    plain and timed beside its bounds, its slab's live-s histogram; the
+    row-sharded ring's slab of it (a quarter of the columns) likewise; the
+    synthetic 256-row launch of phase_dense_kernel beside them."""
+    kernels = []
+    for name, (rec, run) in runs.items():
+        args = rec.largest[(name,)][1]
+        main = dense_timed(f"{name} largest", name, args, loops, clock_hz)
+        nx, ny, x0, _ = dense_slab(name, args)
+        more = {"plan": main["plan"], "tests": main["tests"],
+                **{k: v for k, v in main.items() if k.startswith(("instructions_per_", "issue_"))
+                   or k in ("full_tests", "branch_entries")},
+                "gated_ms": main["gated_ms"], "total_ms": run["dense_total_ms"][name]["total_ms"],
+                "total_launches": run["dense_total_ms"][name]["timed_launches"],
+                "histogram": live_histogram(args[3], x0),
+                "synthetic_256_rows": timed[name],
+                "ring_slab": dense_timed(f"{name} ring", name, ring_slab(name, args),
+                                         loops, clock_hz)}
+        kernels.append(kernel_entry(
+            name, dk, name, run["launches"][name], main["max_abs_err"], main["ms"],
+            main["plain_ms"], main, None,
+            {k: main[k] for k in ("x_rows", "y_rows", "x0", "y0", "panel", "live_s")}, **more))
+    return kernels
+
+
 def phase_routes(tmp: str, ss_kw: dict, rho_th: dict, loops: dict, clock_hz: float,
                  timed: dict) -> tuple:
     """Every route of levels 1-3 driven at full width and held to the
@@ -3529,20 +3866,9 @@ def phase_routes(tmp: str, ss_kw: dict, rho_th: dict, loops: dict, clock_hz: flo
     emit("routes_spmd", t0, **routes_spmd(tmp))
 
     t0 = time.perf_counter()
-    kernels = []
-    for name, rec, run in (("dense_l1", recs_11k["dense"], lines_11k["dense"]),
-                           ("hetcor_dense_l1", recs_10k["dense"], lines_10k["dense"])):
-        args = rec.largest[(name,)][1]
-        main = dense_timed(f"{name} largest", name, args, loops, clock_hz)
-        more = {"plan": main["plan"], "issue_ms": main["issue_ms"],
-                "instructions_per_test": main["instructions_per_test"],
-                "synthetic_256_rows": timed[name],
-                "ring_slab": dense_timed(f"{name} ring", name, ring_slab(name, args),
-                                         loops, clock_hz)}
-        kernels.append(kernel_entry(
-            name, dk, name, run["launches"][name], main["max_abs_err"], main["ms"],
-            main["plain_ms"], main, None,
-            {k: main[k] for k in ("x_rows", "y_rows", "x0", "y0", "panel", "live_s")}, **more))
+    kernels = dense_entries({"dense_l1": (recs_11k["dense"], lines_11k["dense"]),
+                             "hetcor_dense_l1": (recs_10k["dense"], lines_10k["dense"])},
+                            loops, clock_hz, timed)
     emit("largest_launch_dense", t0, kernels=kernels)
 
     t0 = time.perf_counter()
@@ -3552,6 +3878,21 @@ def phase_routes(tmp: str, ss_kw: dict, rho_th: dict, loops: dict, clock_hz: flo
                              (1,), loops, clock_hz, [])
     emit("largest_launch_list_route", t0, kernels=listed)
     return kernels, {k["name"]: k for k in listed}
+
+
+def profile_sweeps(tag: str, run, unprofiled_wall_s: float, prefix: str, launched: dict,
+                   tries: int = 3) -> tuple:
+    """profile_run of a slice and its sweep levels' level_totals, taken again
+    (at most `tries` runs in all) while the profiler kept fewer records of a
+    level's launches than `launched` ({level: launches of the first run}):
+    torch.profiler drops some records of short launches (the slice's 8-node
+    stage-2 sweeps), and a total must cover every launch."""
+    for _ in range(tries):
+        totals = profile_run(tag, run, unprofiled_wall_s)
+        per_level = level_totals(totals, prefix)
+        if all(per_level[l][1] == n for l, n in launched.items()):
+            break
+    return totals, per_level
 
 
 def profile_run(tag: str, run, unprofiled_wall_s: float, cpu: bool = True) -> dict:
@@ -3640,10 +3981,13 @@ def main() -> int:
         kernels += kernels_ss
         # device time of all launches of each sweep level on its slice, from
         # the profiled second run, whose launches must repeat the first's
-        totals = {"cusk": profile_run("cusk", cusk_again, wall),
-                  "cuskss": profile_run("cuskss", cuskss_again, wall_ss)}
-        per_level = {"local_sweep": level_totals(totals["cusk"], "sweep"),
-                     "hetcor_sweep": level_totals(totals["cuskss"], "hsweep")}
+        launched = {k["name"]: k["launches"] for k in kernels}
+        totals, per_level = {}, {}
+        for run, again, w, kernel, prefix in (("cusk", cusk_again, wall, "local_sweep", "sweep"),
+                                              ("cuskss", cuskss_again, wall_ss, "hetcor_sweep",
+                                               "hsweep")):
+            totals[run], per_level[kernel] = profile_sweeps(
+                run, again, w, prefix, {l: launched[f"{kernel}_l{l}"] for l in (1, 2, 3)})
         # each slice launches one gather entry only: all its panel_rows_kernel records
         gathers = {name: [v for key, v in totals[run].items() if "panel_rows_kernel" in key]
                    for name, run in (("panel_gather", "cusk"), ("panel_gather2", "cuskss"))}

@@ -35,8 +35,19 @@ SOURCE = "cigwas_tpu_torch/csrc/dense_l1.cu"
 RHO_BIG, MARGIN_BIG = 2.0, 3.0e38
 # x rows a launch of the skeleton's sweeps takes (the slab)
 ROWS = 256
-# x rows per CTA (a warp each), y per lane
-TX, YPL = 8, {"dense_l1": 4, "hetcor_dense_l1": 4}
+# the CTAs of csrc/dense_l1.cu. dense_l1: 32 x rows (a warp each), 128 y;
+# its pre-pass 8 warps, a warp per x row. hetcor_dense_l1: 8 warps, a group
+# of 8 x rows (a warp each), 64 y, the union of the group's live s in
+# chunks of 32 staged twice over with each warp's queue of 32 + 64 tests
+# and its 64 slots; its pre-pass a CTA of 1024 threads per group, each at
+# most 16 segments of 16 mask bytes (so vp <= VP_MAX)
+WARPS = 8
+THREADS = {"dense_l1": 1024, "hetcor_dense_l1": 32 * WARPS}
+CTA_ROWS = {"dense_l1": 32, "hetcor_dense_l1": 8}
+CTA_COLS = {"dense_l1": 128, "hetcor_dense_l1": 64}
+SMEM = {"dense_l1": 0, "hetcor_dense_l1": 2 * 3 * 32 * 64 * 4 + WARPS * (16 * 96 + 8 * 64)}
+PREP_THREADS = {"dense_l1": 32 * WARPS, "hetcor_dense_l1": 1024}
+VP_MAX = 16 * 16 * 1024
 # the largest grid.y
 GRID_Y_MAX = 65535
 # elements of the largest live intermediate of the plain sweeps
@@ -50,15 +61,20 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def plan(entry: str, nx: int, ny: int) -> dict:
-    """The launch plan of an entry over an (nx, ny) slab pair, as the C
-    launcher takes it (threads, x rows and y per CTA; the launcher refuses
-    any other) with the grid it implies. No shared memory."""
-    if entry not in YPL or nx < 1 or ny < 1:
-        raise ValueError(f"dense_l1: no plan for {entry} over {nx} x {ny}")
-    cols = 32 * YPL[entry]
-    return {"threads": 32 * TX, "rows_per_cta": TX, "cols_per_cta": cols,
-            "grid": (-(-ny // cols), -(-nx // TX)), "smem_bytes": 0}
+def plan(entry: str, nx: int, ny: int, vp: int) -> dict:
+    """The launch plan of an entry over an (nx, ny) slab pair of a (vp, vp)
+    panel, as the C launcher takes it (it refuses any other): threads, x
+    rows and y per CTA, the grid (x, y) as launched (dense_l1 runs the x
+    CTAs of one y segment together, hetcor the y CTAs of one row group), the
+    dynamic shared memory; and the pre-pass's grid and threads."""
+    if entry not in CTA_ROWS or nx < 1 or ny < 1 or vp < max(nx, ny) or vp > VP_MAX:
+        raise ValueError(f"dense_l1: no plan for {entry} over {nx} x {ny} of {vp}")
+    rows, cols = CTA_ROWS[entry], CTA_COLS[entry]
+    prep = -(-nx // WARPS) if entry == "dense_l1" else -(-nx // rows)
+    grid = (-(-ny // cols), -(-nx // rows))
+    return {"threads": THREADS[entry], "rows_per_cta": rows, "cols_per_cta": cols,
+            "grid": grid[::-1] if entry == "dense_l1" else grid, "smem_bytes": SMEM[entry],
+            "prepass_grid": prep, "prepass_threads": PREP_THREADS[entry]}
 
 
 def factors(C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -168,10 +184,10 @@ def _device(who: str, C_x: torch.Tensor) -> bool:
 def _lib() -> ctypes.CDLL:
     lib = build.load("dense_l1")
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.dense_l1_launch.argtypes = [p, p, p, p, p, p, ll, i, i, ll, ll, i, i, i, p, p, p]
+    lib.dense_l1_launch.argtypes = [p, p, p, p, p, p, ll, i, i, ll, ll, i, i, i, i, p, p, p, p, p]
     lib.dense_l1_launch.restype = i
     lib.hetcor_dense_l1_launch.argtypes = [p, p, p, p, p, p, p, p, p, ll, i, i, ll, ll, f,
-                                           i, i, i, p, p]
+                                           i, i, i, i, p, p, p, p, p]
     lib.hetcor_dense_l1_launch.restype = i
     return lib
 
@@ -201,13 +217,17 @@ def dense_l1(C_x: torch.Tensor, R_x: torch.Tensor, P_x: torch.Tensor, G_x: torch
     s = torch.empty((nx, ny), dtype=torch.int32, device=C_x.device)
     if nx == 0 or ny == 0:
         return rho, s
-    pl = plan("dense_l1", nx, ny)
+    pl = plan("dense_l1", nx, ny, vp)
+    # the pre-pass's outputs (the kernel allocates nothing): each row's live
+    # s and their number
+    lst = torch.empty((nx, vp), dtype=torch.int32, device=C_x.device)
+    n_live = torch.empty(nx, dtype=torch.int32, device=C_x.device)
     with torch.cuda.device(C_x.device):
         err = _lib().dense_l1_launch(
             C_x.data_ptr(), R_x.data_ptr(), P_x.data_ptr(), G_x.data_ptr(), RT_y.data_ptr(),
             PT_y.data_ptr(), vp, nx, ny, int(x0), int(y0), pl["threads"], pl["rows_per_cta"],
-            pl["cols_per_cta"], rho.data_ptr(), s.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            pl["cols_per_cta"], pl["smem_bytes"], lst.data_ptr(), n_live.data_ptr(),
+            rho.data_ptr(), s.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dense_l1 kernel launch failed: cudaError {err}, plan {pl}")
     launches["dense_l1"] += 1
@@ -241,12 +261,19 @@ def hetcor_dense_l1(C_x: torch.Tensor, R_x: torch.Tensor, P_x: torch.Tensor,
     margin = torch.empty((nx, ny), dtype=f32, device=C_x.device)
     if nx == 0 or ny == 0:
         return margin
-    pl = plan("hetcor_dense_l1", nx, ny)
+    pl = plan("hetcor_dense_l1", nx, ny, vp)
+    # the pre-pass's outputs: each row group's union of live s and its size,
+    # each row's bit per union entry (zeroed by the launcher)
+    groups, dev, i32 = pl["prepass_grid"], C_x.device, torch.int32
+    ulist = torch.empty((groups, vp), dtype=i32, device=dev)
+    unum = torch.empty(groups, dtype=i32, device=dev)
+    bits = torch.empty((nx, -(-vp // 32)), dtype=i32, device=dev)
     with torch.cuda.device(C_x.device):
         err = _lib().hetcor_dense_l1_launch(
             C_x.data_ptr(), R_x.data_ptr(), P_x.data_ptr(), G_x.data_ptr(), N_x.data_ptr(),
             RT_y.data_ptr(), PT_y.data_ptr(), NT_y.data_ptr(), t_ix.data_ptr(), vp, nx, ny, int(x0),
             int(y0), float(th), pl["threads"], pl["rows_per_cta"], pl["cols_per_cta"],
+            pl["smem_bytes"], ulist.data_ptr(), unum.data_ptr(), bits.data_ptr(),
             margin.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"hetcor_dense_l1 kernel launch failed: cudaError {err}, plan {pl}")

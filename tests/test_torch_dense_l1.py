@@ -204,9 +204,9 @@ def test_wrappers_refuse_other_devices_and_shapes():
     with pytest.raises(ValueError):
         dk.hetcor_dense_l1(C, C, C, C.bool(), C, C, C, C, C.int()[0], 0, 0, 1.0)
     with pytest.raises(ValueError):
-        dk.plan("dense_l1", 0, 8)
+        dk.plan("dense_l1", 0, 8, 8)
     with pytest.raises(ValueError):
-        dk.plan("local_sweep", 8, 8)
+        dk.plan("local_sweep", 8, 8, 8)
 
 
 def _card():

@@ -13,7 +13,7 @@ the plan must be launchable on sm_90 (threads a multiple of 32 and at most
 the route's layout needs), cover every slot y < d, and change route exactly
 at the stated widths. ``panel_gather.plan(d, panels)`` is held to the
 launcher of ``csrc/panel_gather.cu`` likewise, for every width 1..13000, and
-``dense_l1.plan(entry, nx, ny)`` to the launcher of ``csrc/dense_l1.cu`` for
+``dense_l1.plan(entry, nx, ny, vp)`` to the launcher of ``csrc/dense_l1.cu`` for
 the slabs of the skeleton's sweeps and of the engines' rings.
 """
 
@@ -201,37 +201,59 @@ def test_gather_plan_refuses_what_the_kernel_does_not_serve():
 # --- dense_l1 -----------------------------------------------------------------
 
 
-def _check_dense(entry: str, nx: int, ny: int) -> None:
-    """What `launch` of csrc/dense_l1.cu refuses or needs: the compiled
-    block shape, a grid that covers every (x, y) once, grid.y within its
-    limit, no shared memory."""
-    p = dk.plan(entry, nx, ny)
-    where = f"dense_l1 {entry} {nx} x {ny}: {p}"
-    assert p["threads"] == 32 * dk.TX and p["rows_per_cta"] == dk.TX, where
-    assert p["cols_per_cta"] == 32 * dk.YPL[entry], where
+def _check_dense(entry: str, nx: int, ny: int, vp: int) -> None:
+    """What the launchers of csrc/dense_l1.cu refuse or need: the compiled
+    block shapes (dense_l1 32 warps, a warp per x row, and 128 y; hetcor 8
+    warps, a group of 8 x rows and 64 y), a grid that covers every (x, y) once (dense_l1's
+    x CTAs first, hetcor's y CTAs first), grid.y within its limit, the pre-passes' grids (dense_l1 a warp per x row, 8 a CTA;
+    hetcor a CTA of 1024 threads per group, each holding at most 16
+    segments of 16 mask bytes), shared memory equal to the kernels' layouts
+    (none for dense_l1; hetcor two chunks of 32 staged s of R, P and N, the
+    per-warp queues and slots), within the opt-in limit and small enough
+    that three hetcor CTAs fit an SM's 228 KB (1 KB reserved each)."""
+    p = dk.plan(entry, nx, ny, vp)
+    where = f"dense_l1 {entry} {nx} x {ny} of {vp}: {p}"
+    het = entry == "hetcor_dense_l1"
+    rows, cols = (8, 64) if het else (32, 128)
+    threads = 256 if het else 1024
+    assert p["threads"] == threads and p["rows_per_cta"] == rows and p["cols_per_cta"] == cols, where
     gx, gy = p["grid"]
-    assert (gx - 1) * p["cols_per_cta"] < ny <= gx * p["cols_per_cta"], where
-    assert (gy - 1) * p["rows_per_cta"] < nx <= gy * p["rows_per_cta"], where
+    y_ctas, x_ctas = (gx, gy) if het else (gy, gx)
+    assert (y_ctas - 1) * cols < ny <= y_ctas * cols, where
+    assert (x_ctas - 1) * rows < nx <= x_ctas * rows, where
     assert 1 <= gy <= dk.GRID_Y_MAX and gx <= 2**31 - 1, where
-    assert p["smem_bytes"] == 0, where
+    if het:
+        assert p["prepass_grid"] == x_ctas and p["prepass_threads"] == 1024, where
+        assert -(-(-(-vp // 16)) // 1024) <= 16, where
+    else:
+        assert (p["prepass_grid"] - 1) * 8 < nx <= p["prepass_grid"] * 8, where
+        assert p["prepass_threads"] == 256, where
+    want = 2 * 3 * 32 * 64 * 4 + 8 * (16 * 96 + 8 * 64) if het else 0
+    assert p["smem_bytes"] == want <= 232448, where
+    assert 3 * (p["smem_bytes"] + 1024) <= 233472, where
 
 
 @pytest.mark.parametrize("entry", ["dense_l1", "hetcor_dense_l1"])
 def test_dense_plan_is_launchable_for_the_main_paths_slabs(entry):
     """One card's slabs (ROWS x-rows, the last one ragged, against every y of
-    panels up to 16,384 and beyond) and the ring's (a stripe of vp / D rows)."""
-    for vp in (128, 1536, 10112, 11008, 16384, 65536):
-        for nx in sorted({1, 7, dk.ROWS - 1, dk.ROWS, vp % dk.ROWS or dk.ROWS}):
-            _check_dense(entry, nx, vp)
+    panels up to 16,384 and beyond), the replicated engine's (the same rows
+    of a shard's stripe) and the ring's (a stripe of vp / D columns), and
+    ragged edges (x and y counts that are no multiple of the CTA's)."""
+    for vp in (128, 1536, 2528, 3070, 10112, 11008, 12288, 16384, 65536, 262144):
+        for nx in sorted({1, 7, 33, dk.ROWS - 1, dk.ROWS, vp % dk.ROWS or dk.ROWS} & set(
+                range(vp + 1))):
+            for ny in sorted({vp, vp - 77, min(vp, 129)}):
+                _check_dense(entry, nx, ny, vp)
             for D in (2, 3, 4, 8):
-                _check_dense(entry, nx, -(-vp // D))
-    _check_dense(entry, dk.GRID_Y_MAX * dk.TX, 128)
+                _check_dense(entry, nx, -(-vp // D), vp)
+    _check_dense(entry, dk.VP_MAX, 128, dk.VP_MAX)
 
 
 @pytest.mark.parametrize("entry", ["dense_l1", "hetcor_dense_l1"])
 def test_dense_plan_refuses_what_the_kernel_does_not_serve(entry):
-    for nx, ny in ((0, 8), (8, 0), (-1, 4)):
+    for nx, ny, vp in ((0, 8, 8), (8, 0, 8), (-1, 4, 8), (9, 8, 8), (8, 9, 8),
+                       (8, 8, 262145)):
         with pytest.raises(ValueError):
-            dk.plan(entry, nx, ny)
+            dk.plan(entry, nx, ny, vp)
     with pytest.raises(ValueError):
-        dk.plan("dense", 8, 8)
+        dk.plan("dense", 8, 8, 8)
