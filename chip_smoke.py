@@ -17,7 +17,10 @@ and the script exits non-zero:
    level: no test) on both sides of every route's shared-memory limit, and
    on panels of repeated variables, whose tied minima must resolve to the
    lowest colex rank:
-   the levels 1-3 sweep (``local_sweep``; rho and positions bit-identical),
+   the levels 1-3 sweep (``local_sweep``; rho and positions bit-identical;
+   also launches as the device-resident loop makes them, every node at the
+   level's width: nodes of degree 0 .. l, one hub at the full width among
+   light nodes, every node at the full width, NaN entries, ties across s),
    the one- and two-panel gathers (``panel_gather``; int32 views equal, with
    the lists staged and read through the cache), with the main paths'
    8-node launches and bucket-sized launches (2048 nodes at widths 128, 48
@@ -40,7 +43,12 @@ and the script exits non-zero:
    card's run held bitwise to its plain version; then the reference's default
    block (11,000 markers x 16,384 individuals x 8 traits, AR(1) LD, planted
    marker->trait effects) on the card with the kernel launches counted, and
-   its largest launch per kernel re-run through the plain version;
+   its largest launch per kernel re-run through the plain version (the
+   device-resident loop's launches with the shape of what they hold,
+   `launch_shape`, level 3's time in launch order, `launch_order_ms`, and
+   levels 2-3's time without their pair tests, `tables_only_ms`); then the
+   block again with every sweep launch timed behind a spin kernel
+   (``loop_totals_11k``, summed by level);
 5. the ``cuskss`` slice: the fixture inputs on the card and on the CPU must
    write the same files (every launch checked likewise); then a 10,000-marker x 8-trait summary-statistic
    input (AR(1) mxm as a binary triangle, planted mxp effects, SE files for
@@ -82,7 +90,9 @@ and the script exits non-zero:
    markers and trait edges recovered, the PAG's trait marks, each planted
    edge's MVIVW effect and p (positive and below 1e-3, or the run fails) and
    ACE, the files' sha256; then ``cusk-all`` again under torch.profiler for
-   the device's idle share; then the analysis API over its outputs
+   the device's idle share, every sweep launch of it timed behind a spin
+   kernel (``loop_totals_genome``, summed by level); then the analysis API
+   over its outputs
    (``genome_analysis``: pleiotropy, parent and ancestor sets, causal paths,
    both association tables with every planted marker found, the planted
    edges' ACE through ``load_ace``, ``cusk_second_stage`` on the merged
@@ -172,7 +182,9 @@ however many nodes share it; the lists read once; outputs written once) over
 sheet). ``max_abs_err`` is the NaN-aware largest |kernel - plain| measured on
 that launch. The sweeps also carry ``issue_ms``, a second yardstick that an
 IEEE sqrt and division can be held to: tests x SASS instructions of the
-inner loop per test over 132 SMs x 128 lanes x the maximum SM clock; for
+inner loop's fast path per test over 132 SMs x 128 lanes x the maximum SM
+clock (``static_issue_ms`` with the loop's static count, slow paths
+included: the earlier yardstick); for
 ``hetcor_dense_l1`` the test path's instructions per test, plus the queue
 branch's for each warp that enters it (``branch_entries``) and the
 evaluation loop's for each test evaluated in full (``full_tests``: the
@@ -201,6 +213,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import hashlib
 import importlib
 import io
@@ -386,6 +399,9 @@ HETCOR_OPS = {1: 29, 2: 49, 3: 69}
 # (a division, a difference, a sqrt, a division, a tanh), the margin and the
 # time and finiteness checks
 DENSE_OPS = {"dense_l1": 6, "hetcor_dense_l1": 26}
+# the build of local_sweep.cu without the table route's pair tests, timed
+# beside the full build to split a level-2/3 launch (`tables_only_ms`)
+TABLES_ONLY = ("SWEEP_PAIR_TESTS=0",)
 # the kernel entries that the pMax phases launch, whose counts the `kernels`
 # line carries under those phases' keys
 PMAX_KERNELS = ("local_sweep_l1", "local_sweep_l2", "local_sweep_l3", "panel_gather")
@@ -458,6 +474,25 @@ def _backward_loops(instrs: list) -> list:
     return out
 
 
+def _rare_ranges(instrs: list, lo: int, hi: int, load_op: str) -> list:
+    """The ranges (a, b) inside the loop [lo, hi] that a forward branch
+    skips and that hold a CALL but no load of kind load_op: the slow paths
+    of the IEEE sqrt and division (and a local_sweep chunk's exact
+    recomputation, which takes them on the values already loaded), entered
+    only for operands outside the fast paths. A skipped range with a test's
+    load in it is a test that some lanes skip, not a slow path."""
+    out = []
+    for addr, text in instrs:
+        m = _SASS_BRANCH.search(text)
+        if not (lo <= addr <= hi and m and addr < int(m.group(1), 16) <= hi + 0x10):
+            continue
+        tgt = int(m.group(1), 16)
+        ops = [re.sub(r"^@!?U?P\d+\s+", "", t).split()[0] for a, t in instrs if addr < a < tgt]
+        if any(o.startswith("CALL") for o in ops) and not any(o.startswith(load_op) for o in ops):
+            out.append((addr, tgt))
+    return out
+
+
 def test_loop(instrs: list, load_op: str) -> dict:
     """The loop over the conditioning sets of one kernel, found in its SASS:
     the innermost loop (a backward branch with no other inside it) that takes
@@ -466,23 +501,30 @@ def test_loop(instrs: list, load_op: str) -> dict:
     Every test makes exactly one load of kind load_op (its panel entry from
     global memory at level 1, its 128-bit table entry at levels 2-3), which
     counts the tests of one pass. Returns the static count of instructions
-    in the loop's body (the rarely taken fallbacks for operands outside the
-    fast paths of sqrt and division included) and the instructions per
-    test."""
+    in the loop's body (`loop_instructions`, the rarely taken fallbacks for
+    operands outside the fast paths of sqrt and division included; the
+    earlier yardstick) and the instructions per test of the fast path alone
+    (`instructions_per_test`: the body without the slow paths that
+    `_rare_ranges` finds, which a test runs only for operands outside the
+    fast paths' ranges), beside the static count per test."""
     loops = _backward_loops(instrs)
     best = None
     for lo, hi in loops:
         if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in loops):
             continue
-        body = [t for a, t in instrs if lo <= a <= hi]
-        ops = [re.sub(r"^@!?U?P\d+\s+", "", t).split()[0] for t in body]
+        body = [(a, t) for a, t in instrs if lo <= a <= hi]
+        ops = [re.sub(r"^@!?U?P\d+\s+", "", t).split()[0] for _, t in body]
         roots = sum(o.startswith("MUFU.RSQ") for o in ops)
         if roots and not any(o.startswith(("STS", "STG", "ST.", "BAR", "ATOM", "RED"))
                              for o in ops) and (best is None or roots > best["roots"]):
+            rare = _rare_ranges(instrs, lo, hi, load_op)
+            fast = [o for (a, _), o in zip(body, ops) if not any(r0 < a < r1 for r0, r1 in rare)]
             tests = sum(o.startswith(load_op) for o in ops)
             assert tests > 0, f"no {load_op} in the loop at {lo:#x}"
             best = {"roots": roots, "loop_instructions": len(body), "loop": f"{lo:#x}-{hi:#x}",
-                    "tests_per_pass": tests, "instructions_per_test": len(body) / tests}
+                    "tests_per_pass": tests, "fast_path_instructions": len(fast),
+                    "instructions_per_test": len(fast) / tests,
+                    "static_instructions_per_test": len(body) / tests}
     assert best is not None, "no test loop found in the SASS"
     return best
 
@@ -508,12 +550,17 @@ def sm_clock_hz() -> float:
 
 
 def issue_bound(tests: int, loop: dict, clock_hz: float) -> dict:
-    """The second yardstick: the time to issue the inner loop's instructions
+    """The second yardstick: the time to issue the inner loop's fast path
     for every test at one instruction per lane and cycle on 132 SMs x 128
-    lanes, at the card's maximum SM clock."""
-    return {"issue_ms": tests * loop["instructions_per_test"] / (SMS * 128 * clock_hz) * 1e3,
+    lanes, at the card's maximum SM clock; `static_issue_ms` the same with
+    the loop's static count, fallbacks included (the earlier yardstick)."""
+    rate = SMS * 128 * clock_hz / 1e3
+    return {"issue_ms": tests * loop["instructions_per_test"] / rate,
+            "static_issue_ms": tests * loop["static_instructions_per_test"] / rate,
             "instructions_per_test": loop["instructions_per_test"],
+            "static_instructions_per_test": loop["static_instructions_per_test"],
             "loop_instructions": loop["loop_instructions"],
+            "fast_path_instructions": loop["fast_path_instructions"],
             "tests_per_pass": loop["tests_per_pass"], "sm_clock_mhz": clock_hz / 1e6}
 
 
@@ -634,14 +681,18 @@ def sweep_bound(node_ixs, nbrs, deg, vp: int, l: int, panels: int, ops: dict) ->
     node of degree 0, as the device-resident loop launches them, none);
     the distinct panel entries the lists address are read once from each
     panel (and, for hetcor, the time index of each distinct variable), the
-    index lists once, the (nt, d) outputs written once."""
+    index lists once, the (nt, d) outputs written once. sector_ms counts 32
+    bytes for every distinct sector of those entries instead of 4 for every
+    entry: what the memory system must move for the scattered reads."""
     dg = deg.cpu().numpy().astype(np.int64)
     nt, d = nbrs.shape
     tests = int(sum(int(g) * math.comb(max(int(g) - 1, 0), l) for g in dg))
-    entries, variables, _ = addressed(node_ixs, nbrs, deg, vp, pads_read_node=False)
-    n_in = 4 * panels * entries + 4 * (nt * d + 2 * nt) + (4 * variables if panels == 2 else 0)
+    entries, variables, sectors = addressed(node_ixs, nbrs, deg, vp, pads_read_node=False)
+    rest = 4 * (nt * d + 2 * nt) + (4 * variables if panels == 2 else 0)
     n_out = 4 * nt * d * ((1 + l) if panels == 1 else 1)
-    return {**bound(n_in + n_out, tests * ops[l]), "tests": tests, "distinct_entries": entries}
+    return {**bound(4 * panels * entries + rest + n_out, tests * ops[l]), "tests": tests,
+            "distinct_entries": entries, "distinct_sectors": sectors,
+            "sector_ms": (32 * panels * sectors + rest + n_out) / PEAK_BYTES * 1e3}
 
 
 def gather_bound(node_ixs, nbrs, deg, vp: int, panels: int) -> dict:
@@ -749,6 +800,21 @@ def neighbour_lists(rng, vp: int, nt: int, d: int, clustered: bool, distinct: bo
     return [torch.from_numpy(a).cuda() for a in (node_ixs, nbrs, deg)]
 
 
+def loop_lists(rng, vp: int, nt: int, d: int, l: int, full: bool, clustered: bool):
+    """Lists as a launch of the device-resident loop holds them, every node
+    at the width d: all nodes of degree d (full), or (mixed) two nodes of
+    each degree 0 .. l (no test), one hub of degree d, and light nodes of
+    degree l + 1 .. max(l + 1, d // 3); the slots past a degree keep other
+    valid indices."""
+    node_ixs, nbrs, deg = neighbour_lists(rng, vp, nt, d, clustered, lo=d)
+    if not full:
+        g = rng.integers(l + 1, max(l + 1, d // 3) + 1, nt)
+        g[: 2 * (l + 1)] = np.repeat(np.arange(l + 1), 2)
+        g[2 * (l + 1)] = d
+        deg = torch.from_numpy(rng.permutation(g).astype(np.int32)).cuda()
+    return [node_ixs, nbrs, deg]
+
+
 def tied_panels(Cd, Nd, td):
     """1024-variable panels in which every variable stands four times
     (variable i is variable i // 4 of the source panels): conditioning sets
@@ -784,10 +850,14 @@ def phase_kernels(rho_th: dict, panels) -> None:
     """local_sweep vs plain, levels 1-3, clustered and scattered lists, ragged
     degrees with a node of level + 1 and a node of level neighbours, at d in
     {8, 40, 64, 112, 120, 136, 144, 232, 240, 256, 300}: both sides of the
-    table route's limits (d = 138 at level 2, 119 at level 3) and of the
+    table routes' limits (d = 138 at level 2, 120 at level 3) and of the
     staged panel's (d = 236); level-1 nodes of width 6600 (52 CTAs a node),
     the same through the global-scratch route; and panels of repeated
-    variables, where tied minima must resolve to the lowest colex rank."""
+    variables, where tied minima must resolve to the lowest colex rank.
+    Then launches as the device-resident loop makes them, at the loop's
+    widths 8, 56, 80 and 152: nodes of degree 0 .. l among light nodes and
+    one hub at the full width, every node at the full width, and mixed
+    degrees on the repeated variables."""
     t0 = time.perf_counter()
     rng, vp, Cd, Nd, td = panels
     cases = [(d, l, None) for d in (8, 40, 64, 112, 120, 136, 144, 232, 240, 256, 300)
@@ -818,8 +888,24 @@ def phase_kernels(rho_th: dict, panels) -> None:
         n_tied += int((rho_p < pcorr.RHO_BIG).sum())
         n_cmp += 1
     assert n_tied > 0, "the panels of repeated variables gave no valid test"
-    emit("kernels_local_sweep", t0, cases=n_cmp, bit_identical=True, max_abs_err=max_err,
-         routes=sorted(routes), tied_slots=n_tied)
+    # launches as the device-resident loop makes them: every node at the
+    # level's width
+    loop_cases = 0
+    for l in (1, 2, 3):
+        for d in (8, 56, 80, 152):
+            for full, C_, clustered in ((False, Cd, True), (True, Cd, True), (False, Ct, False)):
+                args = loop_lists(rng, C_.shape[0], 96, d, l, full, clustered)
+                rho_k, pos_k = ls.local_sweep(C_, *args, l)
+                rho_p, pos_p = pcorr.local_sweep_plain(C_, *args, l)
+                torch.cuda.synchronize()
+                tag = (f"loop layout d={d} l={l} {'full' if full else 'mixed'}"
+                       f"{' ties' if C_ is Ct else ''}")
+                max_err = max(max_err, compare(tag, rho_k, pos_k, rho_p, pos_p, args[2],
+                                               rho_th[l]))
+                routes.add((l, ls.plan(l, d)["route"]))
+                loop_cases += 1
+    emit("kernels_local_sweep", t0, cases=n_cmp + loop_cases, loop_layout_cases=loop_cases,
+         bit_identical=True, max_abs_err=max_err, routes=sorted(routes), tied_slots=n_tied)
 
 
 def launch_floor_ms() -> float:
@@ -1283,29 +1369,90 @@ def sweep_entries(tag: str, rec: Recorder, launches: dict, rho_th: dict, loops: 
                   clock_hz: float) -> list:
     """The largest local_sweep launch of a run at each level 1-3, kernel vs
     plain (bit-identical) on the same tensors, timed beside its bound, its
-    issue bound and, at levels 2-3, the one-thread-per-slot route."""
+    sector bound (`sector_ms`), its issue bound and, at levels 2-3, the
+    one-thread-per-slot route and the table route without its pair tests
+    (`tables_only_ms`); level 3 on the table route also in launch order
+    (`launch_order_ms`, without the wrapper's degree order). Each carries
+    the shape of what it holds (`launch_shape`)."""
     kernels = []
     for l in (1, 2, 3):
         C, node_ixs, nbrs, deg, _ = rec.largest[("local_sweep", l)][1]
+        d = int(nbrs.shape[1])
         rho_k, pos_k = ls.local_sweep(C, node_ixs, nbrs, deg, l)
         (rho_p, pos_p), plain_ms = once_ms(
             lambda: pcorr.local_sweep_plain(C, node_ixs, nbrs, deg, l))
         err = compare(f"{tag} level {l}", rho_k, pos_k, rho_p, pos_p, deg, rho_th[l])
         bnd = sweep_bound(node_ixs, nbrs, deg, C.shape[0], l, 1, SWEEP_OPS)
-        more = {"plan": ls.plan(l, nbrs.shape[1]),
+        pl = ls.plan(l, d)
+        run = lambda: ls.local_sweep(  # noqa: E731
+            C, node_ixs, nbrs, deg, l, index_range_checked=True)
+        more = {"plan": pl, "sector_ms": bnd["sector_ms"],
+                "launch_shape": launch_shape(deg, l, d),
                 **issue_bound(bnd["tests"], loops[("local_sweep", l)], clock_hz)}
         if l > 1:  # the design the table route replaced, in the same call
-            forced = rows_plan(ls, l, nbrs.shape[1], 1)
+            forced = rows_plan(ls, l, d, 1)
             more["rows_route_ms"] = cuda_ms(lambda: ls.local_sweep(
                 C, node_ixs, nbrs, deg, l, index_range_checked=True, launch_plan=forced), reps=5)
+        if pl["route"] == ls.ROUTE_TABLE:
+            more["tables_only_ms"] = tables_only_ms(run)
+            if ls.work_order(l, deg, d, pl) is not None:
+                more["launch_order_ms"] = launch_order_ms(run)
         kernels.append(kernel_entry(
             f"local_sweep_l{l}", ls, "local_sweep", launches[f"local_sweep_l{l}"], err,
-            cuda_ms(lambda: ls.local_sweep(C, node_ixs, nbrs, deg, l,
-                                           index_range_checked=True), reps=5),
-            plain_ms,
-            bnd, None, {"nodes": int(nbrs.shape[0]), "width": int(nbrs.shape[1])}, **more,
+            cuda_ms(run, reps=5), plain_ms,
+            bnd, None, {"nodes": int(nbrs.shape[0]), "width": d}, **more,
         ))
     return kernels
+
+
+def tables_only_ms(run) -> float:
+    """ms of a table-route launch (back to back over 5) by the build without
+    its pair tests (TABLES_ONLY): the panel staging, the table builds and the
+    barriers alone; their outputs are not read."""
+    lib = ctypes.CDLL(str(build.build("local_sweep", TABLES_ONLY)))
+    saved = build.load("local_sweep")
+    build._loaded["local_sweep"] = lib
+    try:
+        return cuda_ms(run, reps=5)
+    finally:
+        build._loaded["local_sweep"] = saved
+
+
+def launch_order_ms(run) -> float:
+    """ms of a level-3 table-route launch (back to back over 5) with its CTAs
+    in launch order, the wrapper's degree order left out."""
+    saved = ls.work_order
+    ls.work_order = lambda *args: None
+    try:
+        return cuda_ms(run, reps=5)
+    finally:
+        ls.work_order = saved
+
+
+def launch_shape(deg: torch.Tensor, l: int, d: int) -> dict:
+    """What one launch holds (for the device-resident loop's, every node of
+    the block at the level's width): its nodes' degrees by classes of 8, the nodes with no test (degree <= l), tests per
+    node (quantiles, the largest, the share of the top 1% of nodes) and, at
+    level 1, the live lanes (slots y < deg) over the lanes launched (the
+    plan's threads for each node)."""
+    g = np.clip(deg.cpu().numpy().astype(np.int64), 0, d)
+    live = g > l
+    tests = np.array([int(x) * math.comb(int(x) - 1, l) for x in g[live]], dtype=np.float64)
+    top = np.sort(tests)[::-1][: max(1, len(tests) // 100)]
+    classes = np.bincount(-(-g // 8), minlength=1)
+    out = {"nodes": int(len(g)), "width": d, "no_test": int((~live).sum()),
+           "degree_by_8": {f"{8 * k - 7}-{8 * k}" if k else "0": int(n)
+                           for k, n in enumerate(classes) if n},
+           "tests": int(tests.sum()),
+           "tests_per_node_quantiles_0.1_0.5_0.9_0.99": (
+               np.quantile(tests, [0.1, 0.5, 0.9, 0.99]).tolist() if len(tests) else []),
+           "tests_per_node_max": float(tests.max()) if len(tests) else 0.0,
+           "tests_top_1pct_share": float(top.sum() / tests.sum()) if len(tests) else 0.0}
+    if l == 1:
+        pl = ls.plan(1, d)
+        lanes = pl["threads"] * pl["ctas_per_node"] / pl["nodes_per_cta"]
+        out["live_lanes_over_launched"] = float(g.sum() / (len(g) * lanes))
+    return out
 
 
 def gather_entries(tag: str, rec: Recorder, launches: dict) -> list:
@@ -1404,11 +1551,23 @@ def phase_slice(tmp: str, rho_th: dict, loops: dict, clock_hz: float):
     kernels += gather_entries("11k", rec, launches)
     emit("largest_launch_cusk", t0, kernels=kernels)
 
-    def again():
-        out2 = os.path.join(tmp, "out11k_profiled")
-        os.makedirs(out2)
+    def again(name: str = "out11k_profiled"):
+        out2 = os.path.join(tmp, name)
+        os.makedirs(out2, exist_ok=True)  # profile_sweeps may run it again
         cusk(stem + ".phen", stem, blocks, ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH,
              out2, 0, verbose=False, device="cuda")
+
+    # every local_sweep launch of a run (stage 1's loop, stage 2's) timed
+    # behind a spin kernel, summed by level
+    t0 = time.perf_counter()
+    with GatedTimer.sweeps() as timer:
+        again("out11k_gated")
+    totals = timer.totals()
+    emit("loop_totals_11k", t0, totals=totals)
+    for k in kernels:
+        if k["name"] in totals:
+            k["gated_total_ms"], k["gated_total_launches"] = (
+                totals[k["name"]]["total_ms"], totals[k["name"]]["timed_launches"])
 
     return kernels, again, wall, capture
 
@@ -2191,8 +2350,14 @@ def phase_genome(tmp: str, rho_th: dict, loops: dict, clock_hz: float) -> dict:
                          only=("cusk-all",))
 
     reset_all_launches()
-    with EveryLaunchChecked(("gather_local_panels",)) as chk, Recorder() as rec:
+    t0 = time.perf_counter()
+    # the sweep's launches also timed behind a spin kernel each (sums by
+    # level; the spins add ~0.5 ms of device time a launch to the profile)
+    with (GatedTimer.sweeps() as timer, EveryLaunchChecked(("gather_local_panels",)) as chk,
+          Recorder() as rec):
         profile_run("genome_cusk_all", again, walls["cusk-all"], cpu=False)
+    totals = timer.totals()
+    emit("loop_totals_genome", t0, totals=totals)
     assert all_launches() == launches, (all_launches(), launches)
     assert chk.checked == launches["panel_gather"], (chk.checked, launches)
 
@@ -2207,7 +2372,9 @@ def phase_genome(tmp: str, rho_th: dict, loops: dict, clock_hz: float) -> dict:
     drop = ("name", "route", "source", "replaces", "launches")
     of_entry = {k["name"]: {key: v for key, v in k.items() if key not in drop} for k in entries}
     return {name: {"launches_genome": launches[name],
-                   **({"genome": of_entry[name]} if name in of_entry else {})}
+                   **({"genome": of_entry[name]} if name in of_entry else {}),
+                   **({"gated_total_ms_genome": totals[name]["total_ms"]} if name in totals
+                      else {})}
             for name in ("local_sweep_l1", "local_sweep_l2", "local_sweep_l3", "panel_gather")}
 
 
@@ -2772,7 +2939,7 @@ def mesh_engine_runs(tag: str, run, one_dir: str, base: str, exts: tuple, parent
         if dev == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-        with DenseTimer() as timer, ShardRecorder() as rec:
+        with GatedTimer() as timer, ShardRecorder() as rec:
             reset_all_launches()
             t1 = time.perf_counter()
             run(mode, out, stats)
@@ -3229,7 +3396,7 @@ def dense_check(tag: str, name: str, args: tuple) -> dict:
 
 def dense_timed(tag: str, name: str, args: tuple, loops: dict, clock_hz: float) -> dict:
     """dense_check, then the launch timed by CUDA events beside its plain
-    version (and as DenseTimer times a launch of a run: `gated_ms`), its
+    version (and as GatedTimer times a launch of a run: `gated_ms`), its
     bound and its issue bound; for hetcor with the paths its tests take
     (`hetcor_paths`) beside the tests that count."""
     kern = getattr(dk, name)
@@ -3237,7 +3404,7 @@ def dense_timed(tag: str, name: str, args: tuple, loops: dict, clock_hz: float) 
     bnd = dense_bound(name, args)
     paths = hetcor_paths(args) if name == "hetcor_dense_l1" else {}
     return {**out, "ms": cuda_ms(lambda: kern(*args), reps=5),
-            "gated_ms": DenseTimer.one_ms(name, args), **bnd, **paths,
+            "gated_ms": GatedTimer.one_ms(name, args), **bnd, **paths,
             **dense_issue(bnd["tests"], paths, loops[name], clock_hz),
             "plan": dk.plan(name, out["x_rows"], out["y_rows"], out["panel"])}
 
@@ -3399,32 +3566,41 @@ def phase_dense_kernel(panels, loops: dict, clock_hz: float) -> dict:
     return timed
 
 
-class DenseTimer:
-    """While it is open, every dense launch on the card is timed by CUDA
-    events around its wrapper's call (hetcor's memset, the pre-pass and the
-    sweep), so that a run gives each entry's device time over all its
-    launches. A spin kernel of GATE_CYCLES clocks goes on the stream before
-    the first event: the card spins while the host makes the call (the
-    scratch allocations, the ctypes call, the launches), so the events
-    span the work on the card and not the host's gaps (`gated_ms` of a
-    largest launch, beside its `ms` back to back, shows that they do). The
-    spins themselves fall outside the events. Open it before other wrappers
-    of the entries, so that it times the call alone."""
+class GatedTimer:
+    """While it is open, every launch of the wrapped kernel entries on the
+    card is timed by CUDA events around its wrapper's call (for the dense
+    entries hetcor's memset, the pre-pass and the sweep; for the sweep the
+    level-3 order's sort and the launch), so that a run gives each entry's
+    device time over all its launches. A spin kernel of GATE_CYCLES clocks
+    goes on the stream before the first event: the card spins while the host
+    makes the call (the scratch allocations, the ctypes call, the launches),
+    so the events span the work on the card and not the host's gaps
+    (`gated_ms` of a largest launch, beside its `ms` back to back, shows
+    that they do). The spins themselves fall outside the events. Open it
+    before other wrappers of the entries, so that it times the call alone.
+    By default the dense entries of `dk` by name; `sweeps()` the levels of
+    the local sweep that the skeleton calls (`cupc.local_sweep`)."""
 
     GATE_CYCLES = 1_000_000  # ~0.5 ms at 1980 MHz
 
     @staticmethod
     def one_ms(name: str, args: tuple, reps: int = 5) -> float:
-        """The mean over reps single launches of an entry timed as the open
-        timer times each launch of a run."""
-        with DenseTimer() as timer:
+        """The mean over reps single launches of a dense entry timed as the
+        open timer times each launch of a run."""
+        with GatedTimer() as timer:
             for _ in range(reps):
                 getattr(dk, name)(*args)
         return timer.totals()[name]["total_ms"] / reps
 
-    def __init__(self):
-        self.events = {n: [] for n in DENSE}
-        self.saved = {n: getattr(dk, n) for n in DENSE}
+    @classmethod
+    def sweeps(cls):
+        return cls(cupc, ("local_sweep",), lambda name, args: f"local_sweep_l{args[4]}")
+
+    def __init__(self, owner=dk, names: tuple = DENSE, key=None):
+        self.owner, self.names = owner, names
+        self.key = key or (lambda name, args: name)
+        self.events: dict = {}
+        self.saved = {n: getattr(owner, n) for n in names}
 
     def __enter__(self):
         def timed(name):
@@ -3438,22 +3614,22 @@ class DenseTimer:
                 a.record()
                 out = kern(*args, **kw)
                 b.record()
-                self.events[name].append((a, b))
+                self.events.setdefault(self.key(name, args), []).append((a, b))
                 return out
             return run
 
-        for n in DENSE:
-            setattr(dk, n, timed(n))
+        for n in self.names:
+            setattr(self.owner, n, timed(n))
         return self
 
     def __exit__(self, *exc):
         for n, fn in self.saved.items():
-            setattr(dk, n, fn)
+            setattr(self.owner, n, fn)
 
     def totals(self) -> dict:
         torch.cuda.synchronize()
-        return {n: {"total_ms": sum(a.elapsed_time(b) for a, b in ev), "timed_launches": len(ev)}
-                for n, ev in self.events.items() if ev}
+        return {k: {"total_ms": sum(a.elapsed_time(b) for a, b in ev), "timed_launches": len(ev)}
+                for k, ev in sorted(self.events.items())}
 
 
 class HitRecorder:
@@ -3593,7 +3769,7 @@ def route_run(tag: str, route: str, run, out: str, one: dict, parent: dict | Non
     stats: dict = {}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with gates(route), DenseTimer() as timer, Recorder() as rec, HitRecorder(rho_th) as hits:
+    with gates(route), GatedTimer() as timer, Recorder() as rec, HitRecorder(rho_th) as hits:
         reset_all_launches()
         t1 = time.perf_counter()
         run(out, stats)
@@ -3940,8 +4116,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     names = ("local_sweep", "panel_gather", "hetcor_sweep", "dense_l1")
-    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(len(names) + 1) as pool:  # one nvcc per build, together
+        tables_only = pool.submit(build.build, "local_sweep", TABLES_ONLY)
         libs = list(pool.map(build.build, names))
+        tables_only.result()
     for name, lib in zip(names, libs):
         log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
         emit("build", t0, source=name, library=lib.name, ptxas=ptxas_summary(log))
@@ -4033,7 +4211,7 @@ def main() -> int:
         for k in dense:  # the engines' default level 1 in the mesh phase
             k.update(of_mesh[k["name"]])
         keep = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "shape",
-                "issue_ms")
+                "issue_ms", "static_issue_ms", "sector_ms")
         for k in kernels:  # where the default routes no longer make the list route's launches
             if k["name"] in listed:
                 k["list_route_largest"] = {key: v for key, v in listed[k["name"]].items()

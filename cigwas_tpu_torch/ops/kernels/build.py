@@ -67,23 +67,27 @@ def source_files(name: str) -> list[Path]:
     return found
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str, defines: tuple = ()) -> Path:
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    h = hashlib.sha256(" ".join(flags).encode())
     for path in source_files(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
+def build(name: str, defines: tuple = ()) -> Path:
     """Compile ``csrc/<name>.cu`` unless its keyed library exists; returns
     the library path. The compiler's output goes beside it as ``.log``.
-    Raises with nvcc's stderr if the build fails."""
-    out = library_path(name)
+    ``defines`` (``"NAME=value"``) set a source's tunables for a tuning tool;
+    the port itself builds with none. Raises with nvcc's stderr if the build
+    fails."""
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:

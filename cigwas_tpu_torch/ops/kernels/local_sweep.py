@@ -4,6 +4,9 @@
 plain version (:func:`cigwas_tpu_torch.ops.pcorr.local_sweep_plain`) for CPU
 tensors; nothing else. The kernel is built at its first launch
 (:mod:`cigwas_tpu_torch.ops.kernels.build`), never at import.
+
+A level-3 launch on ROUTE_TABLE takes its nodes by degree, largest first,
+in an order sorted on the device from ``deg`` (:func:`work_order`).
 """
 
 from __future__ import annotations
@@ -109,10 +112,24 @@ def plan(l: int, d: int) -> dict:
     return out
 
 
+def work_order(l: int, deg: torch.Tensor, d: int, pl: dict) -> torch.Tensor | None:
+    """The rows' order of a level-3 launch on ROUTE_TABLE, sorted on deg's
+    device from the degrees clipped to [0, d] as the kernel clips them: one
+    CTA a row, by degree, largest first (equal degrees in launch order),
+    those without a test (degree <= 3) last, where their CTA writes only the
+    sentinels. A node's work grows as its degree to the fourth, so the CTAs
+    that take longest start first and the launch ends on short ones. None
+    (launch order) for other levels and routes: at level 2 the degree order
+    was slower on the card (PERF.md §6)."""
+    if l != 3 or pl["route"] != ROUTE_TABLE:
+        return None
+    return torch.argsort(deg.clamp(0, d), descending=True, stable=True).to(torch.int32)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("local_sweep")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.local_sweep_launch.argtypes = [p, ll, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p]
+    lib.local_sweep_launch.argtypes = [p, ll, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p, p]
     lib.local_sweep_launch.restype = i
     return lib
 
@@ -159,12 +176,14 @@ def local_sweep(C: torch.Tensor, node_ixs: torch.Tensor, nbrs: torch.Tensor,
         if n_scratch else None
     )
     with torch.cuda.device(C.device):
+        order = work_order(l, deg, d, pl)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.local_sweep_launch(
             C.data_ptr(), vp, node_ixs.data_ptr(), nbrs.data_ptr(),
             deg.data_ptr(), nt, d, l, pl["route"], pl["threads"],
             pl["nodes_per_cta"], pl["ctas_per_node"], pl["smem_bytes"],
             scratch.data_ptr() if scratch is not None else None,
+            order.data_ptr() if order is not None else None,
             rho.data_ptr(), pos.data_ptr(), stream,
         )
     if err != 0:

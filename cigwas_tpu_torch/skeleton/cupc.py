@@ -368,8 +368,10 @@ def _level_local_dev_step(C: torch.Tensor, Gd: torch.Tensor, rho_th: float, l: i
     rows, the first d_pad kept, pad slots set to 0), one local-sweep launch
     over every node at the level's width d_pad, and G updated on the device
     by the hits alone (a node below degree l + 1 has no test, a pad slot is
-    no hit). Returns (G_new, its degrees, side (n, d_pad) bool, the lists,
-    the hits' positions (k, l) in row-major order, their rho or None)."""
+    no hit). The kernel's tests stop at each node's own degree, as JAX caps
+    its loops by `deg` and `t_hi`. Returns (G_new, its degrees, side (n,
+    d_pad) bool, the lists, the hits' positions (k, l) in row-major order,
+    their rho or None)."""
     n = Gd.shape[0]
     dev = Gd.device
     iota = torch.arange(n, dtype=torch.int32, device=dev)

@@ -17,7 +17,9 @@ launcher of ``csrc/panel_gather.cu`` likewise, for every width 1..13000, and
 the slabs of the skeleton's sweeps and of the engines' rings.
 """
 
+import numpy as np
 import pytest
+import torch
 
 from cigwas_tpu_torch.ops.kernels import dense_l1 as dk
 from cigwas_tpu_torch.ops.kernels import hetcor_sweep as hs
@@ -135,6 +137,48 @@ def test_plan_refuses_what_the_kernel_does_not_serve(kernel):
     for l, d in ((0, 8), (4, 8), (1, 0), (2, -3)):
         with pytest.raises(ValueError):
             module.plan(l, d)
+
+
+def _mixed_degrees(seed: int, nt: int, d: int, l: int):
+    """Degrees as a loop launch holds them: rows without a test (0 .. l),
+    one hub at the full width, the rest ragged."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, d + 1, nt)
+    deg[: 2 * (l + 1)] = np.repeat(np.arange(l + 1), 2)
+    deg[-1] = d
+    return rng.permutation(deg)
+
+
+@pytest.mark.parametrize("d", [8, 56, 119])
+def test_work_order_takes_every_row_once_heavy_first_testless_last(d):
+    """A level-3 launch on the table route, sorted from its degrees on their
+    own device: one CTA a row, every row once, by degree, largest first
+    (equal degrees in launch order), the rows without a test (degree <= 3)
+    last, where their CTA writes only the sentinels; degrees past d count as
+    d, as the kernel clips them."""
+    deg = _mixed_degrees(d, 700, d, 3)
+    deg[0] = d + 5
+    pl = ls.plan(3, d)
+    assert pl["route"] == ROUTE_TABLE
+    order = ls.work_order(3, torch.from_numpy(deg.astype(np.int32)), d, pl)
+    assert order.dtype == torch.int32 and order.device.type == "cpu"
+    order = order.numpy()
+    assert sorted(order.tolist()) == list(range(len(deg)))
+    g = np.minimum(deg, d)[order]
+    assert np.all(np.diff(g) <= 0)
+    live = int((deg > 3).sum())
+    assert np.all(g[:live] > 3) and np.all(g[live:] <= 3)
+    for v in np.unique(g):
+        assert np.all(np.diff(order[g == v]) > 0)
+
+
+def test_work_order_keeps_launch_order_elsewhere():
+    """Levels 1-2, and level 3 past the table route, keep the launch's own
+    order (no order is sorted)."""
+    deg = torch.from_numpy(_mixed_degrees(0, 50, 56, 2).astype(np.int32))
+    assert ls.work_order(1, deg, 152, ls.plan(1, 152)) is None
+    assert ls.work_order(2, deg, 80, ls.plan(2, 80)) is None
+    assert ls.work_order(3, deg, 200, ls.plan(3, 200)) is None
 
 
 # --- panel_gather -------------------------------------------------------------

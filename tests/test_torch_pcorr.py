@@ -81,6 +81,45 @@ def test_local_sweep_pad_slots(l):
     assert pos.shape == (6, d, l) and pos.dtype == np.int32
 
 
+@pytest.mark.parametrize("l", [1, 2, 3])
+def test_local_sweep_mixed_degrees_match_jax_pre(l):
+    """A launch as the device-resident loop makes it, every node at the
+    level's width d_pad: isolated nodes (degree 0), nodes below degree l + 1
+    (no test), one hub at d_pad among light nodes. The port's sweep against
+    JAX's
+    ``level{1,2,3}_local_sweep_pre`` on the same gathered panels; a node
+    without a test returns (RHO_BIG, 0) in every slot."""
+    import jax.numpy as jnp
+
+    from cigwas_tpu.ops import pcorr as jp
+    from cigwas_tpu_torch.ops.kernels.local_sweep import local_sweep
+
+    d = 24
+    C, node_ixs, nbrs, _ = _sweep_case(70 + l, 512, 14, d, 0.01, clustered=True)
+    deg = np.array([0, 0, 1, l, l, d, l + 1, 5, 7, 3, 9, 6, 4, 8], np.int32)
+    nbrs = np.where(np.arange(d)[None, :] < deg[:, None], nbrs, 0).astype(np.int32)
+    Cb = C[nbrs[:, :, None], nbrs[:, None, :]]
+    qb = C[node_ixs[:, None], nbrs]
+    args = (jnp.asarray(Cb), jnp.asarray(qb), jnp.asarray(deg))
+    if l == 1:
+        rho_j, pos_j = jp.level1_local_sweep_pre(*args)
+        pos_j = np.asarray(pos_j)[:, :, None]
+    else:
+        fn = jp.level2_local_sweep_pre if l == 2 else jp.level3_local_sweep_pre
+        rho_j, pos_j = fn(*args, ct=8)
+    rho_j, pos_j = np.asarray(rho_j), np.asarray(pos_j).reshape(len(deg), d, l)
+    rho_t, pos_t = local_sweep(*(torch.from_numpy(a) for a in (C, node_ixs, nbrs, deg)), l)
+    rho_t, pos_t = rho_t.numpy(), pos_t.numpy()
+    valid = np.arange(d)[None, :] < deg[:, None]
+    won = valid & (rho_j < 2.0)
+    assert won[deg > l].any() and not won[deg <= l].any()
+    assert np.array_equal(pos_t[won], pos_j[won])
+    assert np.array_equal(rho_t[valid] >= 2.0, rho_j[valid] >= 2.0)
+    np.testing.assert_allclose(rho_t[valid], rho_j[valid], rtol=RTOL, atol=ATOL)
+    assert np.all(rho_t[deg <= l] == 2.0) and np.all(pos_t[deg <= l] == 0)
+    assert np.all(rho_t[~valid] == 2.0) and np.all(pos_t[~valid] == 0)
+
+
 @pytest.mark.parametrize("l", [4, 5])
 def test_level_scan_minrho_matches_jax(l):
     """Levels >= 4: colex chunks through one-hot selections and a batched

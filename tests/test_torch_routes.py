@@ -167,6 +167,49 @@ def test_device_loop_stops_when_the_graph_runs_out_of_tests():
     np.testing.assert_array_equal(got.sepset, ref.sepset)
 
 
+def test_device_loop_with_mostly_testless_nodes_matches_jax():
+    """A panel on which most nodes have no test at level 3 (degree <= 3): a
+    cluster of eight variables of one latent factor keeps its edges through
+    every level, a few short chains and independent variables do not. The
+    loop makes one launch a level over every node; its skeleton equals
+    JAX's loop and the list route's."""
+    from cigwas_tpu.skeleton import cupc as jc
+    from cigwas_tpu_torch.skeleton import cupc
+
+    rng = np.random.default_rng(11)
+    X = rng.normal(size=(48, 4000))
+    X[:8] += 1.2 * rng.normal(size=4000)
+    for a, b in ((10, 11), (11, 12), (20, 21), (30, 31), (31, 32), (32, 33)):
+        X[b] += 0.6 * X[a]
+    C = np.corrcoef(X).astype(np.float32)
+    th = threshold_array(4000, 1e-3)
+    launched = []
+    saved = cupc.local_sweep
+
+    def checked(C_, node_ixs, nbrs, deg, l, **kw):
+        launched.append((l, int((deg > l).sum()), len(deg)))
+        return saved(C_, node_ixs, nbrs, deg, l, **kw)
+
+    cupc.local_sweep = checked
+    try:
+        with _port("device_loop"):
+            got = cupc.skeleton(C, th, 3, device="cpu")
+    finally:
+        cupc.local_sweep = saved
+    assert [l for l, _, _ in launched] == [1, 2, 3]
+    l3_live, l3_rows = launched[2][1:]
+    assert 0 < l3_live < l3_rows // 4, launched
+    with _jax("device_loop"):
+        ref = jc.skeleton(C, th, 3)
+    assert got.final_level == ref.final_level == 3
+    np.testing.assert_array_equal(got.G, ref.G)
+    np.testing.assert_array_equal(got.sepset, ref.sepset)
+    np.testing.assert_allclose(got.pmax, ref.pmax, rtol=1e-3, atol=1e-5)
+    with _port("list"):
+        default = cupc.skeleton(C, th, 3, device="cpu")
+    _assert_same(got, default, pmax_exact=True)
+
+
 def test_level1_hub_route_follows_the_gate():
     """A hub above the width gate: with the JAX package's gate values the
     cost model routes it as JAX does (local for a lone hub, dense when the
