@@ -40,20 +40,27 @@ and the script exits non-zero:
    histogram of its slab;
 4. the ``cusk`` slice: a small block on the card and on the CPU (plain
    versions) must write the same decisions, with every kernel launch of the
-   card's run held bitwise to its plain version; then the reference's default
+   card's run held bitwise to its plain version, and both devices must count
+   the same ``ci_tests`` in each skeleton stage; then the reference's default
    block (11,000 markers x 16,384 individuals x 8 traits, AR(1) LD, planted
    marker->trait effects) on the card with the kernel launches counted, and
    its largest launch per kernel re-run through the plain version (the
    device-resident loop's launches with the shape of what they hold,
    `launch_shape`, level 3's time in launch order, `launch_order_ms`, and
-   levels 2-3's time without their pair tests, `tables_only_ms`); then the
+   levels 2-3's time without their pair tests, `tables_only_ms`), and
+   ``slice_cusk_rates``: each stage's ``level2plus_tests_per_sec``
+   (``ci_tests`` over the sum of its level walls over levels >= 2, the
+   formula of ``bench.py``) and stage 1's attribution of ``skeleton_wall_s``
+   with its ``residual``, beside the card's name and power limit; then the
    block again with every sweep launch timed behind a spin kernel
    (``loop_totals_11k``, summed by level);
 5. the ``cuskss`` slice: the fixture inputs on the card and on the CPU must
-   write the same files (every launch checked likewise); then a 10,000-marker x 8-trait summary-statistic
+   write the same files (every launch checked likewise) and count the same
+   ``ci_tests`` per stage; then a 10,000-marker x 8-trait summary-statistic
    input (AR(1) mxm as a binary triangle, planted mxp effects, SE files for
    a per-entry ESS in [3e5, 5e5]) through ``cuskss`` on the card, both
-   stages, with the launches counted and the largest launch per kernel
+   stages, with the launches counted, the rates and attribution of
+   ``slice_cuskss_rates`` as in 4., and the largest launch per kernel
    re-run through the plain version;
 6. a second, warm run of each slice under torch.profiler for the device
    time by kernel, the idle share, and ``total_ms``: the device time of all
@@ -1263,18 +1270,61 @@ def phase_small_reference(tmp: str) -> None:
     small = os.path.join(tmp, "small")
     os.makedirs(small)
     stem, blocks = write_block(small, G, Y)
-    outs = {}
+    outs, counts = {}, {}
     with EveryLaunchChecked() as chk:
         for dev in ("cuda", "cpu"):
             out = os.path.join(tmp, f"small_{dev}")
             os.makedirs(out)
+            stats: dict = {}
             cusk(stem + ".phen", stem, blocks, ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH,
-                 out, 0, verbose=False, device=dev)
+                 out, 0, verbose=False, device=dev, stats=stats)
             outs[dev] = block_files(out)
+            counts[dev] = stage_counts(stats)
     assert chk.checked > 0, "the small block launched no kernel"
     worst = assert_same_outputs("small block", outs["cuda"], outs["cpu"])
+    assert_same_counts("small block", counts)
     emit("small_reference", t0, files=sorted(outs["cpu"]), cuda_equals_cpu=True,
-         corr_max_abs_diff=worst, launches_bit_identical=chk.checked)
+         corr_max_abs_diff=worst, launches_bit_identical=chk.checked, ci_tests=counts["cpu"])
+
+
+def stage_counts(stats: dict) -> dict:
+    """{stage: ci_tests} of a cusk or cuskss run's skeleton stages."""
+    return {s: stats[s].get("ci_tests", 0) for s in ("stage1", "stage2") if s in stats}
+
+
+def assert_same_counts(tag: str, counts: dict) -> None:
+    """The card's skeletons count the CPU's tests, stage by stage."""
+    if counts["cuda"] != counts["cpu"] or "stage1" not in counts["cpu"]:
+        raise AssertionError(f"{tag}: ci_tests on cuda {counts['cuda']}, on cpu {counts['cpu']}")
+
+
+def emit_rates(phase: str, t0: float, stages: dict) -> None:
+    """Each skeleton stage's level2plus_tests_per_sec (ci_tests over the sum
+    of its level_wall_s over levels >= 2, bench.py's formula) and both
+    stages' together, then stage 1's attribution of skeleton_wall_s with the
+    residual (skeleton_wall_s less the attributed parts), beside the card's
+    name and power limit."""
+    rates, tests_all, deep_all = {}, 0, 0.0
+    for name, st in stages.items():
+        lvl = st.get("level_wall_s", {})
+        deep = sum(w for l, w in lvl.items() if l >= 2)
+        tests = st.get("ci_tests", 0)
+        assert tests > 0 or not any(l >= 2 for l in lvl), (phase, name, tests, sorted(lvl))
+        assert st["skeleton_wall_s"] >= sum(lvl.values()), (phase, name)
+        rates[name] = {"ci_tests": tests, "level2plus_wall_s": deep,
+                       "level2plus_tests_per_sec": tests / deep if deep > 0 else None,
+                       "skeleton_wall_s": st["skeleton_wall_s"],
+                       "preamble_s": st.get("preamble_s")}
+        tests_all += tests
+        deep_all += deep
+    s1 = stages["stage1"]
+    attrib = {"l0_screen": s1["l0_wall_s"], "sepset_alloc": s1.get("sepset_alloc_s", 0.0),
+              "levels": sum(s1["level_wall_s"].values()),
+              "final_fetch": s1.get("final_fetch_s", 0.0)}
+    attrib["residual"] = s1["skeleton_wall_s"] - sum(attrib.values())
+    emit(phase, t0, stages=rates,
+         level2plus_tests_per_sec=tests_all / deep_all if deep_all > 0 else None,
+         stage1_attrib_s=attrib, nvidia_smi=nvidia_smi())
 
 
 class Recorder:
@@ -1544,6 +1594,7 @@ def phase_slice(tmp: str, rho_th: dict, loops: dict, clock_hz: float):
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
         **hashes_beside_parent("cusk", file_hashes(base, (".adj", ".ixs", ".mdim", ".sep"))),
     )
+    emit_rates("slice_cusk_rates", time.perf_counter(), {"stage1": s1, "stage2": s2})
 
     # the largest launch of each kernel, kernel vs plain on the card
     t0 = time.perf_counter()
@@ -1633,23 +1684,26 @@ def phase_small_cuskss(tmp: str) -> None:
             for line in lines[1:]:
                 fields = line.split()
                 f.write(" ".join(fields[:lead] + ["0.00001"] * (len(fields) - lead)) + "\n")
-    worst, checked = {}, {}
+    worst, checked, counted = {}, {}, {}
     for tag, extra in (("pearson", {}), ("hetcor", se)):
-        outs = {}
+        outs, counts = {}, {}
         with EveryLaunchChecked() as chk:
             for dev in ("cuda", "cpu"):
                 out = os.path.join(tmp, f"ss_small_{tag}_{dev}")
                 os.makedirs(out)
+                stats: dict = {}
                 cuskss(CuskssArgs.from_paths(
                     mxm=p("small_mxm.bin"), mxp=p("marker_trait_summary_stats.txt"),
                     pxp=p("trait_summary_stats.txt"), marker_indices=p("marker_indices.bin"),
                     alpha=ALPHA, num_samples=500000, max_level_one=3, max_level_two=1,
-                    max_depth=1, outdir=out, **extra), verbose=False, device=dev)
+                    max_depth=1, outdir=out, **extra), verbose=False, device=dev, stats=stats)
                 outs[dev] = block_files(out)
+                counts[dev] = stage_counts(stats)
         worst[tag] = assert_same_outputs(f"small cuskss {tag}", outs["cuda"], outs["cpu"])
-        checked[tag] = chk.checked
+        assert_same_counts(f"small cuskss {tag}", counts)
+        checked[tag], counted[tag] = chk.checked, counts["cpu"]
     emit("small_cuskss", t0, files=sorted(outs["cpu"]), cuda_equals_cpu=True,
-         corr_max_abs_diff=worst, launches_bit_identical=checked)
+         corr_max_abs_diff=worst, launches_bit_identical=checked, ci_tests=counted)
 
 
 def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list):
@@ -1706,6 +1760,7 @@ def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list):
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
         **hashes_beside_parent("cuskss", file_hashes(base, (".adj", ".ixs", ".mdim"))),
     )
+    emit_rates("slice_cuskss_rates", time.perf_counter(), {"stage1": s1, "stage2": s2})
 
     # the largest launch of each kernel, kernel vs plain on the card
     t0 = time.perf_counter()

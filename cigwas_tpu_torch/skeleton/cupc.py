@@ -168,6 +168,24 @@ def _sepset_buffer(n: int, depth: int, scratch: dict | None) -> np.ndarray:
     return buf
 
 
+def _count_tests(stats: dict | None, l: int, deg: np.ndarray,
+                 scanned: dict | None = None) -> None:
+    """Adds level l's (x, S, y) evaluations to ``stats["ci_tests"]``, as the
+    JAX package counts them: each node x with deg_x >= l + 1 tests each of
+    its conditioning sets S against its deg_x neighbours y, all
+    comb(deg_x, l) sets, or scanned[x] of them where the combinatorial
+    route's waves stopped x early. deg holds the degrees at the start of
+    the level (PC-stable). A Python int: comb(152, 14) alone is past int64."""
+    if stats is None:
+        return
+    if scanned is None:
+        vals, reps = np.unique(deg[deg >= l + 1], return_counts=True)
+        n = sum(math.comb(int(d), l) * int(d) * int(r) for d, r in zip(vals, reps))
+    else:
+        n = sum(k * int(deg[x]) for x, k in scanned.items())
+    stats["ci_tests"] = stats.get("ci_tests", 0) + n
+
+
 def _compact_neighbors(G: np.ndarray, nodes: np.ndarray, d_max: int):
     """Ascending neighbour indices per node, padded with 0, and degrees."""
     rows = G[nodes].astype(bool)
@@ -211,12 +229,15 @@ def _level_buckets(G: np.ndarray, l: int, dev, stats: dict | None):
     on the device with their index range checked, or None for dev None, det).
     det = {compact_s, sweep_s} accumulates the host compaction, check and
     upload here; the caller adds its sweep time. stats, if given, collects
-    ``launches`` and ``level_detail`` of the level."""
+    ``launches`` and ``level_detail`` of the level and, from level 2 on,
+    its ``ci_tests``."""
     deg_all = G.sum(axis=1)
     active = np.where(deg_all >= l + 1)[0]
     det = {"compact_s": 0.0, "sweep_s": 0.0}
     if stats is not None:
         stats.setdefault("level_detail", {})[l] = det
+        if l >= 2:
+            _count_tests(stats, l, deg_all)
     for d_pad, nodes in _degree_buckets(deg_all, active):
         t0 = time.perf_counter()
         nbrs, deg = _compact_neighbors(G, nodes, d_pad)
@@ -411,6 +432,8 @@ def _run_levels_local_dev(C: torch.Tensor, Gd: torch.Tensor, deg0: np.ndarray,
         if verbose:
             print(f"[skeleton] level {l}: max degree {nprime} (device loop)")
         t_level = time.perf_counter()
+        if l >= 2:  # from the degrees already on the host: no fetch for the count
+            _count_tests(stats, l, deg)
         d_pad = _pad8(nprime)
         rho_th = float(np.float32(np.tanh(float(th[l]))))
         Gd, deg_d, side_d, nbrs_d, pos_d, rho_d = _level_local_dev_step(
@@ -442,10 +465,14 @@ def _final_fetch(Gd: torch.Tensor, stats: dict | None) -> np.ndarray:
 
 
 def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
-               hetcor_args=None, engine=None, chunk: int = CHUNK):
+               hetcor_args=None, engine=None, chunk: int = CHUNK,
+               stats: dict | None = None):
     """All level-l tests (any l >= 1) over colex chunks of conditioning
     sets, the combinatorial route; returns (removed, rho_min_full,
-    rank_full) like `cigwas_tpu.skeleton.cupc._run_level`.
+    rank_full) like `cigwas_tpu.skeleton.cupc._run_level`. stats, if
+    given, gets the tests the waves scanned added to ``ci_tests``, at
+    every level this route runs, level 1 included, as the JAX package's
+    scan counts them.
 
     rho_threshold is tanh(Th[l]) for the plain skeleton. For hetcor it is
     None and hetcor_args = (N, t_ix, th): the scan returns margins, removal
@@ -484,6 +511,7 @@ def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
     for x in active:
         buckets.setdefault(_next_pow2(max(int(deg_all[x]), 8)), []).append(int(x))
     work = [(d_pad, buckets[d_pad], 0) for d_pad in sorted(buckets)]
+    scanned: dict = {}  # node -> conditioning sets scanned up to its last wave
     while work:
         next_work = []
         for d_pad, remaining, offset in work:
@@ -495,6 +523,8 @@ def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
             n_chunks = _next_pow2(
                 min(MAX_CHUNKS_PER_LAUNCH, max(1, -(-min(max_left, 1 << 30) // chunk)))
             )
+            for x in remaining:
+                scanned[x] = min(total_combos[x], offset + chunk * n_chunks)
             combos = torch.from_numpy(
                 colex_combinations_chunk(offset, chunk * n_chunks, l)
                 .reshape(n_chunks, chunk, l).astype(np.int64)
@@ -557,6 +587,7 @@ def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
             ]
             if nxt:
                 work.append((d_pad, nxt, offset))
+    _count_tests(stats, l, deg_all, scanned)
     cond = (stat_full < cut) & G
     return cond | cond.T, stat_full, rank_full
 
@@ -578,7 +609,12 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
     compaction and upload; kernel launches up to the fetch of their hits);
     after the device-resident loop ``final_fetch_s``; with want_pmax also
     ``c_fetch_wall_s`` (the panel's fetch for level 0's pMax) and
-    ``pmax_wall_s`` (level 0's pMax and the final pass, on the host).
+    ``pmax_wall_s`` (level 0's pMax and the final pass, on the host). On
+    every route also ``ci_tests``, the exact number of (x, S, y) evaluations
+    of levels >= 2 (and of level 1 where it takes the combinatorial route),
+    a Python int (:func:`_count_tests`); ``preamble_s``, entry to the start
+    of the host's level loop (level 0, the sepset buffer, the panel's fetch
+    and the device-resident loop); ``skeleton_wall_s``, entry to return.
 
     want_pmax (the JAX package's default) also returns pMax
     (`cuPC-S.cu:424-442`): level 0 writes the Fisher z of C on the pairs it
@@ -604,6 +640,7 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
     DENSE_L1_MAX, DEV_RESIDENT_MAX, L1_LOCAL_MAX_WIDTH, L1_LOCAL_COST_RATIO
     choose them, see the module docstring) all decide the same.
     """
+    t_enter = time.perf_counter()
     require_full_f32()  # the combinatorial route's one-hot selections must be exact
     th = np.asarray(thresholds, dtype=np.float32)
     if engine is not None:
@@ -613,7 +650,7 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
         G = engine.screen((C,), lambda c: pcorr.level0_keep(c, float(th[0])))
         np.fill_diagonal(G, False)
         return _skeleton_levels(C, G, th, max_level, v_real, verbose, stats, want_pmax,
-                                t_mark, engine, chunk=chunk, scratch=scratch)
+                                t_enter, t_mark, engine, chunk=chunk, scratch=scratch)
     device = resolve(device)
     if isinstance(C, torch.Tensor):
         v_real = n_var if n_var is not None else C.shape[0]
@@ -627,17 +664,18 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
     t_mark = time.perf_counter()
     G0_dev = pcorr.level0_screen(C, float(th[0]))
     G = G0_dev.cpu().numpy()
-    return _skeleton_levels(C, G, th, max_level, v_real, verbose, stats, want_pmax, t_mark,
-                            G0_dev=G0_dev, chunk=chunk, scratch=scratch)
+    return _skeleton_levels(C, G, th, max_level, v_real, verbose, stats, want_pmax, t_enter,
+                            t_mark, G0_dev=G0_dev, chunk=chunk, scratch=scratch)
 
 
 def _skeleton_levels(C, G: np.ndarray, th: np.ndarray, max_level: int, v_real: int,
-                     verbose: bool, stats: dict | None, want_pmax: bool, t_mark: float,
-                     engine=None, G0_dev: torch.Tensor | None = None, chunk: int = CHUNK,
-                     scratch: dict | None = None) -> SkeletonResult:
+                     verbose: bool, stats: dict | None, want_pmax: bool, t_enter: float,
+                     t_mark: float, engine=None, G0_dev: torch.Tensor | None = None,
+                     chunk: int = CHUNK, scratch: dict | None = None) -> SkeletonResult:
     """:func:`skeleton` from its level-0 adjacency G (and, without an engine,
     the same adjacency on the device, G0_dev) on: the sepsets, pMax and
-    levels 1 up; t_mark is when level 0 began."""
+    levels 1 up; t_enter is when :func:`skeleton` was entered, t_mark when
+    level 0 began."""
     n = G.shape[0]
     if stats is not None:
         stats["l0_wall_s"] = time.perf_counter() - t_mark
@@ -674,6 +712,8 @@ def _skeleton_levels(C, G: np.ndarray, th: np.ndarray, max_level: int, v_real: i
             C, G0_dev, deg0, th, min(lmax, 3), sepset, pmax, verbose, stats)
         start_l = lmax + 1 if stopped else final_level + 1
     del G0_dev
+    if stats is not None:
+        stats["preamble_s"] = time.perf_counter() - t_enter
     for l in range(start_l, lmax + 1):
         deg = G.sum(axis=1)
         nprime = int(deg.max()) if n else 0
@@ -697,7 +737,8 @@ def _skeleton_levels(C, G: np.ndarray, th: np.ndarray, max_level: int, v_real: i
             if pmax is not None:
                 pmax[xs, ys] = fisher_z(rho_sel)
         else:
-            removed, rho_min, rank = _run_level(C, G, l, rho_th, engine=engine, chunk=chunk)
+            removed, rho_min, rank = _run_level(C, G, l, rho_th, engine=engine, chunk=chunk,
+                                                stats=stats)
             if rho_min is not None:
                 xs, ys = np.nonzero((rho_min < rho_th) & G)
                 if pmax is not None:
@@ -724,12 +765,15 @@ def _skeleton_levels(C, G: np.ndarray, th: np.ndarray, max_level: int, v_real: i
         if stats is not None:
             stats["pmax_wall_s"] = pmax_s
 
-    return SkeletonResult(
+    res = SkeletonResult(
         G=G[:v_real, :v_real].astype(np.int32),
         sepset=sepset[:v_real, :v_real],
         final_level=final_level,
         pmax=pmax,
     )
+    if stats is not None:
+        stats["skeleton_wall_s"] = time.perf_counter() - t_enter
+    return res
 
 
 def _as_panel(M, device) -> torch.Tensor:
@@ -759,8 +803,10 @@ def hetcor_skeleton(C, G: np.ndarray, N, threshold: float, max_level: int,
 
     stats, if given, collects ``l0_wall_s``, ``level_wall_s`` {level: s},
     ``level_route`` {level: local, dense or combinatorial}, the per-bucket
-    ``launches`` {level: [(d_pad, nodes)]} and ``level_detail`` of levels
-    1-3 on the list route. Level 1 takes the list, dense or combinatorial
+    ``launches`` {level: [(d_pad, nodes)]}, ``level_detail`` of levels
+    1-3 on the list route, ``ci_tests`` as :func:`skeleton` counts them and
+    ``skeleton_wall_s``, entry to return (the JAX package's starts after
+    level 0). Level 1 takes the list, dense or combinatorial
     route as :func:`skeleton`'s does (:func:`_level_route`), levels 2-3 the
     list route unless LOCAL_LEVELS leaves them out; all decide the same.
     chunk: conditioning sets per chunk of the combinatorial route.
@@ -770,6 +816,7 @@ def hetcor_skeleton(C, G: np.ndarray, N, threshold: float, max_level: int,
     own multiple) and runs every level over its shards; the adjacency is the
     one-device path's and ``device`` is not used.
     """
+    t_enter = time.perf_counter()
     if ess_mode not in ("reference", "float"):
         raise ValueError(f"unknown ess_mode: {ess_mode!r}")
     require_full_f32()  # the level >= 4 one-hot selections must be exact
@@ -831,13 +878,16 @@ def hetcor_skeleton(C, G: np.ndarray, N, threshold: float, max_level: int,
         else:
             removed, _, _ = _run_level(
                 C, G, l, None, hetcor_args=(N_lvl, t_ix, float(threshold)), engine=engine,
-                chunk=chunk,
+                chunk=chunk, stats=stats,
             )
         G = G & ~removed
         if stats is not None:
             stats.setdefault("level_wall_s", {})[l] = time.perf_counter() - t_level
             stats.setdefault("level_route", {})[l] = route
 
-    return SkeletonResult(
+    res = SkeletonResult(
         G=G[:v_real, :v_real].astype(np.int32), sepset=None, final_level=final_level
     )
+    if stats is not None:
+        stats["skeleton_wall_s"] = time.perf_counter() - t_enter
+    return res

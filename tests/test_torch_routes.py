@@ -457,3 +457,25 @@ def test_card_routes_equal_the_cpu(route):
         ref = cupc.skeleton(C, th, lmax, device="cpu")
     np.testing.assert_array_equal(got.G, ref.G)
     np.testing.assert_array_equal(got.sepset, ref.sepset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(PORT_ROUTES))
+def test_card_routes_count_the_cpus_tests(route):
+    """On the card: each route's ci_tests, of both skeletons, equals the
+    CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the routes' kernels have no CPU build")
+    from cigwas_tpu_torch.skeleton import cupc
+
+    C, th, lmax = PANELS["factor0"]
+    Ch, N, t = _hetcor_case(0)
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        stats, hstats = {}, {}
+        with _port(route):
+            cupc.skeleton(C, th, lmax, device=dev, stats=stats)
+            cupc.hetcor_skeleton(Ch, np.ones(Ch.shape, np.int32), N, hetcor_threshold(1e-3),
+                                 14, time_index=t, device=dev, stats=hstats)
+        counts[dev] = (stats["ci_tests"], hstats.get("ci_tests", 0))
+    assert counts["cuda"] == counts["cpu"] and counts["cpu"][0] > 0
