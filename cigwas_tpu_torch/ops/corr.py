@@ -32,6 +32,7 @@ from cigwas_tpu_torch.ops.decode import (
     geno_value_valid,
     unpack_bed_codes,
 )
+from cigwas_tpu_torch.utils.timing import to_host
 
 # samples per decode step (bytes chunk = this / 4)
 DEFAULT_SAMPLE_CHUNK = 131072
@@ -292,11 +293,12 @@ def marker_phen_sums(bed_bytes, phen: np.ndarray, num_samples: int, device,
     return sums
 
 
-def marker_phen_corr_from_sums(sums, marker_mean: np.ndarray,
-                               marker_std: np.ndarray) -> np.ndarray:
+def marker_phen_corr_from_sums(sums, marker_mean: np.ndarray, marker_std: np.ndarray,
+                               stats: dict | None = None) -> np.ndarray:
     """Fetch the sums and finish r = (s_mp - mean s_p) / (n_valid std) on the
-    host, as the JAX package does."""
-    s_mp, s_p, n_val = (t.cpu().numpy() for t in sums)
+    host, as the JAX package does; stats, if given, counts the fetch's bytes
+    (:func:`~cigwas_tpu_torch.utils.timing.to_host`, site ``prescreen``)."""
+    s_mp, s_p, n_val = (to_host(t, stats, "prescreen") for t in sums)
     mean = np.asarray(marker_mean, dtype=np.float32)[:, None]
     std = np.asarray(marker_std, dtype=np.float32)[:, None]
     return (s_mp - mean * s_p) / (n_val * std)

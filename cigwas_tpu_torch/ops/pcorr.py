@@ -47,6 +47,7 @@ from cigwas_tpu_torch.ops.kernels.panel_gather import (
     gather_local_panels,
     gather_local_panels2,
 )
+from cigwas_tpu_torch.utils.timing import span, to_host
 
 # sentinel for masked or non-finite tests; |rho| <= 1 for any valid test
 RHO_BIG = 2.0
@@ -292,10 +293,13 @@ def hetcor1_hits(margin, G_rows, x0: int, y0: int) -> tuple:
     return xi + x0, yj + y0
 
 
-def fetch_hits(hits: list) -> tuple:
+def fetch_hits(hits: list, stats: dict | None = None) -> tuple:
     """The launches' hits (a non-empty list of equal-length tuples of
-    tensors, on any devices) concatenated in launch order, on the host."""
-    return tuple(torch.cat([h[k].cpu() for h in hits]).numpy() for k in range(len(hits[0])))
+    tensors, on any devices) concatenated in launch order, on the host;
+    their bytes counted in stats (:func:`~cigwas_tpu_torch.utils.timing.to_host`,
+    site ``hits``)."""
+    return tuple(np.concatenate([to_host(h[k], stats, "hits") for h in hits])
+                 for k in range(len(hits[0])))
 
 
 def dense1_slab_sweeps(C_x, R_x, P_x, G_x, ys: tuple, x0: int, y0: int, N_x=None,
@@ -345,20 +349,23 @@ def dense1_gather(sweeps, vp: int, device) -> tuple | torch.Tensor:
     return tuple(full) if len(full) > 1 else full[0]
 
 
-def dense1_screen(sweeps, vp: int, rho_th: float | None = None):
+def dense1_screen(sweeps, vp: int, rho_th: float | None = None, stats: dict | None = None):
     """The pairs that dense launches condemn from x's side, only the hits
     leaving the device. Level 1 (rho_th = tanh(Th[1])): (side (vp, vp) bool,
     xs, ys, s_sel, rho_sel) on the host, the arrays in launch and row-major
-    order. Hetcor (rho_th None, the launches' margins): side alone."""
+    order. Hetcor (rho_th None, the launches' margins): side alone. stats,
+    if given, counts the hits' bytes and the host pass that builds side
+    (``host_pass_s``, as the skeletons count it)."""
     hits = []
     for x0, y0, g, out in sweeps:
         ny = (out[0] if rho_th is not None else out).shape[1]
         g = g[:, y0 : y0 + ny]
         hits.append(hetcor1_hits(out, g, x0, y0) if rho_th is None
                     else dense1_hits(*out, g, x0, y0, rho_th))
-    got = fetch_hits(hits)
-    side = np.zeros((vp, vp), dtype=bool)
-    side[got[0], got[1]] = True
+    got = fetch_hits(hits, stats)
+    with span(stats, "host_pass_s", "cigwas.skeleton.host_pass"):
+        side = np.zeros((vp, vp), dtype=bool)
+        side[got[0], got[1]] = True
     return side if rho_th is None else (side, *got)
 
 

@@ -26,9 +26,10 @@ import argparse
 import json
 import os
 import sys
-import time
 
 import torch.distributed as dist
+
+from cigwas_tpu_torch.utils.timing import span
 
 
 def _env(*names, cast=str):
@@ -96,14 +97,15 @@ def run_partition_process(argv=None) -> int:
     from cigwas_tpu_torch.parallel.runner import run_all_blocks
 
     def one_pass():
-        t0 = time.perf_counter()
-        res = run_all_blocks(
-            a.phen, a.bfiles, a.blocks, float(a.alpha), int(a.max_level),
-            int(a.max_level_two), int(a.depth), a.outdir,
-            num_partitions=int(a.num_partitions), partition_index=int(a.partition_index),
-            verbose=False, device=a.device,
-        )
-        return res, time.perf_counter() - t0
+        walls: dict = {}
+        with span(walls, "wall_s", "cigwas.pipeline.partition"):
+            res = run_all_blocks(
+                a.phen, a.bfiles, a.blocks, float(a.alpha), int(a.max_level),
+                int(a.max_level_two), int(a.depth), a.outdir,
+                num_partitions=int(a.num_partitions), partition_index=int(a.partition_index),
+                verbose=False, device=a.device,
+            )
+        return res, walls["wall_s"]
 
     if os.environ.get("CIGWAS_WORKER_STEADY"):
         k = max(1, int(os.environ["CIGWAS_WORKER_STEADY"]))

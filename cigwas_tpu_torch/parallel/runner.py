@@ -22,7 +22,7 @@ from cigwas_tpu_torch.parallel.block_scheduler import partition_blocks
 from cigwas_tpu_torch.parallel.distributed import process_partition
 from cigwas_tpu_torch.parallel.mesh import flat_mesh, visible_devices
 from cigwas_tpu_torch.pipelines.cusk import CuskContext
-from cigwas_tpu_torch.utils.timing import StageTimer
+from cigwas_tpu_torch.utils.timing import span
 
 
 def partition_mesh(devices_per_partition: int, partition_index: int | None = None,
@@ -64,6 +64,7 @@ def run_all_blocks(
     device="cuda",
     mesh=None,
     panel_mode: str = "replicated",
+    stats: dict | None = None,
 ) -> dict:
     """Run cusk for every block assigned to this partition.
 
@@ -72,15 +73,18 @@ def run_all_blocks(
     :func:`partition_mesh` each partition uses its own device group.
 
     Returns {block_file_string: num_markers_retained | None (skipped)}.
-    With verbose, each block ends with one line: its retained markers, the
-    walls of its prepare and finish, and the card's allocated memory now and
-    at most (since the process began or the last reset of the peak
+    stats, if given, receives {block_file_string: the block's stats}: its
+    ``prepare_s`` and ``finish_s`` and the keys of
+    :meth:`~cigwas_tpu_torch.pipelines.cusk.CuskContext.finish`. With
+    verbose, each block ends with one line: its retained markers, the walls
+    of its prepare and finish, and the card's allocated memory now and at
+    most (since the process began or the last reset of the peak
     statistics).
     """
     blocks = read_blocks_from_file(block_path)
     mine = partition_blocks(blocks, num_partitions, partition_index)
     index_of = {b.to_file_string(): i for i, b in enumerate(blocks)}
-    timer = StageTimer(verbose=verbose, prefix="[run_all_blocks] ")
+    per_block = {b.to_file_string(): {} for b in mine}
     results: dict = {}
     ctx = CuskContext(
         phen_path, bed_base_path, block_path, alpha, max_level, max_level_two,
@@ -88,8 +92,8 @@ def run_all_blocks(
     )
 
     def prepare(b):
-        with timer.stage("prepare " + b.to_file_string()):
-            return ctx.prepare(index_of[b.to_file_string()])
+        stem = b.to_file_string()
+        return ctx.prepare(index_of[stem], stats=per_block[stem])
 
     # software pipeline: block i+1's host IO and the launch of its pre-screen
     # sums happen before block i's finish, so the disk read queues device
@@ -98,19 +102,22 @@ def run_all_blocks(
     for i, b in enumerate(mine):
         stem = b.to_file_string()
         cur, prepared = prepared, (prepare(mine[i + 1]) if i + 1 < len(mine) else None)
-        with timer.stage(stem):
-            res = ctx.finish(cur)
+        walls = per_block[stem]
+        with span(walls, "finish_s", "cigwas.pipeline.finish"):
+            res = ctx.finish(cur, stats=walls)
         results[stem] = None if res is None else res.num_markers()
         if verbose:
-            walls = timer.as_dict()
             now, most = ((torch.cuda.memory_allocated(ctx.device),
                           torch.cuda.max_memory_allocated(ctx.device))
                          if ctx.device.type == "cuda" else (0, 0))
             kept = "no" if res is None else results[stem]
             print(f"[run_all_blocks] [{stem}] retained {kept} markers, "
-                  f"prepare {walls['prepare ' + stem]:.3f} s, finish {walls[stem]:.3f} s, "
+                  f"prepare {walls['prepare_s']:.3f} s, finish {walls['finish_s']:.3f} s, "
                   f"device memory {now / 2**30:.3f} GiB now, {most / 2**30:.3f} GiB at most",
                   flush=True)
     if verbose:
-        print(f"[run_all_blocks] processed {len(mine)} blocks in {timer.total():.2f}s")
+        total = sum(w["prepare_s"] + w["finish_s"] for w in per_block.values())
+        print(f"[run_all_blocks] processed {len(mine)} blocks in {total:.2f}s")
+    if stats is not None:
+        stats.update(per_block)
     return results

@@ -13,8 +13,6 @@ bytes.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -49,6 +47,7 @@ from cigwas_tpu_torch.ops.corr import (
 )
 from cigwas_tpu_torch.skeleton import reduce_gcs, skeleton, subset_variables
 from cigwas_tpu_torch.utils.stats import fisher_z, threshold_array
+from cigwas_tpu_torch.utils.timing import span
 
 # largest block built by the single-pass panel; larger ones go through stripes
 FUSED_PANEL_MAX = 4096
@@ -144,18 +143,22 @@ def cusk(
 
     Returns the written ReducedGCS, or None if the block was skipped because
     no marker–phenotype correlation is significant. stats, if given, collects
-    phase walls: ``prepare_s`` (host I/O) and those of
-    :meth:`CuskContext.finish`. mesh / panel_mode: see :class:`CuskContext`.
+    phase walls: ``context_s`` (the :class:`CuskContext`: `.phen`, `.bim`,
+    `.dim`, `.blocks`, thresholds), ``prepare_s`` (host I/O) and those of
+    :meth:`CuskContext.finish`. A solved block's top-level spans, which tile
+    the call, are ``context_s``, ``prepare_s``, ``prescreen_s``,
+    ``panel_s``, ``stage1["skeleton_wall_s"]``, ``reduce_s``, ``stage2_s``
+    and ``write_s``. mesh / panel_mode: see :class:`CuskContext`.
     """
-    ctx = CuskContext(
-        phen_path, bed_base_path, block_path, alpha, max_level, max_level_two,
-        depth, outdir, verbose=verbose, device=device, mesh=mesh, panel_mode=panel_mode,
-    )
-    t = time.perf_counter()
-    prep = ctx.prepare(block_index)
-    if stats is not None:
-        stats["prepare_s"] = time.perf_counter() - t
-    return ctx.finish(prep, stats=stats)
+    with span(None, None, "cigwas.pipeline.cusk"):
+        with span(stats, "context_s", "cigwas.pipeline.context"):
+            ctx = CuskContext(
+                phen_path, bed_base_path, block_path, alpha, max_level, max_level_two,
+                depth, outdir, verbose=verbose, device=device, mesh=mesh,
+                panel_mode=panel_mode,
+            )
+        prep = ctx.prepare(block_index, stats=stats)
+        return ctx.finish(prep, stats=stats)
 
 
 class CuskContext:
@@ -228,49 +231,53 @@ class CuskContext:
         # kept across blocks: the GB-sized sepset buffers (`skeleton(scratch=)`)
         self.scratch: dict = {}
 
-    def prepare(self, block_index: int) -> dict:
-        """Host I/O plus the pre-screen sums on the device (no fetch)."""
-        block = self.blocks[block_index]
-        num_markers = block.block_size()
-        if self.verbose:
-            print(
-                f"Processing block {block_index + 1} / {len(self.blocks)} "
-                f"({num_markers} markers)"
+    def prepare(self, block_index: int, stats: dict | None = None) -> dict:
+        """Host I/O plus the pre-screen sums on the device (no fetch); its
+        wall into ``stats["prepare_s"]`` if stats is given."""
+        with span(stats, "prepare_s", "cigwas.pipeline.prepare"):
+            block = self.blocks[block_index]
+            num_markers = block.block_size()
+            if self.verbose:
+                print(
+                    f"Processing block {block_index + 1} / {len(self.blocks)} "
+                    f"({num_markers} markers)"
+                )
+            bedblock = read_block_from_bed(self.bfiles.bed(), block, self.dims, self.bim)
+            chr_start = self.bim.get_global_chr_start(block.chr_id)
+            first = chr_start + block.first_marker_ix
+            last = chr_start + block.last_marker_ix
+            means = read_floats_from_line_range(self.bfiles.means(), first, last)
+            stds = read_floats_from_line_range(self.bfiles.stds(), first, last)
+            if means.size != num_markers or stds.size != num_markers:
+                raise ValueError("block size and number of means or stds differ")
+            sums = marker_phen_sums(
+                bedblock, self.phen.data, self.dims.num_samples, self.device
             )
-        bedblock = read_block_from_bed(self.bfiles.bed(), block, self.dims, self.bim)
-        chr_start = self.bim.get_global_chr_start(block.chr_id)
-        first = chr_start + block.first_marker_ix
-        last = chr_start + block.last_marker_ix
-        means = read_floats_from_line_range(self.bfiles.means(), first, last)
-        stds = read_floats_from_line_range(self.bfiles.stds(), first, last)
-        if means.size != num_markers or stds.size != num_markers:
-            raise ValueError("block size and number of means or stds differ")
-        sums = marker_phen_sums(
-            bedblock, self.phen.data, self.dims.num_samples, self.device
-        )
-        return {
-            "block": block,
-            "bedblock": bedblock,
-            "means": means,
-            "stds": stds,
-            "mp_sums": sums,
-        }
+            return {
+                "block": block,
+                "bedblock": bedblock,
+                "means": means,
+                "stds": stds,
+                "mp_sums": sums,
+            }
 
     def finish(self, prep: dict, stats: dict | None = None):
         """Pre-screen, panel, two-stage skeleton and output write.
 
         stats, if given, receives ``prescreen_s``, ``panel_s``, ``stage1``
         (the skeleton's stats, see :func:`skeleton`), ``reduce_s``,
-        ``stage2`` and ``stage2_s``, ``retained_markers`` and the stages'
-        ``final_level`` / ``final_level_two``, and with a mesh
-        ``engine_record`` (the engine's placements, calls and copies);
-        walls are host seconds that end in a device synchronisation."""
-        t = time.perf_counter()
-        mp_corr = marker_phen_corr_from_sums(prep["mp_sums"], prep["means"], prep["stds"])
-        with np.errstate(divide="ignore", invalid="ignore"):
-            num_sig = int((fisher_z(mp_corr) >= self.Th[0]).sum())
-        if stats is not None:
-            stats["prescreen_s"] = time.perf_counter() - t
+        ``stage2`` (with its reduction's ``reduce_s``) and ``stage2_s``,
+        ``retained_markers`` and the stages' ``final_level`` /
+        ``final_level_two``, ``write_s`` (the block files), ``d2h_bytes``
+        (the pre-screen's and the reductions' fetches; the stages count
+        theirs) and with a mesh ``engine_record`` (the engine's placements,
+        calls and copies); walls are host seconds that end in a device
+        synchronisation or a fetch."""
+        with span(stats, "prescreen_s", "cigwas.pipeline.prescreen"):
+            mp_corr = marker_phen_corr_from_sums(prep["mp_sums"], prep["means"], prep["stds"],
+                                                 stats)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                num_sig = int((fisher_z(mp_corr) >= self.Th[0]).sum())
         if num_sig == 0:
             if self.verbose:
                 print("No significant correlations found. Skipping block.")
@@ -295,57 +302,58 @@ class CuskContext:
         engine = self.engine
         if engine is not None:
             stats["engine_record"] = engine.record
-        t = time.perf_counter()
-        if engine is not None:  # slabs over the mesh; trait blocks as one device's route
-            C, v_panel = engine.corr_panel_device(
-                prep["bedblock"], self.phen.data, prep["means"], prep["stds"], n,
-                mp_corr=None if num_markers <= FUSED_PANEL_MAX else mp_corr,
-            )
-        elif num_markers <= FUSED_PANEL_MAX:
-            C, v_panel = corr_panel_device(
-                prep["bedblock"], self.phen.data, prep["means"], prep["stds"], n,
-                self.device,
-            )
-        else:
-            C, v_panel = corr_panel_device_tiled(
-                prep["bedblock"], self.phen.data, prep["means"], prep["stds"], n,
-                self.device, mp_corr=mp_corr,
-            )
-        self._sync()
-        stats["panel_s"] = time.perf_counter() - t
+        with span(stats, "panel_s", "cigwas.panel.build"):
+            if engine is not None:  # slabs over the mesh; trait blocks as one device's route
+                C, v_panel = engine.corr_panel_device(
+                    prep["bedblock"], self.phen.data, prep["means"], prep["stds"], n,
+                    mp_corr=None if num_markers <= FUSED_PANEL_MAX else mp_corr,
+                )
+            elif num_markers <= FUSED_PANEL_MAX:
+                C, v_panel = corr_panel_device(
+                    prep["bedblock"], self.phen.data, prep["means"], prep["stds"], n,
+                    self.device,
+                )
+            else:
+                C, v_panel = corr_panel_device_tiled(
+                    prep["bedblock"], self.phen.data, prep["means"], prep["stds"], n,
+                    self.device, mp_corr=mp_corr,
+                )
+            self._sync()
         stats["stage1"] = {}
         res1 = skeleton(
             C, self.Th, self.max_level, device=self.device, n_var=v_panel,
             verbose=self.verbose, stats=stats["stage1"], want_pmax=False, engine=engine,
             scratch=self.scratch,
         )
-        t = time.perf_counter()
-        keep = subset_variables(res1.G, num_var, num_markers, self.depth)
-        gcs = reduce_gcs(res1.G, C, res1.sepset, keep, num_var, num_phen, self.max_level)
-        stats["final_level"] = res1.final_level
-        del C, res1
-        stats["reduce_s"] = time.perf_counter() - t
+        with span(stats, "reduce_s", "cigwas.reduce.stage1"):
+            keep = subset_variables(res1.G, num_var, num_markers, self.depth)
+            gcs = reduce_gcs(res1.G, C, res1.sepset, keep, num_var, num_phen, self.max_level,
+                             stats=stats)
+            stats["final_level"] = res1.final_level
+            del C, res1
 
         # stage 2 (`reduced_gcs_cusk`, `cli.cpp:62-87`): re-screen from the
         # reduced correlations (its level 0 rebuilds the adjacency)
         if self.verbose:
             print("Starting second cusk stage")
-        t = time.perf_counter()
-        stats["stage2"] = {}
-        res2 = skeleton(
-            gcs.C, self.Th, self.max_level_two, device=self.device,
-            verbose=self.verbose, stats=stats["stage2"], want_pmax=False,
-            engine=engine.for_stage2() if engine is not None else None, scratch=self.scratch,
-        )
-        keep2 = subset_variables(res2.G, gcs.num_var, gcs.num_markers(), self.depth)
-        gcs2 = reduce_gcs(
-            res2.G, gcs.C, res2.sepset, keep2, gcs.num_var, num_phen, ML,
-            index_map=gcs.new_to_old_indices,
-        )
-        stats["stage2_s"] = time.perf_counter() - t
+        with span(stats, "stage2_s", "cigwas.pipeline.stage2"):
+            stats["stage2"] = {}
+            res2 = skeleton(
+                gcs.C, self.Th, self.max_level_two, device=self.device,
+                verbose=self.verbose, stats=stats["stage2"], want_pmax=False,
+                engine=engine.for_stage2() if engine is not None else None,
+                scratch=self.scratch,
+            )
+            with span(stats["stage2"], "reduce_s", "cigwas.reduce.stage2"):
+                keep2 = subset_variables(res2.G, gcs.num_var, gcs.num_markers(), self.depth)
+                gcs2 = reduce_gcs(
+                    res2.G, gcs.C, res2.sepset, keep2, gcs.num_var, num_phen, ML,
+                    index_map=gcs.new_to_old_indices, stats=stats,
+                )
         stats["retained_markers"] = gcs2.num_markers()
         stats["final_level_two"] = res2.final_level
         if self.verbose:
             print(f"Retained {gcs2.num_markers()} markers")
-        gcs2.to_file(make_path(self.outdir, block.to_file_string(), ""))
+        with span(stats, "write_s", "cigwas.pipeline.write"):
+            gcs2.to_file(make_path(self.outdir, block.to_file_string(), ""))
         return gcs2

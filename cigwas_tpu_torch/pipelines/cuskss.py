@@ -13,7 +13,6 @@ device holds a whole one.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -33,6 +32,7 @@ from cigwas_tpu_torch.io import (
 from cigwas_tpu_torch.io.results import ReducedGC
 from cigwas_tpu_torch.skeleton import hetcor_skeleton, reduce_gc, subset_variables
 from cigwas_tpu_torch.utils.stats import hetcor_threshold
+from cigwas_tpu_torch.utils.timing import span
 
 
 @dataclass
@@ -201,7 +201,8 @@ def run_cusk(
     """One hetcor-skeleton stage + ancestor reduction (`run_cusk`,
     `cli.cpp:29-60`). gc.C and gc.S are numpy panels or device tensors; the
     result holds numpy. stats, if given, collects the skeleton's stats
-    (:func:`cigwas_tpu_torch.skeleton.cupc.hetcor_skeleton`) and ``reduce_s``.
+    (:func:`cigwas_tpu_torch.skeleton.cupc.hetcor_skeleton`), ``reduce_s``
+    and ``d2h_bytes`` of the reduction's fetches.
     engine: a sharded engine runs the hetcor levels over its shards (the same
     adjacency, see :func:`~cigwas_tpu_torch.pipelines.cuskss.cuskss`).
     """
@@ -211,14 +212,13 @@ def run_cusk(
         gc.C, gc.G, gc.S, threshold, max_level, time_index=time_index,
         device=device, verbose=verbose, ess_mode=ess_mode, stats=stats, engine=engine,
     )
-    t = time.perf_counter()
-    keep = subset_variables(res.G, gc.num_var, gc.num_markers(), max_depth)
-    out = reduce_gc(
-        res.G, gc.C, gc.S, keep, gc.num_var, gc.num_phen, ML,
-        index_map=gc.new_to_old_indices,
-    )
+    with span(stats, "reduce_s", "cigwas.reduce.hetcor"):
+        keep = subset_variables(res.G, gc.num_var, gc.num_markers(), max_depth)
+        out = reduce_gc(
+            res.G, gc.C, gc.S, keep, gc.num_var, gc.num_phen, ML,
+            index_map=gc.new_to_old_indices, stats=stats,
+        )
     if stats is not None:
-        stats["reduce_s"] = time.perf_counter() - t
         stats["final_level"] = res.final_level
     return out
 
@@ -231,9 +231,12 @@ def cuskss(args: CuskssArgs, verbose: bool = True, device="cuda",
     Writes `.mdim/.ixs/.adj/.corr` under ``args.outdir`` (`trait_only`,
     `cuskss_merged` or the block's name) and returns the written ReducedGC.
     stats, if given, collects ``load_s`` (host file reads), ``assemble_s``
-    (upload and panel assembly) and ``stage1`` / ``stage2``
-    (:func:`run_cusk`'s stats); with a mesh also ``engine_record``, the
-    engine's record of its placements, calls and copies.
+    (upload and panel assembly), ``init_s`` (the starting adjacency and the
+    ReducedGC), ``stage1`` / ``stage2`` (:func:`run_cusk`'s stats) with
+    ``stage1_s`` / ``stage2_s`` (each stage with its reduction) and
+    ``write_s`` (the output files): the top-level spans, which tile the
+    call; with a mesh also ``engine_record``, the engine's record of its
+    placements, calls and copies.
 
     mesh: a :class:`~cigwas_tpu_torch.parallel.mesh.Mesh` (or a list of
     devices) runs the hetcor levels over its devices; ``device`` is then its
@@ -251,7 +254,87 @@ def cuskss(args: CuskssArgs, verbose: bool = True, device="cuda",
     stats = {} if stats is None else stats
     if engine is not None:
         stats["engine_record"] = engine.record
-    t = time.perf_counter()
+    with span(None, None, "cigwas.pipeline.cuskss"):
+        with span(stats, "load_s", "cigwas.pipeline.load"):
+            inputs = _load(args)
+        th = hetcor_threshold(args.alpha)
+        num_phen = inputs["pxp"].get_num_phen()
+
+        def stage(gc, max_level, name):
+            stats[name] = {}
+            eng = engine if name == "stage1" or engine is None else engine.for_stage2()
+            with span(stats, name + "_s", "cigwas.pipeline." + name):
+                return run_cusk(
+                    gc, th, args.depth, max_level, inputs["time_index_traits"],
+                    verbose=verbose, ess_mode=args.ess_mode, device=device, stats=stats[name],
+                    engine=eng,
+                )
+
+        if args.trait_only:
+            pxp = inputs["pxp"]
+            with span(stats, "init_s", "cigwas.pipeline.init"):
+                gc = ReducedGC(
+                    num_var=num_phen,
+                    num_phen=num_phen,
+                    max_level=args.max_level_one,
+                    new_to_old_indices=np.arange(num_phen, dtype=np.int32),
+                    G=np.ones((num_phen, num_phen), dtype=np.int32),
+                    C=pxp.get_corrs(),
+                    S=pxp.get_sample_sizes(),
+                )
+            gc = stage(gc, args.max_level_one, "stage1")
+            with span(stats, "write_s", "cigwas.pipeline.write"):
+                gc.to_file(make_path(args.outdir, "trait_only", ""))
+            if verbose:
+                print(f"Retained {gc.num_markers()} markers")
+            return gc
+
+        with span(stats, "assemble_s", "cigwas.panel.assemble"):
+            # the row-sharded engine places stripes from panels assembled on the host
+            mxp, pxp = inputs["mxp"], inputs["pxp"]
+            C, N = assemble_cuskss_panels_device(
+                inputs.pop("mxm_tril"), mxp.get_corrs(), pxp.get_corrs(),
+                args.pearson_sample_size,
+                mp_ess=mxp.get_sample_sizes() if args.hetcor else None,
+                pp_ess=pxp.get_sample_sizes() if args.hetcor else None,
+                device="cpu" if engine is not None and engine.rowsharded else device,
+            )
+            num_var = C.shape[0]
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+
+        with span(stats, "init_s", "cigwas.pipeline.init"):
+            gc = ReducedGC(
+                num_var=num_var,
+                num_phen=num_phen,
+                max_level=args.max_level_one,
+                new_to_old_indices=np.arange(num_var, dtype=np.int32),
+                G=np.ones((num_var, num_var), dtype=np.int32),
+                C=C,
+                S=N,
+            )
+            del C, N
+        if verbose:
+            print("Starting first cusk stage")
+        gc = stage(gc, args.max_level_one, "stage1")
+        if args.two_stage:
+            if verbose:
+                print("Starting second cusk stage")
+            gc = stage(gc, args.max_level_two, "stage2")
+        if verbose:
+            print(f"Retained {gc.num_markers()} markers")
+        with span(stats, "write_s", "cigwas.pipeline.write"):
+            if args.merged:
+                gc.to_file(make_path(args.outdir, "cuskss_merged", ""))
+            else:
+                gc.to_file(make_path(args.outdir, inputs["block"].to_file_string(), ""))
+        return gc
+
+
+def _load(args: CuskssArgs) -> dict:
+    """:func:`cuskss`'s host reads: the traits' tables and time index and,
+    unless trait_only, the mxm triangle, the marker-trait tables and the
+    block (or None for a merged input), checked against each other."""
     if args.merged:
         marker_ixs = read_ints_from_binary(args.marker_ixs_path)
         block = None
@@ -268,32 +351,9 @@ def cuskss(args: CuskssArgs, verbose: bool = True, device="cuda",
     time_index_traits = [1] * num_phen
     if args.time_indexed:
         time_index_traits = read_ints_from_lines(args.time_index_path)
-
-    th = hetcor_threshold(args.alpha)
-
-    def stage(gc, max_level, name):
-        stats[name] = {}
-        eng = engine if name == "stage1" or engine is None else engine.for_stage2()
-        return run_cusk(
-            gc, th, args.depth, max_level, time_index_traits, verbose=verbose,
-            ess_mode=args.ess_mode, device=device, stats=stats[name], engine=eng,
-        )
-
+    out = {"pxp": pxp, "time_index_traits": time_index_traits, "block": block}
     if args.trait_only:
-        gc = ReducedGC(
-            num_var=num_phen,
-            num_phen=num_phen,
-            max_level=args.max_level_one,
-            new_to_old_indices=np.arange(num_phen, dtype=np.int32),
-            G=np.ones((num_phen, num_phen), dtype=np.int32),
-            C=pxp.get_corrs(),
-            S=pxp.get_sample_sizes(),
-        )
-        gc = stage(gc, args.max_level_one, "stage1")
-        gc.to_file(make_path(args.outdir, "trait_only", ""))
-        if verbose:
-            print(f"Retained {gc.num_markers()} markers")
-        return gc
+        return out
 
     mxm_tril = np.fromfile(args.mxm_path, dtype=np.float32)
     se_path = args.mxp_se_path if args.hetcor else None
@@ -305,43 +365,4 @@ def cuskss(args: CuskssArgs, verbose: bool = True, device="cuda",
         raise ValueError("Numbers of traits seem to differ between pxp and mxp")
     if _tril_num_markers(mxm_tril.size) != mxp.get_num_markers():
         raise ValueError("Numbers of markers seem to differ between mxm and mxp")
-    stats["load_s"] = time.perf_counter() - t
-
-    t = time.perf_counter()
-    # the row-sharded engine places stripes from panels assembled on the host
-    C, N = assemble_cuskss_panels_device(
-        mxm_tril, mxp.get_corrs(), pxp.get_corrs(), args.pearson_sample_size,
-        mp_ess=mxp.get_sample_sizes() if args.hetcor else None,
-        pp_ess=pxp.get_sample_sizes() if args.hetcor else None,
-        device="cpu" if engine is not None and engine.rowsharded else device,
-    )
-    del mxm_tril
-    num_var = C.shape[0]
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    stats["assemble_s"] = time.perf_counter() - t
-
-    gc = ReducedGC(
-        num_var=num_var,
-        num_phen=num_phen,
-        max_level=args.max_level_one,
-        new_to_old_indices=np.arange(num_var, dtype=np.int32),
-        G=np.ones((num_var, num_var), dtype=np.int32),
-        C=C,
-        S=N,
-    )
-    del C, N
-    if verbose:
-        print("Starting first cusk stage")
-    gc = stage(gc, args.max_level_one, "stage1")
-    if args.two_stage:
-        if verbose:
-            print("Starting second cusk stage")
-        gc = stage(gc, args.max_level_two, "stage2")
-    if verbose:
-        print(f"Retained {gc.num_markers()} markers")
-    if args.merged:
-        gc.to_file(make_path(args.outdir, "cuskss_merged", ""))
-    else:
-        gc.to_file(make_path(args.outdir, block.to_file_string(), ""))
-    return gc
+    return {**out, "mxm_tril": mxm_tril, "mxp": mxp}

@@ -46,7 +46,6 @@ rank among ties.
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -64,6 +63,7 @@ from cigwas_tpu_torch.ops.kernels.panel_gather import (
 )
 from cigwas_tpu_torch.utils.combinatorics import colex_combinations_chunk, colex_unrank
 from cigwas_tpu_torch.utils.stats import fisher_z
+from cigwas_tpu_torch.utils.timing import span, to_host
 
 # combos per chunk of the combinatorial scan
 CHUNK = 512
@@ -223,6 +223,12 @@ def panel_from_numpy(C: np.ndarray, v_real: int, device) -> torch.Tensor:
     return torch.from_numpy(np.pad(C, ((0, pad), (0, pad)))).to(device)
 
 
+def _host_pass(stats: dict | None) -> span:
+    """The span of a host pass over an (n, n) or (n, n, depth) array between
+    launches: degree sums, removal masks, adjacency updates, sepset folds."""
+    return span(stats, "host_pass_s", "cigwas.skeleton.host_pass")
+
+
 def _level_buckets(G: np.ndarray, l: int, dev, stats: dict | None):
     """The launches of a level l <= 3: for each degree bucket of the nodes
     with more than l neighbours, yields (nodes, nbrs, deg, (nodes, nbrs, deg)
@@ -231,7 +237,8 @@ def _level_buckets(G: np.ndarray, l: int, dev, stats: dict | None):
     upload here; the caller adds its sweep time. stats, if given, collects
     ``launches`` and ``level_detail`` of the level and, from level 2 on,
     its ``ci_tests``."""
-    deg_all = G.sum(axis=1)
+    with _host_pass(stats):
+        deg_all = G.sum(axis=1)
     active = np.where(deg_all >= l + 1)[0]
     det = {"compact_s": 0.0, "sweep_s": 0.0}
     if stats is not None:
@@ -239,10 +246,9 @@ def _level_buckets(G: np.ndarray, l: int, dev, stats: dict | None):
         if l >= 2:
             _count_tests(stats, l, deg_all)
     for d_pad, nodes in _degree_buckets(deg_all, active):
-        t0 = time.perf_counter()
-        nbrs, deg = _compact_neighbors(G, nodes, d_pad)
-        on_dev = None if dev is None else _upload_lists(nodes, nbrs, deg, G.shape[0], dev)
-        det["compact_s"] += time.perf_counter() - t0
+        with span(det, "compact_s", "cigwas.skeleton.compact"):
+            nbrs, deg = _compact_neighbors(G, nodes, d_pad)
+            on_dev = None if dev is None else _upload_lists(nodes, nbrs, deg, G.shape[0], dev)
         if stats is not None:
             stats.setdefault("launches", {}).setdefault(l, []).append(
                 (int(d_pad), int(len(nodes)))
@@ -308,21 +314,21 @@ def _run_level_local(C, G: np.ndarray, l: int, rho_threshold: float,
     xs_l, ys_l, sep_l, rho_l = [], [], [], []
     dev = None if engine is not None else C.device
     for nodes, nbrs, deg, on_dev, det in _level_buckets(G, l, dev, stats):
-        t1 = time.perf_counter()
-        launched = []
-        for k, sl in _shard_parts(engine, C, nodes, nbrs):
-            (Ck,), lists, _ = _part_args(engine, (C,), k, nodes[sl], nbrs[sl], deg[sl],
-                                         on_dev, (), f"local_sweep_l{l}")
-            rho, pos = local_sweep(Ck, *lists, l, index_range_checked=True)
-            launched.append((sl, rho, pos, lists[2]))
-        fetched = []
-        for sl, rho, pos, deg_t in launched:
-            ri, ci = _hits(rho, rho_threshold, deg_t)
-            pos_h = pos[ri, ci].cpu().numpy()
-            if want_rho:
-                rho_l.append(rho[ri, ci].cpu().numpy())
-            fetched.append((ri.cpu().numpy() + sl.start, ci.cpu().numpy(), pos_h))
-        det["sweep_s"] += time.perf_counter() - t1  # ends in the hits' fetch
+        with span(det, "sweep_s", "cigwas.skeleton.sweep"):  # ends in the hits' fetch
+            launched = []
+            for k, sl in _shard_parts(engine, C, nodes, nbrs):
+                (Ck,), lists, _ = _part_args(engine, (C,), k, nodes[sl], nbrs[sl], deg[sl],
+                                             on_dev, (), f"local_sweep_l{l}")
+                rho, pos = local_sweep(Ck, *lists, l, index_range_checked=True)
+                launched.append((sl, rho, pos, lists[2]))
+            fetched = []
+            for sl, rho, pos, deg_t in launched:
+                ri, ci = _hits(rho, rho_threshold, deg_t)
+                pos_h = to_host(pos[ri, ci], stats, "hits")
+                if want_rho:
+                    rho_l.append(to_host(rho[ri, ci], stats, "hits"))
+                fetched.append((to_host(ri, stats, "hits") + sl.start,
+                                to_host(ci, stats, "hits"), pos_h))
         for ri, ci, pos_h in fetched:
             xs_l.append(nodes[ri])
             ys_l.append(nbrs[ri, ci])
@@ -333,9 +339,10 @@ def _run_level_local(C, G: np.ndarray, l: int, rho_threshold: float,
     rho_sel = None
     if want_rho:
         rho_sel = np.concatenate(rho_l) if rho_l else np.empty(0, np.float32)
-    removed = np.zeros((n, n), dtype=bool)
-    removed[xs, ys] = True
-    removed[ys, xs] = True
+    with _host_pass(stats):
+        removed = np.zeros((n, n), dtype=bool)
+        removed[xs, ys] = True
+        removed[ys, xs] = True
     return removed, xs, ys, sep, rho_sel
 
 
@@ -348,36 +355,41 @@ def _run_level_local_hetcor(C, N, t_ix, G: np.ndarray, l: int, th: float,
     Only the hits leave the device. Several nodes' pad slots may point at the
     same variable, so the hits alone are written (an idempotent scatter), never
     the misses."""
-    cond = np.zeros(G.shape, dtype=bool)
+    with _host_pass(stats):
+        cond = np.zeros(G.shape, dtype=bool)
     dev = None if engine is not None else C.device
     for nodes, nbrs, deg, on_dev, det in _level_buckets(G, l, dev, stats):
-        t1 = time.perf_counter()
-        launched = []
-        for k, sl in _shard_parts(engine, C, nodes, nbrs):
-            (Ck, Nk), lists, (tk,) = _part_args(engine, (C, N), k, nodes[sl], nbrs[sl],
-                                                deg[sl], on_dev, (t_ix,), f"hetcor_sweep_l{l}")
-            margin = hetcor_local_sweep(Ck, Nk, tk, *lists, th, l, index_range_checked=True)
-            launched.append((sl, margin, lists[2]))
-        fetched = [(sl.start, *(t.cpu().numpy() for t in _hits(margin, 0.0, deg_t)))
-                   for sl, margin, deg_t in launched]
-        det["sweep_s"] += time.perf_counter() - t1  # ends in the hits' fetch
+        with span(det, "sweep_s", "cigwas.skeleton.sweep"):  # ends in the hits' fetch
+            launched = []
+            for k, sl in _shard_parts(engine, C, nodes, nbrs):
+                (Ck, Nk), lists, (tk,) = _part_args(engine, (C, N), k, nodes[sl], nbrs[sl],
+                                                    deg[sl], on_dev, (t_ix,),
+                                                    f"hetcor_sweep_l{l}")
+                margin = hetcor_local_sweep(Ck, Nk, tk, *lists, th, l, index_range_checked=True)
+                launched.append((sl, margin, lists[2]))
+            fetched = [(sl.start, *(to_host(t, stats, "hits") for t in _hits(margin, 0.0, deg_t)))
+                       for sl, margin, deg_t in launched]
         for start, ri, ci in fetched:
             cond[nodes[ri + start], nbrs[ri + start, ci]] = True
-    cond &= G
-    return cond | cond.T
+    with _host_pass(stats):
+        cond &= G
+        return cond | cond.T
 
 
-def _run_level_dense1(C, G: np.ndarray, rho_threshold: float, engine=None):
+def _run_level_dense1(C, G: np.ndarray, rho_threshold: float, engine=None,
+                      stats: dict | None = None):
     """Level 1 by the dense route (`cigwas_tpu.skeleton.cupc.
     _run_level_dense1` / `_run_level_dense1_engine`): one dense launch per
     x-row slab (per slab of each shard with an engine), only the hits
     fetched. Returns (removed, xs, ys, sep (k, 1), rho_sel) as
     :func:`_run_level_local` returns them."""
     sweeps = (pcorr.dense1_sweeps if engine is None else engine.dense1_sweeps)(C, G)
-    _, xs, ys, s_sel, rho_sel = pcorr.dense1_screen(sweeps, G.shape[0], rho_threshold)
-    removed = np.zeros(G.shape, dtype=bool)
-    removed[xs, ys] = True
-    removed[ys, xs] = True
+    _, xs, ys, s_sel, rho_sel = pcorr.dense1_screen(sweeps, G.shape[0], rho_threshold,
+                                                    stats=stats)
+    with _host_pass(stats):
+        removed = np.zeros(G.shape, dtype=bool)
+        removed[xs, ys] = True
+        removed[ys, xs] = True
     return removed, xs, ys, s_sel.astype(np.int32)[:, None], rho_sel
 
 
@@ -431,25 +443,25 @@ def _run_levels_local_dev(C: torch.Tensor, Gd: torch.Tensor, deg0: np.ndarray,
             return _final_fetch(Gd, stats), l - 1, True
         if verbose:
             print(f"[skeleton] level {l}: max degree {nprime} (device loop)")
-        t_level = time.perf_counter()
-        if l >= 2:  # from the degrees already on the host: no fetch for the count
-            _count_tests(stats, l, deg)
-        d_pad = _pad8(nprime)
-        rho_th = float(np.float32(np.tanh(float(th[l]))))
-        Gd, deg_d, side_d, nbrs_d, pos_d, rho_d = _level_local_dev_step(
-            C, Gd, rho_th, l, d_pad, pmax is not None)
-        deg = deg_d.cpu().numpy()
-        side = side_d.cpu().numpy()
-        nbrs = nbrs_d.cpu().numpy()
-        pos = pos_d.cpu().numpy()
-        xs, slots = np.nonzero(side)
-        ys = nbrs[xs, slots]
-        sepset[xs, ys, l:] = -1
-        sepset[xs, ys, :l] = nbrs[xs[:, None], pos]  # positions -> variable indices
-        if pmax is not None:
-            pmax[xs, ys] = fisher_z(rho_d.cpu().numpy())
+        with span(stats, ("level_wall_s", l), f"cigwas.skeleton.level{l}"):
+            if l >= 2:  # from the degrees already on the host: no fetch for the count
+                _count_tests(stats, l, deg)
+            d_pad = _pad8(nprime)
+            rho_th = float(np.float32(np.tanh(float(th[l]))))
+            with span(None, None, "cigwas.skeleton.loop_step"):
+                Gd, deg_d, side_d, nbrs_d, pos_d, rho_d = _level_local_dev_step(
+                    C, Gd, rho_th, l, d_pad, pmax is not None)
+            deg, side, nbrs, pos = (to_host(t, stats, "loop_lists")
+                                    for t in (deg_d, side_d, nbrs_d, pos_d))
+            rho = None if pmax is None else to_host(rho_d, stats, "loop_lists")
+            with _host_pass(stats):
+                xs, slots = np.nonzero(side)
+                ys = nbrs[xs, slots]
+                sepset[xs, ys, l:] = -1
+                sepset[xs, ys, :l] = nbrs[xs[:, None], pos]  # positions -> variable indices
+                if pmax is not None:
+                    pmax[xs, ys] = fisher_z(rho)
         if stats is not None:
-            stats.setdefault("level_wall_s", {})[l] = time.perf_counter() - t_level
             stats.setdefault("launches", {})[l] = [(d_pad, n)]
             stats.setdefault("level_route", {})[l] = "device_loop"
         final_level = l
@@ -457,11 +469,8 @@ def _run_levels_local_dev(C: torch.Tensor, Gd: torch.Tensor, deg0: np.ndarray,
 
 
 def _final_fetch(Gd: torch.Tensor, stats: dict | None) -> np.ndarray:
-    t_mark = time.perf_counter()
-    G = Gd.cpu().numpy()
-    if stats is not None:
-        stats["final_fetch_s"] = time.perf_counter() - t_mark
-    return G
+    with span(stats, "final_fetch_s", "cigwas.skeleton.final_fetch"):
+        return to_host(Gd, stats, "final_adjacency")
 
 
 def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
@@ -489,11 +498,12 @@ def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
     bucket, because where a node stops decides which later sets it never
     tests, and so its sepsets."""
     n = G.shape[0]
-    deg_all = G.sum(axis=1)
+    with _host_pass(stats):
+        deg_all = G.sum(axis=1)
     active = np.where(deg_all >= l + 1)[0]
-    removed = np.zeros((n, n), dtype=bool)
     if active.size == 0:
-        return removed, None, None
+        with _host_pass(stats):
+            return np.zeros((n, n), dtype=bool), None, None
     dev = None if engine is not None else C.device
     cut = 0.0 if hetcor_args is not None else rho_threshold
     panels, vectors = (C,), ()
@@ -501,12 +511,13 @@ def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
         N, t_ix, th = hetcor_args
         panels, vectors = (C, N), (t_ix,)
     kernel = "panel_gather2" if hetcor_args is not None else "panel_gather"
-    stat_full = np.full((n, n), np.inf, dtype=np.float32)
     total_combos = {int(x): math.comb(int(deg_all[x]), l) for x in active}
     rank_dtype = (
         object if max(total_combos.values(), default=0) > (1 << 62) else np.int64
     )
-    rank_full = np.zeros((n, n), dtype=rank_dtype)
+    with _host_pass(stats):
+        stat_full = np.full((n, n), np.inf, dtype=np.float32)
+        rank_full = np.zeros((n, n), dtype=rank_dtype)
     buckets: dict = {}
     for x in active:
         buckets.setdefault(_next_pow2(max(int(deg_all[x]), 8)), []).append(int(x))
@@ -563,11 +574,11 @@ def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
                             t_k[tile_t.long()].float(), deg_t.long(), combos_seq,
                             left_seq, th, l,
                         ), None))
-                rho_c = np.concatenate([r.cpu().numpy() for r, _ in launched])
+                rho_c = np.concatenate([to_host(r, stats, "hits") for r, _ in launched])
                 rank_c = None
                 if hetcor_args is None:
-                    rank_c = np.concatenate(
-                        [r.cpu().numpy() for _, r in launched]).astype(rank_dtype) + offset
+                    ranks = [to_host(r, stats, "hits") for _, r in launched]
+                    rank_c = np.concatenate(ranks).astype(rank_dtype) + offset
                 valid = np.arange(d_pad)[None, :] < deg[:, None]
                 x_idx = np.repeat(tile, d_pad).reshape(len(tile), d_pad)[valid]
                 y_idx = nbrs[valid]
@@ -577,8 +588,9 @@ def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
                 if rank_c is not None:
                     rank_full[x_idx[better], y_idx[better]] = rank_c[valid][better]
             next_work.append((d_pad, remaining, offset + chunk * n_chunks))
-        cond = (stat_full < cut) & G
-        live_edge = G & ~(cond | cond.T)
+        with _host_pass(stats):
+            cond = (stat_full < cut) & G
+            live_edge = G & ~(cond | cond.T)
         work = []
         for d_pad, remaining, offset in next_work:
             nxt = [
@@ -588,8 +600,9 @@ def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
             if nxt:
                 work.append((d_pad, nxt, offset))
     _count_tests(stats, l, deg_all, scanned)
-    cond = (stat_full < cut) & G
-    return cond | cond.T, stat_full, rank_full
+    with _host_pass(stats):
+        cond = (stat_full < cut) & G
+        return cond | cond.T, stat_full, rank_full
 
 
 def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
@@ -614,7 +627,14 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
     of levels >= 2 (and of level 1 where it takes the combinatorial route),
     a Python int (:func:`_count_tests`); ``preamble_s``, entry to the start
     of the host's level loop (level 0, the sepset buffer, the panel's fetch
-    and the device-resident loop); ``skeleton_wall_s``, entry to return.
+    and the device-resident loop); ``skeleton_wall_s``, entry to return;
+    ``host_pass_s``, the host passes over (n, n) and (n, n, depth) arrays
+    between launches (degree sums, removal masks, adjacency updates, sepset
+    folds, the final cast); ``d2h_bytes`` {site: bytes} of its fetches. Each
+    wall is a :class:`~cigwas_tpu_torch.utils.timing.span`, named
+    ``cigwas.skeleton.*`` in a profiler's trace; each fetch goes through
+    :func:`~cigwas_tpu_torch.utils.timing.to_host` (the engines' own fetches
+    are not counted).
 
     want_pmax (the JAX package's default) also returns pMax
     (`cuPC-S.cu:424-442`): level 0 writes the Fisher z of C on the pairs it
@@ -640,17 +660,62 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
     DENSE_L1_MAX, DEV_RESIDENT_MAX, L1_LOCAL_MAX_WIDTH, L1_LOCAL_COST_RATIO
     choose them, see the module docstring) all decide the same.
     """
-    t_enter = time.perf_counter()
-    require_full_f32()  # the combinatorial route's one-hot selections must be exact
-    th = np.asarray(thresholds, dtype=np.float32)
+    with span(stats, "skeleton_wall_s", "cigwas.skeleton.pc"):
+        with span(stats, "preamble_s", "cigwas.skeleton.preamble"):
+            require_full_f32()  # the combinatorial route's one-hot selections must be exact
+            th = np.asarray(thresholds, dtype=np.float32)
+            C, G, G0_dev, v_real = _level0(C, th, device, n_var, engine, stats)
+            n = G.shape[0]
+            lmax = min(ML, max_level)
+            with span(stats, "sepset_alloc_s", "cigwas.skeleton.sepset_fill"):
+                sepset = _sepset_buffer(n, max(1, lmax), scratch)
+            pmax = None
+            if want_pmax:
+                # level 0: the Fisher z of C on the pairs it deleted, 0 elsewhere,
+                # over the real variables only (pads never re-enter)
+                with span(stats, "c_fetch_wall_s", "cigwas.skeleton.pmax_fetch"):
+                    pmax = (to_host(C[:v_real, :v_real], stats, "pmax_panel", copy=True)
+                            if engine is None else engine.fetch(C, v_real))
+                with span(stats, "pmax_wall_s", "cigwas.skeleton.pmax"):
+                    _fisher_z_inplace(pmax)
+                    kept0 = G[:v_real, :v_real]
+                    pmax[kept0] = 0.0
+                    np.fill_diagonal(pmax, 0.0)
+            final_level, start_l = 0, 1
+            with _host_pass(stats):
+                deg0 = G.sum(axis=1)
+            # the loop before the level-1 gate (the JAX package checks the gate
+            # first, to dispatch a dense level 1 early; on the card the loop won)
+            if (G0_dev is not None and LOCAL_LEVELS == (2, 3) and lmax >= 1 and n
+                    and _pad8(deg0.max()) <= _DEV_RESIDENT_WIDTH and n <= DEV_RESIDENT_MAX):
+                G, final_level, stopped = _run_levels_local_dev(
+                    C, G0_dev, deg0, th, min(lmax, 3), sepset, pmax, verbose, stats)
+                start_l = lmax + 1 if stopped else final_level + 1
+            del G0_dev
+        G, final_level = _host_levels(C, G, th, start_l, lmax, final_level, sepset, pmax,
+                                      verbose, stats, engine, chunk)
+        if pmax is not None:  # both sides' max; the kept edges' sentinel; 1 on the diagonal
+            with span(stats, "pmax_wall_s", "cigwas.skeleton.pmax"):
+                pmax = np.maximum(pmax, pmax.T)
+                pmax[G[:v_real, :v_real]] = PMAX_RETAINED
+                np.fill_diagonal(pmax, 1.0)
+        with _host_pass(stats):
+            G_out = G[:v_real, :v_real].astype(np.int32)
+        return SkeletonResult(G=G_out, sepset=sepset[:v_real, :v_real],
+                              final_level=final_level, pmax=pmax)
+
+
+def _level0(C, th: np.ndarray, device, n_var: int | None, engine, stats: dict | None):
+    """:func:`skeleton`'s level 0: (C as the levels read it, the level-0
+    adjacency on the host, the same on the device or None with an engine,
+    the number of real variables)."""
     if engine is not None:
         v_real = n_var if n_var is not None else C.shape[0]
         C = engine.as_panel(C, v_real)
-        t_mark = time.perf_counter()
-        G = engine.screen((C,), lambda c: pcorr.level0_keep(c, float(th[0])))
-        np.fill_diagonal(G, False)
-        return _skeleton_levels(C, G, th, max_level, v_real, verbose, stats, want_pmax,
-                                t_enter, t_mark, engine, chunk=chunk, scratch=scratch)
+        with span(stats, "l0_wall_s", "cigwas.skeleton.level0"):
+            G = engine.screen((C,), lambda c: pcorr.level0_keep(c, float(th[0])))
+            np.fill_diagonal(G, False)
+        return C, G, None, v_real
     device = resolve(device)
     if isinstance(C, torch.Tensor):
         v_real = n_var if n_var is not None else C.shape[0]
@@ -661,119 +726,64 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
     else:
         v_real = n_var if n_var is not None else np.asarray(C).shape[0]
         C = panel_from_numpy(C, v_real, device)
-    t_mark = time.perf_counter()
-    G0_dev = pcorr.level0_screen(C, float(th[0]))
-    G = G0_dev.cpu().numpy()
-    return _skeleton_levels(C, G, th, max_level, v_real, verbose, stats, want_pmax, t_enter,
-                            t_mark, G0_dev=G0_dev, chunk=chunk, scratch=scratch)
+    with span(stats, "l0_wall_s", "cigwas.skeleton.level0"):
+        G0_dev = pcorr.level0_screen(C, float(th[0]))
+        G = to_host(G0_dev, stats, "l0_adjacency")
+    return C, G, G0_dev, v_real
 
 
-def _skeleton_levels(C, G: np.ndarray, th: np.ndarray, max_level: int, v_real: int,
-                     verbose: bool, stats: dict | None, want_pmax: bool, t_enter: float,
-                     t_mark: float, engine=None, G0_dev: torch.Tensor | None = None,
-                     chunk: int = CHUNK, scratch: dict | None = None) -> SkeletonResult:
-    """:func:`skeleton` from its level-0 adjacency G (and, without an engine,
-    the same adjacency on the device, G0_dev) on: the sepsets, pMax and
-    levels 1 up; t_enter is when :func:`skeleton` was entered, t_mark when
-    level 0 began."""
+def _host_levels(C, G: np.ndarray, th: np.ndarray, start_l: int, lmax: int, final_level: int,
+                 sepset: np.ndarray, pmax: np.ndarray | None, verbose: bool,
+                 stats: dict | None, engine, chunk: int):
+    """:func:`skeleton`'s host loop, levels start_l..lmax from the adjacency
+    G: each level's route, its deletions and sepsets (and pMax). Returns (G,
+    final level)."""
     n = G.shape[0]
-    if stats is not None:
-        stats["l0_wall_s"] = time.perf_counter() - t_mark
-    t_mark = time.perf_counter()
-    lmax = min(ML, max_level)
-    sepset = _sepset_buffer(n, max(1, lmax), scratch)
-    if stats is not None:
-        stats["sepset_alloc_s"] = time.perf_counter() - t_mark
-
-    pmax = None
-    pmax_s = 0.0
-    if want_pmax:
-        # level 0: the Fisher z of C on the pairs it deleted, 0 elsewhere,
-        # over the real variables only (pads never re-enter)
-        t_mark = time.perf_counter()
-        pmax = (C[:v_real, :v_real].to("cpu", copy=True).numpy() if engine is None
-                else engine.fetch(C, v_real))
-        if stats is not None:
-            stats["c_fetch_wall_s"] = time.perf_counter() - t_mark
-        t_mark = time.perf_counter()
-        _fisher_z_inplace(pmax)
-        kept0 = G[:v_real, :v_real]
-        pmax[kept0] = 0.0
-        np.fill_diagonal(pmax, 0.0)
-        pmax_s += time.perf_counter() - t_mark
-
-    final_level, start_l = 0, 1
-    deg0 = G.sum(axis=1)
-    # the loop before the level-1 gate (the JAX package checks the gate
-    # first, to dispatch a dense level 1 early; on the card the loop won)
-    if (G0_dev is not None and LOCAL_LEVELS == (2, 3) and lmax >= 1 and n
-            and _pad8(deg0.max()) <= _DEV_RESIDENT_WIDTH and n <= DEV_RESIDENT_MAX):
-        G, final_level, stopped = _run_levels_local_dev(
-            C, G0_dev, deg0, th, min(lmax, 3), sepset, pmax, verbose, stats)
-        start_l = lmax + 1 if stopped else final_level + 1
-    del G0_dev
-    if stats is not None:
-        stats["preamble_s"] = time.perf_counter() - t_enter
     for l in range(start_l, lmax + 1):
-        deg = G.sum(axis=1)
+        with _host_pass(stats):
+            deg = G.sum(axis=1)
         nprime = int(deg.max()) if n else 0
         if nprime - 1 < l:
-            final_level = l - 1
-            break
+            return G, l - 1
         if verbose:
             print(f"[skeleton] level {l}: max degree {nprime}")
-        t_level = time.perf_counter()
-        # f32-rounded threshold, compared in f32 on the device
-        rho_th = float(np.float32(np.tanh(float(th[l]))))
-        route = _level_route(l, deg, n)
-        if route != "combinatorial":
-            if route == "local":
-                removed, xs, ys, sep, rho_sel = _run_level_local(
-                    C, G, l, rho_th, stats, want_rho=want_pmax, engine=engine)
+        with span(stats, ("level_wall_s", l), f"cigwas.skeleton.level{l}"):
+            # f32-rounded threshold, compared in f32 on the device
+            rho_th = float(np.float32(np.tanh(float(th[l]))))
+            route = _level_route(l, deg, n)
+            if route != "combinatorial":
+                if route == "local":
+                    removed, xs, ys, sep, rho_sel = _run_level_local(
+                        C, G, l, rho_th, stats, want_rho=pmax is not None, engine=engine)
+                else:
+                    removed, xs, ys, sep, rho_sel = _run_level_dense1(C, G, rho_th, engine,
+                                                                      stats)
+                with _host_pass(stats):
+                    sepset[xs, ys, l:] = -1
+                    sepset[xs, ys, :l] = sep
+                    if pmax is not None:
+                        pmax[xs, ys] = fisher_z(rho_sel)
             else:
-                removed, xs, ys, sep, rho_sel = _run_level_dense1(C, G, rho_th, engine)
-            sepset[xs, ys, l:] = -1
-            sepset[xs, ys, :l] = sep
-            if pmax is not None:
-                pmax[xs, ys] = fisher_z(rho_sel)
-        else:
-            removed, rho_min, rank = _run_level(C, G, l, rho_th, engine=engine, chunk=chunk,
-                                                stats=stats)
-            if rho_min is not None:
-                xs, ys = np.nonzero((rho_min < rho_th) & G)
-                if pmax is not None:
-                    pmax[xs, ys] = fisher_z(rho_min[xs, ys])
-                sepset[xs, ys, l:] = -1
-                prev_x, nbr_x = -1, None
-                for x, y in zip(xs, ys):  # xs ascending from np.nonzero
-                    if x != prev_x:
-                        nbr_x = np.where(G[x])[0]
-                        prev_x = x
-                    sepset[x, y, :l] = nbr_x[colex_unrank(int(rank[x, y]), l)]
-        G = G & ~removed
+                removed, rho_min, rank = _run_level(C, G, l, rho_th, engine=engine,
+                                                    chunk=chunk, stats=stats)
+                if rho_min is not None:
+                    with _host_pass(stats):
+                        xs, ys = np.nonzero((rho_min < rho_th) & G)
+                        if pmax is not None:
+                            pmax[xs, ys] = fisher_z(rho_min[xs, ys])
+                        sepset[xs, ys, l:] = -1
+                        prev_x, nbr_x = -1, None
+                        for x, y in zip(xs, ys):  # xs ascending from np.nonzero
+                            if x != prev_x:
+                                nbr_x = np.where(G[x])[0]
+                                prev_x = x
+                            sepset[x, y, :l] = nbr_x[colex_unrank(int(rank[x, y]), l)]
+            with _host_pass(stats):
+                G = G & ~removed
         if stats is not None:
-            stats.setdefault("level_wall_s", {})[l] = time.perf_counter() - t_level
             stats.setdefault("level_route", {})[l] = route
         final_level = l
-
-    if pmax is not None:  # both sides' max; the kept edges' sentinel; 1 on the diagonal
-        t_mark = time.perf_counter()
-        pmax = np.maximum(pmax, pmax.T)
-        pmax[G[:v_real, :v_real]] = PMAX_RETAINED
-        np.fill_diagonal(pmax, 1.0)
-        pmax_s += time.perf_counter() - t_mark
-        if stats is not None:
-            stats["pmax_wall_s"] = pmax_s
-
-    res = SkeletonResult(
-        G=G[:v_real, :v_real].astype(np.int32),
-        sepset=sepset[:v_real, :v_real],
-        final_level=final_level,
-        pmax=pmax,
-    )
-    if stats is not None:
-        stats["skeleton_wall_s"] = time.perf_counter() - t_enter
-    return res
+    return G, final_level
 
 
 def _as_panel(M, device) -> torch.Tensor:
@@ -804,9 +814,10 @@ def hetcor_skeleton(C, G: np.ndarray, N, threshold: float, max_level: int,
     stats, if given, collects ``l0_wall_s``, ``level_wall_s`` {level: s},
     ``level_route`` {level: local, dense or combinatorial}, the per-bucket
     ``launches`` {level: [(d_pad, nodes)]}, ``level_detail`` of levels
-    1-3 on the list route, ``ci_tests`` as :func:`skeleton` counts them and
+    1-3 on the list route, ``ci_tests`` as :func:`skeleton` counts them,
     ``skeleton_wall_s``, entry to return (the JAX package's starts after
-    level 0). Level 1 takes the list, dense or combinatorial
+    level 0), and ``host_pass_s`` and ``d2h_bytes`` as :func:`skeleton`
+    counts them. Level 1 takes the list, dense or combinatorial
     route as :func:`skeleton`'s does (:func:`_level_route`), levels 2-3 the
     list route unless LOCAL_LEVELS leaves them out; all decide the same.
     chunk: conditioning sets per chunk of the combinatorial route.
@@ -816,78 +827,86 @@ def hetcor_skeleton(C, G: np.ndarray, N, threshold: float, max_level: int,
     own multiple) and runs every level over its shards; the adjacency is the
     one-device path's and ``device`` is not used.
     """
-    t_enter = time.perf_counter()
     if ess_mode not in ("reference", "float"):
         raise ValueError(f"unknown ess_mode: {ess_mode!r}")
-    require_full_f32()  # the level >= 4 one-hot selections must be exact
-    if engine is None:
-        device = resolve(device)
-        C = _as_panel(C, device)
-        N_raw = _as_panel(N, device)
-        v_real = C.shape[0]
-        pad = (-v_real) % PANEL_ALIGN
-        if pad:
-            C = torch.nn.functional.pad(C, (0, pad, 0, pad))
-            N_raw = torch.nn.functional.pad(N_raw, (0, pad, 0, pad), value=10.0)
-    else:
-        v_real = C.shape[0]
-        C, N_raw = engine.put_panel(C), engine.put_panel(N, fill=10.0)
-        pad = C.vp - v_real
-    n = v_real + pad
-    G = np.pad(np.asarray(G).astype(bool), ((0, pad), (0, pad)))
-    if time_index is None:
-        time_index = np.zeros(n, dtype=np.int32)
-    else:
-        time_index = np.pad(np.asarray(time_index, dtype=np.int32), (0, pad))
-    if engine is None:
-        t_ix = torch.from_numpy(time_index).to(device)
-    else:
-        t_ix = engine.replicate(torch.from_numpy(time_index))
+    with span(stats, "skeleton_wall_s", "cigwas.skeleton.hetcor"):
+        require_full_f32()  # the level >= 4 one-hot selections must be exact
+        if engine is None:
+            device = resolve(device)
+            C = _as_panel(C, device)
+            N_raw = _as_panel(N, device)
+            v_real = C.shape[0]
+            pad = (-v_real) % PANEL_ALIGN
+            if pad:
+                C = torch.nn.functional.pad(C, (0, pad, 0, pad))
+                N_raw = torch.nn.functional.pad(N_raw, (0, pad, 0, pad), value=10.0)
+        else:
+            v_real = C.shape[0]
+            C, N_raw = engine.put_panel(C), engine.put_panel(N, fill=10.0)
+            pad = C.vp - v_real
+        n = v_real + pad
+        with _host_pass(stats):
+            G = np.pad(np.asarray(G).astype(bool), ((0, pad), (0, pad)))
+        if time_index is None:
+            time_index = np.zeros(n, dtype=np.int32)
+        else:
+            time_index = np.pad(np.asarray(time_index, dtype=np.int32), (0, pad))
+        if engine is None:
+            t_ix = torch.from_numpy(time_index).to(device)
+        else:
+            t_ix = engine.replicate(torch.from_numpy(time_index))
 
-    t_mark = time.perf_counter()
-    if engine is None:
-        G &= ~pcorr.hetcor_l0_delete(C, N_raw, threshold).cpu().numpy()
-        N_lvl = pcorr.trunc_ref_ess(N_raw) if ess_mode == "reference" else N_raw
-    else:
-        G &= ~engine.screen((C, N_raw), lambda c, nn: pcorr.hetcor_l0_delete(c, nn, threshold))
-        N_lvl = engine.map(N_raw, pcorr.trunc_ref_ess) if ess_mode == "reference" else N_raw
-    np.fill_diagonal(G, False)
-    del N_raw
-    if stats is not None:
-        stats["l0_wall_s"] = time.perf_counter() - t_mark
+        with span(stats, "l0_wall_s", "cigwas.skeleton.level0"):
+            if engine is None:
+                deleted = to_host(pcorr.hetcor_l0_delete(C, N_raw, threshold), stats,
+                                  "l0_adjacency")
+                N_lvl = pcorr.trunc_ref_ess(N_raw) if ess_mode == "reference" else N_raw
+            else:
+                deleted = engine.screen((C, N_raw),
+                                        lambda c, nn: pcorr.hetcor_l0_delete(c, nn, threshold))
+                N_lvl = (engine.map(N_raw, pcorr.trunc_ref_ess) if ess_mode == "reference"
+                         else N_raw)
+            with _host_pass(stats):
+                G &= ~deleted
+                np.fill_diagonal(G, False)
+            del N_raw, deleted
 
-    final_level = min(ML, max_level)
-    for l in range(1, min(ML, max_level) + 1):
-        nprime = int(G.sum(axis=1).max()) if n else 0
+        G, final_level = _hetcor_levels(C, N_lvl, t_ix, G, float(threshold), min(ML, max_level),
+                                        verbose, stats, engine, chunk)
+        with _host_pass(stats):
+            G_out = G[:v_real, :v_real].astype(np.int32)
+        return SkeletonResult(G=G_out, sepset=None, final_level=final_level)
+
+
+def _hetcor_levels(C, N_lvl, t_ix, G: np.ndarray, th: float, lmax: int, verbose: bool,
+                   stats: dict | None, engine, chunk: int):
+    """:func:`hetcor_skeleton`'s levels 1..lmax from the level-0 adjacency
+    G; returns (G, final level)."""
+    n = G.shape[0]
+    for l in range(1, lmax + 1):
+        with _host_pass(stats):
+            nprime = int(G.sum(axis=1).max()) if n else 0
         if nprime - 1 < l:
-            final_level = l - 1
-            break
+            return G, l - 1
         if verbose:
             print(f"[hetcor_skeleton] level {l}: max degree {nprime}")
-        t_level = time.perf_counter()
-        route = _level_route(l, G.sum(axis=1), n)
-        if route == "local":  # the hetcor sweep kernel
-            removed = _run_level_local_hetcor(
-                C, N_lvl, t_ix, G, l, float(threshold), stats, engine=engine
-            )
-        elif route == "dense":
-            sweeps = (pcorr.dense1_sweeps if engine is None else engine.dense1_sweeps)(
-                C, G, N_lvl, t_ix, float(threshold))
-            cond = pcorr.dense1_screen(sweeps, n)
-            removed = cond | cond.T
-        else:
-            removed, _, _ = _run_level(
-                C, G, l, None, hetcor_args=(N_lvl, t_ix, float(threshold)), engine=engine,
-                chunk=chunk, stats=stats,
-            )
-        G = G & ~removed
+        with span(stats, ("level_wall_s", l), f"cigwas.skeleton.level{l}"):
+            with _host_pass(stats):
+                deg = G.sum(axis=1)
+            route = _level_route(l, deg, n)
+            if route == "local":  # the hetcor sweep kernel
+                removed = _run_level_local_hetcor(C, N_lvl, t_ix, G, l, th, stats, engine=engine)
+            elif route == "dense":
+                sweeps = (pcorr.dense1_sweeps if engine is None else engine.dense1_sweeps)(
+                    C, G, N_lvl, t_ix, th)
+                cond = pcorr.dense1_screen(sweeps, n, stats=stats)
+                with _host_pass(stats):
+                    removed = cond | cond.T
+            else:
+                removed, _, _ = _run_level(C, G, l, None, hetcor_args=(N_lvl, t_ix, th),
+                                           engine=engine, chunk=chunk, stats=stats)
+            with _host_pass(stats):
+                G = G & ~removed
         if stats is not None:
-            stats.setdefault("level_wall_s", {})[l] = time.perf_counter() - t_level
             stats.setdefault("level_route", {})[l] = route
-
-    res = SkeletonResult(
-        G=G[:v_real, :v_real].astype(np.int32), sepset=None, final_level=final_level
-    )
-    if stats is not None:
-        stats["skeleton_wall_s"] = time.perf_counter() - t_enter
-    return res
+    return G, lmax

@@ -176,30 +176,6 @@ def test_run_all_blocks_matches_jax_and_reports_each_block(blocked_dataset, caps
     assert f"processed {n_blocks} blocks" in printed and "device memory 0.000 GiB now" in printed
 
 
-def test_stage_timer_and_profile(tmp_path):
-    """`StageTimer` as in the JAX package; `maybe_profile` is a no-op without
-    a directory and writes one torch.profiler trace with one."""
-    import torch
-
-    from cigwas_tpu.utils.timing import StageTimer as JaxStageTimer
-    from cigwas_tpu_torch.utils.timing import StageTimer, maybe_profile
-
-    for cls in (StageTimer, JaxStageTimer):
-        timer = cls(verbose=False, prefix="[t] ")
-        with timer.stage("a"):
-            pass
-        with timer.stage("b"):
-            pass
-        assert list(timer.as_dict()) == ["a", "b"] and timer.total() >= 0
-    with maybe_profile(None):
-        pass
-    assert not os.listdir(tmp_path)
-    with maybe_profile(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    (trace,) = os.listdir(tmp_path / "trace")
-    assert trace.endswith(".json") and os.path.getsize(tmp_path / "trace" / trace) > 0
-
-
 @pytest.mark.parametrize("num_partitions", [2, 3])
 def test_multi_partition_run_matches_single_partition(blocked_dataset, num_partitions):
     """The blocks spread over 2 and 3 partitions are each run once and merge
