@@ -7,7 +7,7 @@ and the script exits non-zero:
 
 1. environment: versions, the card's name and power limit (nvidia-smi);
    fails without a CUDA device;
-2. build: compiles the four CUDA sources under ``cigwas_tpu_torch/csrc`` in
+2. build: compiles the five CUDA sources under ``cigwas_tpu_torch/csrc`` in
    parallel and prints ptxas' registers and spills per kernel; then reads
    each sweep kernel's and the dense kernel's inner loop out of
    ``cuobjdump -sass`` (instructions per test, for ``issue_ms``);
@@ -38,6 +38,10 @@ and the script exits non-zero:
    rows that hold one alone), a 256 x 8192 launch of each timed beside its
    bounds (for hetcor with the paths its tests take) and the live-s
    histogram of its slab;
+   the row compaction of the hetcor device levels (``compact_rows``; lists
+   and degrees bit-identical) on random, empty, full and single-edge rows
+   at widths 8-152, with one launch over every row of a 10,112 x 16 and a
+   12,288 x 152 adjacency timed cold beside its byte bound;
 4. the ``cusk`` slice: a small block on the card and on the CPU (plain
    versions) must write the same decisions, with every kernel launch of the
    card's run held bitwise to its plain version, and both devices must count
@@ -60,8 +64,9 @@ and the script exits non-zero:
    input (AR(1) mxm as a binary triangle, planted mxp effects, SE files for
    a per-entry ESS in [3e5, 5e5]) through ``cuskss`` on the card, both
    stages, with the launches counted, the rates and attribution of
-   ``slice_cuskss_rates`` as in 4., and the largest launch per kernel
-   re-run through the plain version;
+   ``slice_cuskss_rates`` as in 4., stage 1's levels 0-3 with the
+   adjacency on the card (``device_levels``), and the largest launch per
+   kernel re-run through the plain version (``compact_rows`` too);
 6. a second, warm run of each slice under torch.profiler for the device
    time by kernel, the idle share, and ``total_ms``: the device time of all
    launches of each sweep level on its slice;
@@ -164,7 +169,12 @@ and the script exits non-zero:
    plain), ``routes_spmd`` (``build_multichip_cusk_step`` over 2 blocks x
    2,048 markers of the 11k block x 16,384 x 8 traits on a (2, 2, 2) mesh
    of the card, equal to the (1, 1, 1) mesh's; a small step equal on cuda
-   and cpu); then the kernel line's entries of the dense kernel: its
+   and cpu), ``routes_hetcor_wide`` (the hetcor skeleton on AR(1) panels
+   of 16,384 and 24,576 variables, past the block loop's 12,288, on the
+   card with levels 0-3 on the device and through an engine over the card
+   with the adjacency on the host: the same adjacency, each path's wall,
+   peak memory, level walls and fetched bytes); then the kernel line's
+   entries of the dense kernel: its
    launches in the dense 11k and 10k runs and their device time in all
    (``total_ms``, CUDA events behind a spin kernel that hides the host's
    gaps; the mesh phase's engines likewise), the largest launch
@@ -258,6 +268,7 @@ from cigwas_tpu_torch.ops import pcorr
 from cigwas_tpu_torch.ops.corr import DEFAULT_SAMPLE_CHUNK, marker_pearson_corr
 from cigwas_tpu_torch.ops.corr import PANEL_ROW_TILE as ROW_TILE
 from cigwas_tpu_torch.ops.kernels import build
+from cigwas_tpu_torch.ops.kernels import compact_rows as cr
 from cigwas_tpu_torch.ops.kernels import dense_l1 as dk
 from cigwas_tpu_torch.ops.kernels import hetcor_sweep as hs
 from cigwas_tpu_torch.ops.kernels import local_sweep as ls
@@ -284,7 +295,9 @@ REPLACES = {"local_sweep": f"{PALLAS}:671", "panel_gather": f"{PALLAS}:138",
             "panel_gather2": f"{PALLAS}:615", "hetcor_sweep": f"{PALLAS}:615",
             # no Pallas kernel: the JAX package's plain XLA dense sweeps
             "dense_l1": "cigwas_tpu/ops/pcorr.py:820",
-            "hetcor_dense_l1": "cigwas_tpu/ops/pcorr.py:900"}
+            "hetcor_dense_l1": "cigwas_tpu/ops/pcorr.py:900",
+            # no Pallas kernel: the JAX device loop's sort of masked columns
+            "compact_rows": "cigwas_tpu/skeleton/cupc.py:431"}
 # the reference's default block and CLI parameters
 M11K, N11K, P11K = 11000, 16384, 8
 ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH = 1e-4, 3, 14, 1
@@ -1067,6 +1080,66 @@ def phase_hetcor_kernel(panels) -> list:
     return bucket
 
 
+def phase_compact_kernel(dev: str = "cuda", sizes: tuple = ((10112, 16), (12288, 152)),
+                         reps: int = 50) -> list:
+    """compact_rows vs plain, bit for bit: random (density 0.1), empty,
+    full and single-edge rows of n in {77, 1000, 1024, 10112} (rows not all
+    whole 16-byte loads), widths 8 to 152 below and above the rows' degrees,
+    rows in any order and repeated. Then one launch over every row of a
+    banded (n, n) adjacency at the width of the 10k input's stage 1 and of
+    a scattered one at the widest the device levels take (`sizes`), each
+    timed beside its byte bound (the rows read once, the lists and degrees
+    written once), the L2 cleared before each of `reps` launches (median):
+    the skeleton finds its adjacency cold."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = 0
+    for n in (77, 1000, 1024, 10112):
+        ix = torch.arange(n, device=dev)
+        for kind in ("random", "empty", "full", "single"):
+            if kind == "random":
+                G = torch.rand((n, n), generator=gen, device=dev) < 0.1
+            elif kind == "single":
+                G = torch.zeros((n, n), dtype=torch.bool, device=dev)
+                G[ix, (ix * 7 + n - 1) % n] = True
+            else:
+                G = torch.full((n, n), kind == "full", dtype=torch.bool, device=dev)
+            rows = torch.cat([torch.randperm(n, generator=gen, device=dev)[:300],
+                              ix.new_tensor([5, 5, n - 1])]).to(torch.int32)
+            for d in (8, 16, 40, 128, 152):
+                compare_bits(f"compact_rows n={n} {kind} d={d}", cr.compact_rows(G, rows, d),
+                             cr.compact_rows_plain(G, rows, d))
+                cases += 1
+    sized = []
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    for n, d in sizes:
+        ix = torch.arange(n, device=dev)
+        if d <= 16:  # a band of d neighbours a row, as AR(1) LD gives
+            G = (ix[:, None] - ix[None, :]).abs() <= d // 2
+        else:  # scattered edges, degrees to about d
+            G = torch.rand((n, n), generator=gen, device=dev) < (d - 40) / (2 * n)
+            G |= G.T.clone()
+        G.diagonal().zero_()
+        rows = ix.to(torch.int32)
+        got = cr.compact_rows(G, rows, d)
+        compare_bits(f"compact_rows every row {n} x {d}", got, cr.compact_rows_plain(G, rows, d))
+        ms = []
+        for _ in range(reps if dev == "cuda" else 0):
+            flush.zero_()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            cr.compact_rows(G, rows, d, index_range_checked=True)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        sized.append({"rows": n, "n": n, "width": d, "max_degree": int(got[1].max()),
+                      "ms": sorted(ms)[len(ms) // 2] if ms else None,
+                      "min_ms": min(ms) if ms else None, "reps": len(ms),
+                      **bound(n * n + 4 * n * (d + 1), 0)})
+    emit("kernels_compact_rows", t0, cases=cases, bit_identical=True, full_sized=sized)
+    return sized
+
+
 def write_block(d: str, G: np.ndarray, Y: np.ndarray) -> tuple[str, str]:
     """PLINK files + prep + a one-block `.blocks` file; returns (stem, blocks)."""
     m, n = G.shape
@@ -1165,7 +1238,7 @@ def assert_same_outputs(tag: str, cuda: dict, cpu: dict) -> float:
 
 # the kernel wrappers the skeleton calls through `cupc`
 WRAPPED = ("local_sweep", "hetcor_local_sweep", "gather_local_panels",
-                  "gather_local_panels2")
+                  "gather_local_panels2", "compact_rows")
 # the dense level-1 entries, which the skeleton and the engines call through
 # the wrapper's module, and their plain versions
 DENSE = ("dense_l1", "hetcor_dense_l1")
@@ -1180,11 +1253,11 @@ def dense_slab(name: str, args: tuple) -> tuple:
 
 
 class EveryLaunchChecked:
-    """While it is open, every levels 1-3 launch and every gather launch the
-    skeleton makes on the card is held bitwise against its plain version on
-    the same tensors (the small runs are cheap enough for that), so that a
-    cuda run that decides otherwise than the cpu run is traced to the launch
-    at fault, if one is. `names` narrows the check to those wrappers (the
+    """While it is open, every levels 1-3 launch, every gather launch and
+    every row compaction the skeleton makes on the card is held bitwise
+    against its plain version on the same tensors (the small runs are cheap
+    enough for that), so that a cuda run that decides otherwise than the cpu
+    run is traced to the launch at fault, if one is. `names` narrows the check to those wrappers (the
     genome's gathers)."""
 
     def __init__(self, names: tuple = WRAPPED + DENSE):
@@ -1229,6 +1302,14 @@ class EveryLaunchChecked:
                 self.checked += 1
             return out
 
+        def compact_rows(G, rows, d, **kw):
+            out = saved["compact_rows"](G, rows, d, **kw)
+            if G.is_cuda:
+                compare_bits(f"launch {self.checked}: compact_rows {(rows.numel(), d)}", out,
+                             cr.compact_rows_plain(G, rows, d))
+                self.checked += 1
+            return out
+
         def dense(name):
             kern, plain = self.saved_dense[name], DENSE_PLAIN[name]
 
@@ -1246,7 +1327,8 @@ class EveryLaunchChecked:
 
         for n, fn in (("local_sweep", local_sweep), ("hetcor_local_sweep", hetcor_local_sweep),
                       ("gather_local_panels", gather_local_panels),
-                      ("gather_local_panels2", gather_local_panels2)):
+                      ("gather_local_panels2", gather_local_panels2),
+                      ("compact_rows", compact_rows)):
             if n in self.names:
                 setattr(cupc, n, fn)
         for n in DENSE:
@@ -1331,7 +1413,9 @@ class Recorder:
     """Wraps the kernel wrappers the skeleton calls so that the largest
     launch of each kernel (by work) is kept for the kernel-vs-plain re-run.
     The wrappers themselves count the launches. The re-runs are timed as the
-    skeleton launches them, with the lists' range already checked."""
+    skeleton launches them, with the lists' range already checked. A row
+    compaction keeps a copy of the rows it reads (by bytes read): the
+    skeleton clears hits in its adjacency right after it."""
 
     def __init__(self):
         self.largest: dict = {}
@@ -1365,6 +1449,13 @@ class Recorder:
                        (C, N, node_ixs, nbrs, deg))
             return saved["gather_local_panels2"](C, N, node_ixs, nbrs, deg, **kw)
 
+        def compact_rows(G, rows, d, **kw):
+            work = rows.numel() * G.shape[1]
+            if work > self.largest.get(("compact_rows",), (0,))[0]:
+                self._keep(("compact_rows",), work,
+                           (G[rows.long()].clone(), rows.clone(), d, G.shape[0]))
+            return saved["compact_rows"](G, rows, d, **kw)
+
         def dense(name):
             kern = self.saved_dense[name]
 
@@ -1376,7 +1467,8 @@ class Recorder:
 
         for n, fn in (("local_sweep", local_sweep), ("hetcor_local_sweep", hetcor_local_sweep),
                       ("gather_local_panels", gather_local_panels),
-                      ("gather_local_panels2", gather_local_panels2)):
+                      ("gather_local_panels2", gather_local_panels2),
+                      ("compact_rows", compact_rows)):
             setattr(cupc, n, fn)
         for n in DENSE:
             setattr(dk, n, dense(n))
@@ -1394,12 +1486,14 @@ def reset_all_launches() -> None:
     hs.reset_launches()
     pg.reset_launches()
     dk.reset_launches()
+    cr.reset_launches()
 
 
 def all_launches() -> dict:
     """The launch count of every kernel entry, sweeps by level."""
     return {**{f"local_sweep_l{l}": n for l, n in ls.launches.items()}, **pg.launches,
-            **{f"hetcor_sweep_l{l}": n for l, n in hs.launches.items()}, **dk.launches}
+            **{f"hetcor_sweep_l{l}": n for l, n in hs.launches.items()}, **dk.launches,
+            **cr.launches}
 
 
 def kernel_entry(name: str, module, replaces: str, launches: int, err: float, ms: float,
@@ -1706,7 +1800,7 @@ def phase_small_cuskss(tmp: str) -> None:
          corr_max_abs_diff=worst, launches_bit_identical=checked, ci_tests=counted)
 
 
-def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list):
+def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list, compact_sized: list):
     t0 = time.perf_counter()
     ss = os.path.join(tmp, "ss")
     out = os.path.join(tmp, "out_ss")
@@ -1726,9 +1820,12 @@ def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         launches = {**{f"hetcor_sweep_l{l}": n for l, n in hs.launches.items()}, **pg.launches,
-                    **dk.launches}
+                    **dk.launches, **cr.launches}
 
     s1, s2 = stats["stage1"], stats["stage2"]
+    # stage 1's levels 0-3 on the card, a row compaction at each local level
+    assert s1["device_levels"] == [0, 1, 2, 3], s1["device_levels"]
+    assert launches["compact_rows"] > 0, launches
     ran = set(s1.get("level_wall_s", {})) | set(s2.get("level_wall_s", {}))
     for l in (1, 2, 3):
         assert l in ran and launches[f"hetcor_sweep_l{l}"] > 0, (
@@ -1756,6 +1853,7 @@ def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list):
         stage2_level_wall_s=s2["level_wall_s"], stage2_reduce_s=s2["reduce_s"],
         launches=launches, buckets={l: len(v) for l, v in s1["launches"].items()},
         final_level=s1["final_level"], final_level_two=s2["final_level"],
+        device_levels=s1["device_levels"], device_levels_two=s2["device_levels"],
         retained_markers=res.num_markers(), planted_recovered=recovered,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
         **hashes_beside_parent("cuskss", file_hashes(base, (".adj", ".ixs", ".mdim"))),
@@ -1766,6 +1864,7 @@ def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list):
     t0 = time.perf_counter()
     kernels = hetcor_entries("cuskss", rec, launches, (1, 2, 3), loops, clock_hz, bucket)
     kernels += gather_entries("10k input", rec, launches)
+    kernels.append(compact_entry("10k input", rec, launches, compact_sized))
     emit("largest_launch_cuskss", t0, kernels=kernels)
 
     def again():
@@ -1774,6 +1873,37 @@ def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list):
         cuskss(CuskssArgs.from_paths(outdir=out2, **kw), verbose=False, device="cuda")
 
     return kernels, again, wall, kw
+
+
+def compact_launch(args: tuple) -> tuple:
+    """(G, rows, d) of a compact_rows launch a Recorder kept: the rows the
+    launch read (the skeleton clears hits in the adjacency right after it)
+    laid back into an (n, n) matrix whose other rows the kernel does not
+    read."""
+    rows_G, rows, d, n = args
+    G = torch.zeros((n, n), dtype=torch.bool, device=rows_G.device)
+    G[rows.long()] = rows_G
+    return G, rows, d
+
+
+def compact_entry(tag: str, rec: Recorder, launches: dict, sized: list) -> dict:
+    """The largest compact_rows launch of a run (by bytes read), kernel vs
+    plain bit for bit, timed beside its byte bound (the rows read once, the
+    lists and degrees written once) and by the profiler's device time
+    alone; the full-sized launches of the kernel checks beside it."""
+    G, rows, d = compact_launch(rec.largest[("compact_rows",)][1])
+    n = int(G.shape[0])
+    got = cr.compact_rows(G, rows, d)
+    plain, plain_ms = once_ms(lambda: cr.compact_rows_plain(G, rows, d))
+    err = compare_bits(f"{tag} compact_rows", got, plain)
+    nr = int(rows.numel())
+    run = lambda: cr.compact_rows(G, rows, d, index_range_checked=True)  # noqa: E731
+    return kernel_entry(
+        "compact_rows", cr, "compact_rows", launches["compact_rows"], err,
+        cuda_ms(run, reps=20), plain_ms, bound(nr * n + 4 * nr * (d + 1), 0), None,
+        {"rows": nr, "n": n, "width": d, "max_degree": int(got[1].max())},
+        **kernel_device_ms(run, 20, r"compact_rows_kernel"), full_sized=sized,
+    )
 
 
 def hetcor_entries(tag: str, rec: Recorder, launches: dict, levels, loops: dict,
@@ -2913,6 +3043,14 @@ def shard_checks(tag: str, rec: ShardRecorder) -> list:
         elif name in DENSE:
             out.append({"kernel": name, "shard": shard, **dense_check(label, name, args)})
             continue
+        elif name == "compact_rows":  # the row-sharded engine's stage 2 runs on one card
+            G, rows, d = compact_launch(args)
+            err = compare_bits(label, cr.compact_rows(G, rows, d),
+                               cr.compact_rows_plain(G, rows, d))
+            out.append({"kernel": name, "shard": shard, "nodes": int(rows.numel()),
+                        "width": d, "panel": int(G.shape[0]), "bit_identical": True,
+                        "max_abs_err": err})
+            continue
         else:
             kern, plain = ((pg.gather_local_panels, pg.gather_local_panels_plain)
                            if name == "panel_gather" else
@@ -3959,6 +4097,50 @@ def routes_small(tmp: str) -> dict:
     return out
 
 
+def routes_hetcor_wide(sizes: tuple = (16384, 24576), dev: str = "cuda") -> dict:
+    """The hetcor skeleton on panels past the block loop's limit (12,288):
+    an AR(1) 0.9 correlation panel with the sampling noise of a GWAS of
+    4e5, ESS uniform in [3e5, 5e5], through levels 0-14 on one card (levels
+    0-3 with the adjacency on the card) and through an engine over the same
+    card (the adjacency on the host between launches): the same adjacency
+    and final level; each path's wall, the card's peak memory, its level
+    walls and routes, its host passes and fetched bytes."""
+    th = hetcor_threshold(ALPHA)
+    out = {}
+    for v in sizes:
+        gen = torch.Generator(device=dev).manual_seed(v)
+        i = torch.arange(v, device=dev, dtype=torch.float32)
+        noise = torch.randn((v, v), generator=gen, device=dev) / math.sqrt(2 * 4e5)
+        C = 0.9 ** (i[:, None] - i[None, :]).abs() + noise + noise.T
+        C.fill_diagonal_(1.0)
+        N = 3e5 + 2e5 * torch.rand((v, v), generator=gen, device=dev)
+        N = (N + N.T) / 2
+        del noise, i
+        runs, res = {}, {}
+        for path, engine in (("one_card", None),
+                             ("engine", sharded.ShardedEngine.flat(mesh_of(dev, 1)))):
+            stats: dict = {}
+            sync(dev)
+            device_peak_reset(dev)
+            t = time.perf_counter()
+            res[path] = cupc.hetcor_skeleton(C, np.ones((v, v), np.int32), N, th, MAX_LEVEL_TWO,
+                                             device=dev, stats=stats, engine=engine)
+            sync(dev)
+            runs[path] = {
+                "wall_s": time.perf_counter() - t, "peak_gib": device_peak_gb(dev),
+                "final_level": res[path].final_level, "device_levels": stats["device_levels"],
+                "level_route": stats["level_route"], "l0_wall_s": stats["l0_wall_s"],
+                "level_wall_s": stats["level_wall_s"], "host_pass_s": stats["host_pass_s"],
+                "d2h_bytes": stats["d2h_bytes"], "ci_tests": stats.get("ci_tests", 0)}
+            engine = None
+        assert np.array_equal(res["one_card"].G, res["engine"].G), v
+        assert res["one_card"].final_level == res["engine"].final_level, v
+        assert runs["one_card"]["device_levels"][:2] == [0, 1], runs["one_card"]
+        out[v] = {"edges": int(res["one_card"].G.sum()) // 2, **runs}
+        del C, N
+    return out
+
+
 def routes_engines(tmp: str, ss_kw: dict) -> tuple:
     """Both engines over MESH_D shards of the card with the list route
     forced at level 1 (the mesh phase ran their default, the dense level
@@ -4095,6 +4277,8 @@ def phase_routes(tmp: str, ss_kw: dict, rho_th: dict, loops: dict, clock_hz: flo
     emit("routes_engines", t0, shards=MESH_D, engines=routes_engines(tmp, ss_kw)[0])
     t0 = time.perf_counter()
     emit("routes_spmd", t0, **routes_spmd(tmp))
+    t0 = time.perf_counter()
+    emit("routes_hetcor_wide", t0, panels=routes_hetcor_wide())
 
     t0 = time.perf_counter()
     kernels = dense_entries({"dense_l1": (recs_11k["dense"], lines_11k["dense"]),
@@ -4147,7 +4331,8 @@ def profile_run(tag: str, run, unprofiled_wall_s: float, cpu: bool = True) -> di
     busy_s = sum(us for _, us in rows) / 1e6
     # device time of all launches of each hand-written kernel on the slice
     totals = {e.key[:80]: {"total_ms": e.self_device_time_total / 1e3, "launches": e.count}
-              for e in events if re.search(r"sweep\w*_kernel|panel_\w+_kernel", e.key)}
+              for e in events
+              if re.search(r"sweep\w*_kernel|panel_\w+_kernel|compact_rows_kernel", e.key)}
     emit("profile_" + tag, t0, profiled_wall_s=wall, unprofiled_wall_s=unprofiled_wall_s,
          device_busy_s=busy_s, device_idle_share=1.0 - busy_s / unprofiled_wall_s,
          top=[{"name": k[:80], "ms": us / 1e3} for k, us in rows[:10]], kernel_totals=totals)
@@ -4170,7 +4355,7 @@ def main() -> int:
          device_count=torch.cuda.device_count(), nvidia_smi=smi)
 
     t0 = time.perf_counter()
-    names = ("local_sweep", "panel_gather", "hetcor_sweep", "dense_l1")
+    names = ("local_sweep", "panel_gather", "hetcor_sweep", "dense_l1", "compact_rows")
     with ThreadPoolExecutor(len(names) + 1) as pool:  # one nvcc per build, together
         tables_only = pool.submit(build.build, "local_sweep", TABLES_ONLY)
         libs = list(pool.map(build.build, names))
@@ -4192,6 +4377,7 @@ def main() -> int:
     phase_kernels(rho_th, panels)
     phase_gather_kernel(panels)
     bucket = phase_hetcor_kernel(panels)
+    compact_sized = phase_compact_kernel()
     timed_dense = phase_dense_kernel(panels, loops, clock_hz)
     if opts.kernels_only:
         return 1
@@ -4199,14 +4385,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     expected = [f"local_sweep_l{l}" for l in (1, 2, 3)] + ["panel_gather"] + [
-        f"hetcor_sweep_l{l}" for l in (1, 2, 3)] + ["panel_gather2"] + list(DENSE)
+        f"hetcor_sweep_l{l}" for l in (1, 2, 3)] + ["panel_gather2", "compact_rows"] + list(DENSE)
     tmp = tempfile.mkdtemp(prefix="cigwas_chip_smoke_")
     try:
         phase_small_reference(tmp)
         kernels, cusk_again, wall, capture = phase_slice(tmp, rho_th, loops, clock_hz)
         phase_small_cuskss(tmp)
         kernels_ss, cuskss_again, wall_ss, ss_kw = phase_cuskss(tmp, loops, clock_hz,
-                                                               bucket)
+                                                               bucket, compact_sized)
         if opts.routes_only:
             del capture
             phase_routes(tmp, ss_kw, rho_th, loops, clock_hz, timed_dense)
@@ -4221,9 +4407,12 @@ def main() -> int:
                                                "hsweep")):
             totals[run], per_level[kernel] = profile_sweeps(
                 run, again, w, prefix, {l: launched[f"{kernel}_l{l}"] for l in (1, 2, 3)})
-        # each slice launches one gather entry only: all its panel_rows_kernel records
-        gathers = {name: [v for key, v in totals[run].items() if "panel_rows_kernel" in key]
-                   for name, run in (("panel_gather", "cusk"), ("panel_gather2", "cuskss"))}
+        # each slice launches one gather entry only: all its panel_rows_kernel
+        # records; the row compaction runs on the cuskss slice alone
+        gathers = {name: [v for key, v in totals[run].items() if kernel in key]
+                   for name, run, kernel in (("panel_gather", "cusk", "panel_rows_kernel"),
+                                             ("panel_gather2", "cuskss", "panel_rows_kernel"),
+                                             ("compact_rows", "cuskss", "compact_rows_kernel"))}
         for k in kernels:
             m = re.fullmatch(r"(local_sweep|hetcor_sweep)_l(\d)", k["name"])
             if m:

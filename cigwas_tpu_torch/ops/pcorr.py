@@ -349,6 +349,19 @@ def dense1_gather(sweeps, vp: int, device) -> tuple | torch.Tensor:
     return tuple(full) if len(full) > 1 else full[0]
 
 
+def dense1_device_hits(sweeps, rho_th: float | None = None) -> list:
+    """Every dense launch's hits on the device, one tuple a launch in launch
+    order: :func:`dense1_hits` (rho_th given) or :func:`hetcor1_hits`. Each
+    launch's hits are taken before the next is read from sweeps."""
+    hits = []
+    for x0, y0, g, out in sweeps:
+        ny = (out[0] if rho_th is not None else out).shape[1]
+        g = g[:, y0 : y0 + ny]
+        hits.append(hetcor1_hits(out, g, x0, y0) if rho_th is None
+                    else dense1_hits(*out, g, x0, y0, rho_th))
+    return hits
+
+
 def dense1_screen(sweeps, vp: int, rho_th: float | None = None, stats: dict | None = None):
     """The pairs that dense launches condemn from x's side, only the hits
     leaving the device. Level 1 (rho_th = tanh(Th[1])): (side (vp, vp) bool,
@@ -356,13 +369,7 @@ def dense1_screen(sweeps, vp: int, rho_th: float | None = None, stats: dict | No
     order. Hetcor (rho_th None, the launches' margins): side alone. stats,
     if given, counts the hits' bytes and the host pass that builds side
     (``host_pass_s``, as the skeletons count it)."""
-    hits = []
-    for x0, y0, g, out in sweeps:
-        ny = (out[0] if rho_th is not None else out).shape[1]
-        g = g[:, y0 : y0 + ny]
-        hits.append(hetcor1_hits(out, g, x0, y0) if rho_th is None
-                    else dense1_hits(*out, g, x0, y0, rho_th))
-    got = fetch_hits(hits, stats)
+    got = fetch_hits(dense1_device_hits(sweeps, rho_th), stats)
     with span(stats, "host_pass_s", "cigwas.skeleton.host_pass"):
         side = np.zeros((vp, vp), dtype=bool)
         side[got[0], got[1]] = True

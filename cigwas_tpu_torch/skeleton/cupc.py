@@ -36,7 +36,12 @@ sets: levels 1-3 through
 :func:`cigwas_tpu_torch.ops.kernels.hetcor_sweep.hetcor_local_sweep`, level
 1 also by the dense route, the combinatorial route through the two-panel
 gather and :func:`cigwas_tpu_torch.ops.pcorr.level_scan_hetcor_pre`. It keeps
-no sepsets and has no device-resident loop.
+no sepsets. On one card its adjacency stays on the device from level 0 on:
+each level's hits are cleared in place, the local route's lists compacted
+there (:mod:`cigwas_tpu_torch.ops.kernels.compact_rows`) and swept in one
+launch at the level's width, until the first level that is combinatorial,
+local and wider than 152, or past level 3; the host loop takes over from
+there. An engine runs every level on the host's adjacency.
 
 Deletions apply between levels (PC-stable). The separation set of a deleted
 ordered pair (x, y) is the argmin-|rho| set from x's side, the lowest colex
@@ -55,6 +60,7 @@ from cigwas_tpu_torch.device import require_full_f32, resolve
 from cigwas_tpu_torch.constants import ML, PANEL_ALIGN, PMAX_RETAINED
 from cigwas_tpu_torch.ops import pcorr
 from cigwas_tpu_torch.ops.kernels.checks import check_index_range
+from cigwas_tpu_torch.ops.kernels.compact_rows import compact_rows
 from cigwas_tpu_torch.ops.kernels.hetcor_sweep import hetcor_local_sweep
 from cigwas_tpu_torch.ops.kernels.local_sweep import local_sweep
 from cigwas_tpu_torch.ops.kernels.panel_gather import (
@@ -786,6 +792,16 @@ def _host_levels(C, G: np.ndarray, th: np.ndarray, start_l: int, lmax: int, fina
     return G, final_level
 
 
+def _cast(a, dtype: torch.dtype) -> np.ndarray:
+    """A host array cast to dtype (bool: nonzero), as numpy's astype casts,
+    in torch's intra-op threads: an (n, n) adjacency cast is a pass over
+    hundreds of MB."""
+    a = np.asarray(a)
+    if min(a.strides, default=0) < 0:  # torch takes no negative strides
+        a = a.copy()
+    return torch.from_numpy(a).to(dtype, memory_format=torch.contiguous_format).numpy()
+
+
 def _as_panel(M, device) -> torch.Tensor:
     if isinstance(M, torch.Tensor):
         return M.to(device=device, dtype=torch.float32)
@@ -816,10 +832,15 @@ def hetcor_skeleton(C, G: np.ndarray, N, threshold: float, max_level: int,
     ``launches`` {level: [(d_pad, nodes)]}, ``level_detail`` of levels
     1-3 on the list route, ``ci_tests`` as :func:`skeleton` counts them,
     ``skeleton_wall_s``, entry to return (the JAX package's starts after
-    level 0), and ``host_pass_s`` and ``d2h_bytes`` as :func:`skeleton`
-    counts them. Level 1 takes the list, dense or combinatorial
-    route as :func:`skeleton`'s does (:func:`_level_route`), levels 2-3 the
-    list route unless LOCAL_LEVELS leaves them out; all decide the same.
+    level 0), ``device_levels``, the levels that ran with the adjacency on
+    the device (0 first; empty with an engine), with ``final_fetch_s``
+    after them, and ``host_pass_s`` and ``d2h_bytes`` as :func:`skeleton`
+    counts them (the device levels fetch their degrees under
+    ``loop_lists`` and the adjacency once under ``final_adjacency``).
+    Level 1 takes the list, dense or combinatorial route as
+    :func:`skeleton`'s does (:func:`_level_route`), levels 2-3 the list
+    route unless LOCAL_LEVELS leaves them out; all decide the same, on the
+    device or the host.
     chunk: conditioning sets per chunk of the combinatorial route.
 
     engine: a :class:`cigwas_tpu_torch.parallel.sharded.ShardedEngine` (or
@@ -845,8 +866,10 @@ def hetcor_skeleton(C, G: np.ndarray, N, threshold: float, max_level: int,
             C, N_raw = engine.put_panel(C), engine.put_panel(N, fill=10.0)
             pad = C.vp - v_real
         n = v_real + pad
-        with _host_pass(stats):
-            G = np.pad(np.asarray(G).astype(bool), ((0, pad), (0, pad)))
+        with _host_pass(stats):  # one card uploads G and pads it there
+            G = _cast(G, torch.bool)
+            if engine is not None:
+                G = np.pad(G, ((0, pad), (0, pad)))
         if time_index is None:
             time_index = np.zeros(n, dtype=np.int32)
         else:
@@ -858,32 +881,102 @@ def hetcor_skeleton(C, G: np.ndarray, N, threshold: float, max_level: int,
 
         with span(stats, "l0_wall_s", "cigwas.skeleton.level0"):
             if engine is None:
-                deleted = to_host(pcorr.hetcor_l0_delete(C, N_raw, threshold), stats,
-                                  "l0_adjacency")
+                # after the screen's float temporaries are freed: the upload
+                # adds no (n, n) array to the screen's peak
+                deleted = pcorr.hetcor_l0_delete(C, N_raw, threshold)
+                Gd = torch.zeros((n, n), dtype=torch.bool, device=device)
+                Gd[:v_real, :v_real] = torch.from_numpy(G)
+                Gd.logical_and_(deleted.logical_not_())
+                Gd.diagonal().zero_()
+                del deleted
                 N_lvl = pcorr.trunc_ref_ess(N_raw) if ess_mode == "reference" else N_raw
             else:
                 deleted = engine.screen((C, N_raw),
                                         lambda c, nn: pcorr.hetcor_l0_delete(c, nn, threshold))
                 N_lvl = (engine.map(N_raw, pcorr.trunc_ref_ess) if ess_mode == "reference"
                          else N_raw)
-            with _host_pass(stats):
-                G &= ~deleted
-                np.fill_diagonal(G, False)
-            del N_raw, deleted
+                with _host_pass(stats):
+                    G &= ~deleted
+                    np.fill_diagonal(G, False)
+                del deleted
+            del N_raw
 
-        G, final_level = _hetcor_levels(C, N_lvl, t_ix, G, float(threshold), min(ML, max_level),
+        lmax = min(ML, max_level)
+        start_l = 1
+        if stats is not None:
+            stats["device_levels"] = []
+        if engine is None:
+            G, start_l = _hetcor_levels_dev(C, N_lvl, t_ix, Gd, float(threshold), lmax,
+                                            verbose, stats)
+            del Gd
+        G, final_level = _hetcor_levels(C, N_lvl, t_ix, G, float(threshold), start_l, lmax,
                                         verbose, stats, engine, chunk)
         with _host_pass(stats):
-            G_out = G[:v_real, :v_real].astype(np.int32)
+            G_out = _cast(G[:v_real, :v_real], torch.int32)
         return SkeletonResult(G=G_out, sepset=None, final_level=final_level)
 
 
-def _hetcor_levels(C, N_lvl, t_ix, G: np.ndarray, th: float, lmax: int, verbose: bool,
-                   stats: dict | None, engine, chunk: int):
-    """:func:`hetcor_skeleton`'s levels 1..lmax from the level-0 adjacency
-    G; returns (G, final level)."""
+def _hetcor_levels_dev(C, N_lvl, t_ix, Gd: torch.Tensor, th: float, lmax: int,
+                       verbose: bool, stats: dict | None):
+    """:func:`hetcor_skeleton`'s levels 1..min(3, lmax) with the adjacency
+    Gd on the device, cleared in place by each level's hits once all of
+    them exist (PC-stable): only the degrees leave the device each level,
+    and Gd once at the end. A level runs here while its route is dense, or
+    local at a padded width of at most _DEV_RESIDENT_WIDTH: the lists of
+    the nodes with a test are compacted on the device
+    (:func:`~cigwas_tpu_torch.ops.kernels.compact_rows.compact_rows`) and
+    swept in one launch at the level's width. Returns (G on the host, the
+    first level left to :func:`_hetcor_levels`)."""
+    n = Gd.shape[0]
+    done = [0]
+    l = 1
+    while l <= min(3, lmax):
+        deg = to_host(Gd.sum(dim=1, dtype=torch.int32), stats, "loop_lists")
+        nprime = int(deg.max()) if n else 0
+        if nprime - 1 < l:
+            break
+        route = _level_route(l, deg, n)
+        d_pad = _pad8(nprime)
+        if route == "combinatorial" or (route == "local" and d_pad > _DEV_RESIDENT_WIDTH):
+            break
+        if verbose:
+            print(f"[hetcor_skeleton] level {l}: max degree {nprime} (device)")
+        with span(stats, ("level_wall_s", l), f"cigwas.skeleton.level{l}"):
+            if route == "dense":
+                hits = pcorr.dense1_device_hits(pcorr.dense1_sweeps(C, Gd, N_lvl, t_ix, th))
+                xs, ys = (torch.cat([h[k] for h in hits]).long() for k in (0, 1))
+            else:
+                if l >= 2:
+                    _count_tests(stats, l, deg)
+                nodes = np.flatnonzero(deg >= l + 1).astype(np.int32)
+                nodes = torch.from_numpy(nodes).to(Gd.device)
+                # in range by construction: every entry a column of Gd or the
+                # pad 0, and no degree above d_pad, the level's max
+                nbrs, deg_t = compact_rows(Gd, nodes, d_pad, index_range_checked=True)
+                margin = hetcor_local_sweep(C, N_lvl, t_ix, nodes, nbrs, deg_t, th, l,
+                                            index_range_checked=True)
+                ri, ci = _hits(margin, 0.0, deg_t)
+                xs, ys = nodes[ri].long(), nbrs[ri, ci].long()
+                if stats is not None:
+                    stats.setdefault("launches", {})[l] = [(d_pad, int(nodes.numel()))]
+            Gd[xs, ys] = False  # every hit lies on an edge: its list came from Gd
+            Gd[ys, xs] = False
+        if stats is not None:
+            stats.setdefault("level_route", {})[l] = route
+        done.append(l)
+        l += 1
+    if stats is not None:
+        stats["device_levels"] = done
+    return _final_fetch(Gd, stats), l
+
+
+def _hetcor_levels(C, N_lvl, t_ix, G: np.ndarray, th: float, start_l: int, lmax: int,
+                   verbose: bool, stats: dict | None, engine, chunk: int):
+    """:func:`hetcor_skeleton`'s levels start_l..lmax from the adjacency G
+    (level 0's, or what :func:`_hetcor_levels_dev` hands over); returns (G,
+    final level)."""
     n = G.shape[0]
-    for l in range(1, lmax + 1):
+    for l in range(start_l, lmax + 1):
         with _host_pass(stats):
             nprime = int(G.sum(axis=1).max()) if n else 0
         if nprime - 1 < l:

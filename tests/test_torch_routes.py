@@ -302,6 +302,105 @@ def test_hetcor_route_matches_jax_and_the_default(route, seed, ess_mode):
     assert got.final_level == ref.final_level
 
 
+# the gates of the hetcor device levels' cases: level 1's route, and the
+# levels 2-3 left to the local sweep; the first level each hands over at
+HETCOR_L1 = {
+    "list": {"L1_LOCAL_MAX_WIDTH": BIG},
+    "dense": {"L1_LOCAL_MAX_WIDTH": 0, "L1_LOCAL_COST_RATIO": BIG},
+    "combinatorial": {"L1_LOCAL_MAX_WIDTH": 0, "L1_LOCAL_COST_RATIO": BIG, "DENSE_L1_MAX": 0},
+}
+HANDOVER = {(2, 3): 4, (2,): 3, (): 2}
+
+
+def _hetcor_three_ways(C, G0, N, t, lmax, ess_mode, gates):
+    """(device path, host path under the same gates, the host path's list
+    route, JAX under the same gates), each (result, stats). The host path
+    is an engine's: one CPU shard."""
+    from cigwas_tpu.skeleton import cupc as jc
+    from cigwas_tpu_torch.parallel.sharded import ShardedEngine
+    from cigwas_tpu_torch.skeleton import cupc
+
+    th = hetcor_threshold(1e-3)
+    out = []
+    for ctx, engine in ((_gates(cupc, gates), None),
+                        (_gates(cupc, gates), ShardedEngine.flat(["cpu"])),
+                        (_port("list"), ShardedEngine.flat(["cpu"]))):
+        stats = {}
+        with ctx:
+            out.append((cupc.hetcor_skeleton(C, G0, N, th, lmax, time_index=t,
+                                             ess_mode=ess_mode, device="cpu", stats=stats,
+                                             engine=engine), stats))
+    with _gates(jc, {**gates, "DEV_RESIDENT_MAX": 0}):
+        out.append((jc.hetcor_skeleton(C, G0, N, th, lmax, time_index=t, ess_mode=ess_mode),
+                    None))
+    return out
+
+
+@pytest.mark.parametrize("max_level", [3, 14])
+@pytest.mark.parametrize("local_levels", sorted(HANDOVER))
+@pytest.mark.parametrize("l1", sorted(HETCOR_L1))
+@pytest.mark.parametrize("ess_mode", ["reference", "float"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_hetcor_device_levels_match_the_host_path_and_jax(seed, ess_mode, l1, local_levels,
+                                                          max_level):
+    """The hetcor levels with the adjacency on the device hand over to the
+    host loop at level 1 (a combinatorial level 1), 2, 3 or 4 (LOCAL_LEVELS)
+    and decide what the host path and the JAX package decide: the same
+    adjacency, final level, routes and ci_tests; device_levels names level
+    0 through the last level before the hand-over that ran."""
+    C, N, t = _hetcor_case(seed, v=24)  # wide enough for one-sided hits at levels 2-3
+    gates = {**HETCOR_L1[l1], "LOCAL_LEVELS": local_levels}
+    (dev, sd), (host, sh), (listed, sl), (ref, _) = _hetcor_three_ways(
+        C, np.ones(C.shape, np.int32), N, t, max_level, ess_mode, gates)
+    for other in (host, listed, ref):
+        np.testing.assert_array_equal(dev.G, other.G)
+        assert dev.final_level == other.final_level
+    assert sd["level_route"] == sh["level_route"]
+    assert sd.get("ci_tests", 0) == sh.get("ci_tests", 0)
+    handover = 1 if l1 == "combinatorial" else HANDOVER[local_levels]
+    last = min(handover - 1, 3, dev.final_level)
+    assert sd["device_levels"] == list(range(last + 1))
+    assert sh["device_levels"] == sl["device_levels"] == []
+    assert "l0_adjacency" not in sd["d2h_bytes"]
+
+
+def test_hetcor_device_levels_honour_the_incoming_adjacency():
+    """Level 0 on the device only deletes: an edge absent from the incoming G
+    (symmetric holes, and a few one-sided ones) stays absent, the incoming
+    array is left as it was, and the skeleton is the host path's and JAX's."""
+    C, N, t = _hetcor_case(5)
+    rng = np.random.default_rng(5)
+    G0 = (rng.random(C.shape) < 0.6).astype(np.int32)
+    G0 = G0 | G0.T
+    G0[2, 7] = G0[9, 1] = 0
+    before = G0.copy()
+    (dev, sd), (host, _), (listed, _), (ref, _) = _hetcor_three_ways(
+        C, G0, N, t, 14, "reference", {})
+    np.testing.assert_array_equal(G0, before)
+    assert sd["device_levels"][:2] == [0, 1]
+    for other in (host, listed, ref):
+        np.testing.assert_array_equal(dev.G, other.G)
+        assert dev.final_level == other.final_level
+    assert not (dev.G & ~G0).any()
+
+
+def test_hetcor_device_levels_fetch_the_adjacency_once():
+    """On the default gates the device levels fetch the degrees and the
+    final adjacency alone: no level-0 deletion mask, no hits."""
+    from cigwas_tpu_torch.skeleton import cupc
+
+    C, N, t = _hetcor_case(1)
+    stats = {}
+    res = cupc.hetcor_skeleton(C, np.ones(C.shape, np.int32), N, hetcor_threshold(1e-3), 3,
+                               time_index=t, device="cpu", stats=stats)
+    assert stats["device_levels"] == list(range(res.final_level + 1))
+    vp = 128
+    assert stats["d2h_bytes"]["final_adjacency"] == vp * vp
+    assert set(stats["d2h_bytes"]) == {"final_adjacency", "loop_lists"}
+    # one degree fetch a level, and one more where the graph ran out of tests
+    assert stats["d2h_bytes"]["loop_lists"] == 4 * vp * min(res.final_level + 1, 3)
+
+
 @pytest.mark.parametrize("chunk", [16, 64])
 def test_chunk_of_the_combinatorial_route(chunk):
     """A smaller chunk gives the default chunk's result, and the JAX
@@ -410,7 +509,8 @@ def test_device_loop_scatters_only_the_hits():
 def test_default_gates_take_the_loop_before_the_dense_level1():
     """Under the default gates a panel within the loop's size and width
     takes the loop on one card even where the level-1 gate says dense; the
-    hetcor skeleton, which has no loop, takes the dense level 1 there."""
+    hetcor skeleton takes the dense level 1 there, with its adjacency on
+    the device."""
     from cigwas_tpu_torch.skeleton import cupc
 
     C, th, lmax = PANELS["ar1"]
@@ -424,6 +524,7 @@ def test_default_gates_take_the_loop_before_the_dense_level1():
     assert C.shape[0] <= cupc.DEV_RESIDENT_MAX
     assert set(stats["level_route"].values()) == {"device_loop"}
     assert hstats["level_route"][1] == "dense"
+    assert hstats["device_levels"][:2] == [0, 1]
     with _port("list"):
         ref = cupc.skeleton(C, th, lmax, device="cpu")
     _assert_same(got, ref, pmax_exact=True)

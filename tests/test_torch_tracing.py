@@ -1,10 +1,10 @@
 """The port's spans and transfer counters (`cigwas_tpu_torch.utils.timing`)
 on the CPU: `span` accumulates and nests; `record_function` is entered only
 while a profiler records; under a CPU torch.profiler a tiny `cusk` and a
-tiny `cuskss` show every top-level span as an annotation inside the
-caller's; the top-level walls are all there and fit in the call; the
-fetches' byte counts are the bytes their shapes imply; `run_all_blocks`
-hands back each block's stats.
+tiny `cuskss` (one card, and an engine) show every top-level span as an
+annotation inside the caller's; the top-level walls are all there and fit
+in the call; the fetches' byte counts are the bytes their shapes imply;
+`run_all_blocks` hands back each block's stats.
 """
 
 import json
@@ -45,7 +45,8 @@ INPUT_SPANS = {
     "stage2_s": "cigwas.pipeline.stage2",
     "write_s": "cigwas.pipeline.write",
 }
-ROOTS = {"block": "cigwas.pipeline.cusk", "input": "cigwas.pipeline.cuskss"}
+ROOTS = {"block": "cigwas.pipeline.cusk", "input": "cigwas.pipeline.cuskss",
+         "input_engine": "cigwas.pipeline.cuskss"}
 
 
 def _padded(v: int) -> int:
@@ -103,7 +104,7 @@ def _se_files(tmp_path) -> dict:
     return out
 
 
-def _solve_input(tmp_path, outdir) -> dict:
+def _solve_input(tmp_path, outdir, mesh=None) -> dict:
     from cigwas_tpu_torch.pipelines import CuskssArgs, cuskss
 
     os.makedirs(outdir, exist_ok=True)
@@ -115,7 +116,7 @@ def _solve_input(tmp_path, outdir) -> dict:
         alpha=1e-4, num_samples=500000, max_level_one=3, max_level_two=14, max_depth=1,
         outdir=str(outdir), **_se_files(tmp_path))
     stats: dict = {}
-    cuskss(args, verbose=False, device="cpu", stats=stats)
+    cuskss(args, verbose=False, device="cpu", stats=stats, mesh=mesh)
     return stats
 
 
@@ -174,17 +175,20 @@ def _inside(inner, outer) -> bool:
     return outer[1] <= inner[1] and inner[2] <= outer[2]
 
 
-@pytest.mark.parametrize("kind", ["block", "input"])
+@pytest.mark.parametrize("kind", ["block", "input", "input_engine"])
 def test_top_level_spans_nest_in_the_callers_annotation(kind, block_files, tmp_path):
     """Under a CPU profiler, each solve's documented top-level spans appear
     inside the program's root span, which lies inside the caller's
-    annotation; every program span and transfer lies inside the caller's."""
+    annotation; every program span and transfer lies inside the caller's.
+    An engine (one CPU shard) keeps the hetcor adjacency on the host: its
+    level-0 pass lies inside level 0 and only hits leave the shard."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         with torch.profiler.record_function("caller.solve"):
             if kind == "block":
                 _solve_block(block_files, tmp_path / "out")
             else:
-                _solve_input(tmp_path, tmp_path / "out")
+                _solve_input(tmp_path, tmp_path / "out",
+                             mesh=["cpu"] if kind == "input_engine" else None)
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     events = _annotations(path)
@@ -197,12 +201,24 @@ def test_top_level_spans_nest_in_the_callers_annotation(kind, block_files, tmp_p
         got = [e for e in program if e[0] == name]
         assert got and all(_inside(e, root) for e in got), name
     names = {e[0] for e in program}
+    # the hetcor levels 0-3 keep the adjacency on the device: it leaves once
+    fetches = {"block": {"cigwas.transfer.l0_adjacency"},
+               "input": {"cigwas.transfer.loop_lists", "cigwas.transfer.final_adjacency"},
+               "input_engine": {"cigwas.transfer.hits"}}[kind]
     assert {"cigwas.skeleton.level0", "cigwas.skeleton.level1", "cigwas.skeleton.host_pass",
-            "cigwas.transfer.l0_adjacency", "cigwas.transfer.reduce_panel"} <= names
+            "cigwas.transfer.reduce_panel", *fetches} <= names
     assert any(re.fullmatch(r"cigwas\.skeleton\.level[2-9]", n) for n in names)
     level0 = [e for e in program if e[0] == "cigwas.skeleton.level0"]
     for fetch in (e for e in program if e[0] == "cigwas.transfer.l0_adjacency"):
         assert any(_inside(fetch, e) for e in level0)
+    if kind == "input_engine":
+        assert not names & {"cigwas.transfer.loop_lists", "cigwas.transfer.final_adjacency"}
+        passes = [e for e in program if e[0] == "cigwas.skeleton.host_pass"]
+        for e in level0:
+            assert any(_inside(p, e) for p in passes)
+    final = [e for e in program if e[0] == "cigwas.skeleton.final_fetch"]
+    for fetch in (e for e in program if e[0] == "cigwas.transfer.final_adjacency"):
+        assert any(_inside(fetch, e) for e in final)
     if kind == "block":
         assert {"cigwas.skeleton.sepset_fill", "cigwas.skeleton.preamble",
                 "cigwas.transfer.prescreen", "cigwas.transfer.final_adjacency",
@@ -259,19 +275,42 @@ def test_block_fetches_count_the_bytes_of_their_shapes(block_files, tmp_path):
 
 
 def test_input_fetches_count_the_bytes_of_their_shapes(tmp_path):
-    """The hetcor skeleton fetches its level-0 deletions, (vp, vp) bool, in
-    each stage; each reduction fetches the kept (k, k) float32 correlation
-    and ESS panels of a device stage (stage 1 here: its panels are
-    assembled on the device; stage 2 gets numpy panels)."""
+    """The hetcor skeleton fetches its adjacency once, (vp, vp) bool, in
+    each stage (its levels 0-3 on the device), and no level-0 deletions;
+    each reduction fetches the kept (k, k) float32 correlation and ESS
+    panels of a device stage (stage 1 here: its panels are assembled on the
+    device; stage 2 gets numpy panels)."""
     stats = _solve_input(tmp_path, tmp_path / "out")
     v = np.fromfile(os.path.join(DATA, "marker_indices.bin"), dtype=np.int32).size
     v += len(open(os.path.join(DATA, "trait_summary_stats.txt")).readline().split())
     s1, s2 = stats["stage1"]["d2h_bytes"], stats["stage2"]["d2h_bytes"]
-    assert s1["l0_adjacency"] == _padded(v) ** 2
+    assert s1["final_adjacency"] == _padded(v) ** 2
     k1 = int(round((s1["reduce_panel"] / 8) ** 0.5))
     assert 8 * k1 * k1 == s1["reduce_panel"] and 0 < k1 <= v
-    assert s2["l0_adjacency"] == _padded(k1) ** 2
+    assert s2["final_adjacency"] == _padded(k1) ** 2
     assert "reduce_panel" not in s2
+    assert "l0_adjacency" not in s1 and "l0_adjacency" not in s2
+
+
+def test_input_engine_fetches_count_the_bytes_of_their_shapes(tmp_path):
+    """With an engine (one CPU shard) the hetcor adjacency stays on the host
+    through every level: no degrees, no adjacency and no level-0 mask leave
+    the shard, only the hits (two int32 a hit) and stage 1's reduction
+    panels; the decision files are those of the one-card run."""
+    stats = _solve_input(tmp_path, tmp_path / "engine", mesh=["cpu"])
+    for stage in ("stage1", "stage2"):
+        got = stats[stage]["d2h_bytes"]
+        assert stats[stage]["device_levels"] == []
+        assert not set(got) & {"l0_adjacency", "loop_lists", "final_adjacency"}
+        assert got["hits"] > 0 and got["hits"] % 8 == 0
+    k1 = int(round((stats["stage1"]["d2h_bytes"]["reduce_panel"] / 8) ** 0.5))
+    assert 8 * k1 * k1 == stats["stage1"]["d2h_bytes"]["reduce_panel"]
+    _solve_input(tmp_path, tmp_path / "one")
+    names = sorted(os.listdir(tmp_path / "one"))
+    assert names == sorted(os.listdir(tmp_path / "engine")) and names
+    for name in names:
+        assert ((tmp_path / "one" / name).read_bytes()
+                == (tmp_path / "engine" / name).read_bytes()), name
 
 
 def test_run_all_blocks_hands_back_each_blocks_stats(tmp_path, capsys):
