@@ -32,7 +32,7 @@ from cigwas_tpu_torch.ops.decode import (
     geno_value_valid,
     unpack_bed_codes,
 )
-from cigwas_tpu_torch.utils.timing import to_host
+from cigwas_tpu_torch.utils.timing import count, to_device, to_host
 
 # samples per decode step (bytes chunk = this / 4)
 DEFAULT_SAMPLE_CHUNK = 131072
@@ -250,14 +250,15 @@ def banded_row_abs_sums_streaming(bed_bytes, num_samples: int, corr_width: int,
     return sums[:m].cpu().numpy()
 
 
-def _phen_arrays(phen: np.ndarray, n_padded: int, device):
-    """NaN-zeroed phenotypes and their validity, zero-padded to n_padded."""
+def _phen_arrays(phen: np.ndarray, n_padded: int, device, stats: dict | None = None):
+    """NaN-zeroed phenotypes and their validity, zero-padded to n_padded;
+    their upload counted under the site ``phen``."""
     phen = np.asarray(phen, dtype=np.float32)
     phen0 = np.zeros((phen.shape[0], n_padded), dtype=np.float32)
     phenv = np.zeros((phen.shape[0], n_padded), dtype=np.float32)
     phen0[:, : phen.shape[1]] = np.nan_to_num(phen)
     phenv[:, : phen.shape[1]] = np.isfinite(phen).astype(np.float32)
-    return torch.from_numpy(phen0).to(device), torch.from_numpy(phenv).to(device)
+    return (to_device(phen0, device, stats, "phen"), to_device(phenv, device, stats, "phen"))
 
 
 def _chunk_sums(codes, ph0, phv):
@@ -271,16 +272,18 @@ def _chunk_sums(codes, ph0, phv):
 
 
 def marker_phen_sums(bed_bytes, phen: np.ndarray, num_samples: int, device,
-                     sample_chunk: int = DEFAULT_SAMPLE_CHUNK):
+                     sample_chunk: int = DEFAULT_SAMPLE_CHUNK, stats: dict | None = None):
     """(s_mp, s_p, n_val) (m, p) f32 device tensors, accumulated over sample
-    chunks (`cigwas_tpu.ops.corr.marker_phen_sums_dispatch`); no host fetch."""
+    chunks (`cigwas_tpu.ops.corr.marker_phen_sums_dispatch`); no host fetch.
+    stats, if given, counts the uploads (:func:`~cigwas_tpu_torch.utils.timing.to_device`,
+    sites ``prescreen_block`` and ``phen``)."""
     device = resolve(device)
     require_full_f32()
     bed_bytes = np.asarray(bed_bytes, dtype=np.uint8)
     sample_chunk = _sample_chunk(bed_bytes.shape[1], sample_chunk)
     padded, n_chunks = _prep_bytes(bed_bytes, num_samples, sample_chunk)
-    ph0, phv = _phen_arrays(phen, padded.shape[1] * 4, device)
-    rows = torch.tensor(padded, device=device)
+    ph0, phv = _phen_arrays(phen, padded.shape[1] * 4, device, stats)
+    rows = to_device(padded, device, stats, "prescreen_block")
     cb = padded.shape[1] // n_chunks
     sums = None
     for c in range(n_chunks):
@@ -316,15 +319,25 @@ def marker_phen_corr(bed_bytes, phen: np.ndarray, marker_mean: np.ndarray,
     return marker_phen_corr_from_sums(sums, marker_mean, marker_std)
 
 
-def phen_phen_corr(phen: np.ndarray, device="cuda") -> np.ndarray:
+def phen_phen_corr(phen: np.ndarray, device="cuda", stats: dict | None = None) -> np.ndarray:
     """(p, p) Pearson panel of standardized phenotypes with pairwise NaN
-    masking: r_ab = sum_valid(y_a y_b) / n_valid_ab."""
+    masking: r_ab = sum_valid(y_a y_b) / n_valid_ab; stats, if given,
+    counts the upload of the phenotypes (site ``phen``)."""
     device = resolve(device)
     require_full_f32()
     phen = np.asarray(phen, dtype=np.float32)
-    p0 = torch.from_numpy(np.nan_to_num(phen)).to(device)
-    v = torch.from_numpy(np.isfinite(phen).astype(np.float32)).to(device)
+    p0 = to_device(np.nan_to_num(phen), device, stats, "phen")
+    v = to_device(np.isfinite(phen).astype(np.float32), device, stats, "phen")
     return ((p0 @ p0.T) / (v @ v.T)).cpu().numpy()
+
+
+def _count_panel(stats: dict | None, m: int, num_samples: int, n_chunks: int) -> None:
+    """The panel's counters: ``panel_markers`` and ``panel_samples`` (the
+    block's shape, unpadded) and ``panel_sample_chunks`` (the int8 products
+    of a stripe); each decode of the int8 one-hot adds its bytes to
+    ``panel_decode_bytes``."""
+    if stats is not None:
+        stats.update(panel_markers=m, panel_samples=num_samples, panel_sample_chunks=n_chunks)
 
 
 def _reorder_mask_panel(C: torch.Tensor, idx: torch.Tensor, v_valid: int):
@@ -347,11 +360,13 @@ def _pads_last_index(m: int, m_pad: int, p: int, device) -> torch.Tensor:
 
 
 def _fused_inputs(bed_bytes, phen: np.ndarray, marker_mean: np.ndarray,
-                  marker_std: np.ndarray, num_samples: int, device, sample_chunk: int):
+                  marker_std: np.ndarray, num_samples: int, device, sample_chunk: int,
+                  stats: dict | None = None):
     """The single-pass panel's device inputs: the packed rows padded to
     m_pad = m + (-(m + p) mod PANEL_ALIGN) markers, their sample chunks, the
     phenotypes and the padded means and stds. Returns (rows, n_chunks, ph0,
-    phv, mean (m_pad, 1), std (m_pad, 1), m_pad)."""
+    phv, mean (m_pad, 1), std (m_pad, 1), m_pad). stats, if given, counts
+    the uploads (sites ``panel_block``, ``phen``, ``panel_traits``)."""
     bed_bytes = np.asarray(bed_bytes, dtype=np.uint8)
     m, p = bed_bytes.shape[0], phen.shape[0]
     m_pad = m + ((-(m + p)) % PANEL_ALIGN)
@@ -360,10 +375,10 @@ def _fused_inputs(bed_bytes, phen: np.ndarray, marker_mean: np.ndarray,
     std = _pad_rows(np.asarray(marker_std, dtype=np.float32), m_pad, 1.0)
     sample_chunk = _sample_chunk(bed_bytes.shape[1], sample_chunk)
     padded, n_chunks = _prep_bytes(bed_bytes, num_samples, sample_chunk)
-    ph0, phv = _phen_arrays(phen, padded.shape[1] * 4, device)
-    return (torch.tensor(padded, device=device), n_chunks, ph0, phv,
-            torch.from_numpy(mean).to(device)[:, None],
-            torch.from_numpy(std).to(device)[:, None], m_pad)
+    ph0, phv = _phen_arrays(phen, padded.shape[1] * 4, device, stats)
+    return (to_device(padded, device, stats, "panel_block"), n_chunks, ph0, phv,
+            to_device(mean, device, stats, "panel_traits")[:, None],
+            to_device(std, device, stats, "panel_traits")[:, None], m_pad)
 
 
 def _fused_trait_blocks(sums, ph0, phv, mean_t, std_t):
@@ -400,24 +415,28 @@ def fused_trait_blocks(bed_bytes, phen: np.ndarray, marker_mean: np.ndarray,
 
 def corr_panel_device(bed_bytes, phen: np.ndarray, marker_mean: np.ndarray,
                       marker_std: np.ndarray, num_samples: int, device,
-                      sample_chunk: int = DEFAULT_SAMPLE_CHUNK):
+                      sample_chunk: int = DEFAULT_SAMPLE_CHUNK, stats: dict | None = None):
     """Packed correlation panel of a block, built and left on ``device``;
     returns (C (vp, vp) f32, v). The one-hot of each sample chunk is decoded
     once and feeds both the contingency product and the marker-phen sums
     (`cigwas_tpu.ops.corr.corr_panel_device`). For blocks up to ~4096
-    markers; larger blocks use :func:`corr_panel_device_tiled`."""
+    markers; larger blocks use :func:`corr_panel_device_tiled`. stats, if
+    given, receives the panel's counters (see :func:`_count_panel`) and its
+    uploads (:func:`_fused_inputs`)."""
     device = resolve(device)
     require_full_f32()
     m, p = np.asarray(bed_bytes).shape[0], phen.shape[0]
     v = m + p
     rows, n_chunks, ph0, phv, mean_t, std_t, m_pad = _fused_inputs(
-        bed_bytes, phen, marker_mean, marker_std, num_samples, device, sample_chunk)
+        bed_bytes, phen, marker_mean, marker_std, num_samples, device, sample_chunk, stats)
+    _count_panel(stats, m, num_samples, n_chunks)
     cb = rows.shape[1] // n_chunks
     counts = torch.zeros((3 * m_pad, 3 * m_pad), dtype=torch.int32, device=device)
     sums = None
     for c in range(n_chunks):
         codes = unpack_bed_codes(rows[:, c * cb : (c + 1) * cb])
         oh = geno_onehot(codes).reshape(3 * m_pad, -1)
+        count(stats, "panel_decode_bytes", oh.numel())
         counts += contingency_counts(oh, oh)
         part = _chunk_sums(
             codes, ph0[:, c * 4 * cb : (c + 1) * 4 * cb], phv[:, c * 4 * cb : (c + 1) * 4 * cb]
@@ -436,7 +455,7 @@ def corr_panel_device_tiled(bed_bytes, phen: np.ndarray, marker_mean: np.ndarray
                             marker_std: np.ndarray, num_samples: int, device,
                             mp_corr: np.ndarray | None = None,
                             sample_chunk: int = DEFAULT_SAMPLE_CHUNK,
-                            row_tile: int = PANEL_ROW_TILE):
+                            row_tile: int = PANEL_ROW_TILE, stats: dict | None = None):
     """Large-block panel, built in ``row_tile``-row Kendall stripes into a
     device canvas and left there; returns (C, v) with vp the smallest
     ``row_tile`` multiple >= m + p (`cigwas_tpu.ops.corr.corr_panel_device_tiled`).
@@ -444,7 +463,10 @@ def corr_panel_device_tiled(bed_bytes, phen: np.ndarray, marker_mean: np.ndarray
     The int8 one-hot of the whole block is decoded once when it fits
     DECODE_ONCE_MAX_BYTES, so each stripe is one int8 product. mp_corr:
     the (m, p) marker-phen correlations when the caller already has them
-    (the cusk pre-screen), else computed here on the device.
+    (the cusk pre-screen), else computed here on the device. stats, if
+    given, receives the panel's counters (see :func:`_count_panel`) and its
+    uploads (sites ``panel_block``, ``panel_traits``, ``phen`` and, without
+    mp_corr, ``prescreen_block``).
     """
     device = resolve(device)
     require_full_f32()
@@ -455,20 +477,26 @@ def corr_panel_device_tiled(bed_bytes, phen: np.ndarray, marker_mean: np.ndarray
     vp = -(-v // row_tile) * row_tile
     m_pad = vp - p
     if mp_corr is None:
-        s_mp, s_p, n_val = marker_phen_sums(bed_bytes, phen, num_samples, device)
-        mean_t = torch.from_numpy(np.asarray(marker_mean, np.float32)).to(device)[:, None]
-        std_t = torch.from_numpy(np.asarray(marker_std, np.float32)).to(device)[:, None]
+        s_mp, s_p, n_val = marker_phen_sums(bed_bytes, phen, num_samples, device,
+                                            stats=stats)
+        mean_t = to_device(np.asarray(marker_mean, np.float32), device, stats,
+                           "panel_traits")[:, None]
+        std_t = to_device(np.asarray(marker_std, np.float32), device, stats,
+                          "panel_traits")[:, None]
         mp = (s_mp - mean_t * s_p) / (n_val * std_t)
     else:
-        mp = torch.from_numpy(np.asarray(mp_corr, dtype=np.float32)).to(device)
+        mp = to_device(np.asarray(mp_corr, dtype=np.float32), device, stats, "panel_traits")
     bed_pad = _pad_rows(bed_bytes, m_pad, PAD_BYTE)
     sample_chunk = _sample_chunk(bed_pad.shape[1], sample_chunk)
     padded, n_chunks = _prep_bytes(bed_pad, num_samples, sample_chunk)
-    cols = torch.tensor(padded, device=device)
+    _count_panel(stats, m, num_samples, n_chunks)
+    cols = to_device(padded, device, stats, "panel_block")
     cb = padded.shape[1] // n_chunks
 
     def decode(c):
-        return geno_onehot(unpack_bed_codes(cols[:, c * cb : (c + 1) * cb])).reshape(3 * m_pad, -1)
+        X = geno_onehot(unpack_bed_codes(cols[:, c * cb : (c + 1) * cb])).reshape(3 * m_pad, -1)
+        count(stats, "panel_decode_bytes", X.numel())
+        return X
 
     decoded = (
         [decode(c) for c in range(n_chunks)]
@@ -488,7 +516,8 @@ def corr_panel_device_tiled(bed_bytes, phen: np.ndarray, marker_mean: np.ndarray
     # NaN marker-phen corrs stay NaN: the level-0 screen keeps such edges
     C[:m, m_pad:] = mp
     C[m_pad:, :m] = mp.T
-    C[m_pad:, m_pad:] = torch.from_numpy(phen_phen_corr(phen, device)).to(device)
+    C[m_pad:, m_pad:] = to_device(phen_phen_corr(phen, device, stats), device, stats,
+                                  "panel_traits")
     C.fill_diagonal_(1.0)
     return _reorder_mask_panel(C, _pads_last_index(m, m_pad, p, device), v), v
 

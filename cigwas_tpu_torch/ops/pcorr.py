@@ -55,6 +55,9 @@ RHO_BIG = 2.0
 MARGIN_BIG = 3.0e38
 # elements of the largest live intermediate of the plain sweeps
 PLAIN_ELEMS = 1 << 24
+# cap on (nodes x combos x neighbours x l) elements live per call of the
+# combinatorial scan; the skeleton sizes its node tiles by it too
+SCAN_ELEMS = 1 << 26
 
 
 def _rinv(x: torch.Tensor) -> torch.Tensor:
@@ -412,8 +415,27 @@ def _combo_onehots(combos: torch.Tensor, d: int, l: int):
     return [(combos[:, i][:, None] == slot).to(torch.float32) for i in range(l)]
 
 
-def _pcorr_rho_local(C_x, c_row, deg, left, sel, combos, l: int):
-    """Level-l |rho| of a node tile from local panels, (nt, K, d).
+def _combo_ok(left: torch.Tensor, K: int) -> torch.Tensor:
+    """(nt, g K) validity of the sets of g consecutive chunks of K sets each,
+    left (g, nt) the count of valid leading sets of each chunk per node."""
+    k_ix = torch.arange(K, device=left.device)
+    return (k_ix[None, None, :] < left.T[:, :, None]).reshape(left.shape[1], -1)
+
+
+def _chunks_per_call(nch: int, elems: int) -> int:
+    """Chunks that one call of the scan takes together: the most, a divisor
+    of nch, whose (nt, K, d) x l intermediates (elems a chunk) stay within
+    SCAN_ELEMS. A tile of few nodes then scans many chunks a call instead
+    of launching the ~l^2 small operations of a chunk once per chunk."""
+    g = max(1, min(nch, SCAN_ELEMS // max(1, elems)))
+    while nch % g:
+        g -= 1
+    return g
+
+
+def _pcorr_rho_local(C_x, c_row, deg, combo_ok, sel, combos, l: int):
+    """Level-l |rho| of a node tile from local panels, (nt, K, d); combo_ok
+    (nt, K) marks each node's sets that are scanned.
 
     Batched `cigwas_tpu.ops.pcorr._pcorr_rho_local`: the closed-form
     inverse for l <= 3 (the combinatorial route of levels 1-3), a batched LU
@@ -439,9 +461,7 @@ def _pcorr_rho_local(C_x, c_row, deg, left, sel, combos, l: int):
         for j in range(l)
     )
     rho = torch.abs(H01) * (1.0 / torch.sqrt(torch.abs(H00[..., None] * H11)))
-    k_ix = torch.arange(K, device=C_x.device)
     slot_ix = torch.arange(d, device=C_x.device)
-    combo_ok = k_ix[None, :] < left[:, None]  # (nt, K)
     slot_ok = slot_ix[None, :] < deg[:, None]  # (nt, d)
     y_in_S = torch.zeros((K, d), dtype=torch.bool, device=C_x.device)
     for i in range(l):
@@ -464,23 +484,28 @@ def level_scan_minrho_pre(C_x, c_row, deg, combos_seq, left_seq, l: int):
     combos_seq: (nch, K, l) colex position tuples; left_seq: (nch, nt) valid
     rows per node per chunk. Returns (rho_min (nt, d), rank (nt, d) int64):
     the minimum |rho| over every scanned set and the launch-local rank
-    (chunk * K + first argmin over K) that achieves it, merged across chunks
-    with a strict <."""
+    (chunk * K + first argmin over K) that achieves it. Consecutive chunks
+    are scanned together (:func:`_chunks_per_call`); the first minimum over
+    them is the one that a merge chunk by chunk with a strict < keeps, and
+    every test is the same arithmetic, so the result does not depend on
+    how many are taken together."""
     nt, d = c_row.shape
     nch, K, _ = combos_seq.shape
     dev = c_row.device
+    g = _chunks_per_call(nch, nt * K * d * l)
     rho_min = torch.full((nt, d), RHO_BIG, device=dev)
     rank = torch.zeros((nt, d), dtype=torch.int64, device=dev)
-    for ci in range(nch):
-        combos = combos_seq[ci]
+    k_ix = torch.arange(g * K, device=dev)[None, :, None]
+    for c0 in range(0, nch, g):
+        combos = combos_seq[c0 : c0 + g].reshape(g * K, l)
         sel = _combo_onehots(combos, d, l)
-        rho = _pcorr_rho_local(C_x, c_row, deg, left_seq[ci], sel, combos, l)
+        rho = _pcorr_rho_local(C_x, c_row, deg, _combo_ok(left_seq[c0 : c0 + g], K), sel,
+                               combos, l)
         rho_c = rho.amin(1)
-        k_ix = torch.arange(K, device=dev)[None, :, None]
-        argk = torch.where(rho == rho_c[:, None, :], k_ix, K).amin(1)
+        argk = torch.where(rho == rho_c[:, None, :], k_ix, g * K).amin(1)
         better = rho_c < rho_min
         rho_min = torch.where(better, rho_c, rho_min)
-        rank = torch.where(better, ci * K + argk, rank)
+        rank = torch.where(better, c0 * K + argk, rank)
     return rho_min, rank
 
 
@@ -701,7 +726,8 @@ def level_scan_hetcor_pre(C_x, c_row, N_x_raw, n_row_raw, t_nbrs, t_x, deg,
     for ci in range(nch):
         combos = combos_seq[ci]
         sel = _combo_onehots(combos, d, l)
-        rho = _pcorr_rho_local(C_x, c_row, deg, left_seq[ci], sel, combos, l)
+        rho = _pcorr_rho_local(C_x, c_row, deg, _combo_ok(left_seq[ci : ci + 1], K), sel,
+                               combos, l)
         rowsN = [torch.matmul(sel[i], N_x) for i in range(l)]  # l x (nt, K, d)
         rowsNaN = [torch.matmul(sel[i], N_x_nan) for i in range(l)]
         s_SS = torch.zeros((nt, K), device=dev)

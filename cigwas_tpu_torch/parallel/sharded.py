@@ -58,6 +58,7 @@ from cigwas_tpu_torch.ops.corr import (
     DEFAULT_SAMPLE_CHUNK,
     _banded_tile,
     _banded_tile_abs_sums,
+    _count_panel,
     _kendall_from_counts,
     _pad_rows,
     _prep_bytes,
@@ -75,6 +76,7 @@ from cigwas_tpu_torch.ops import pcorr
 from cigwas_tpu_torch.ops.kernels import dense_l1 as dk
 from cigwas_tpu_torch.ops.kernels.checks import check_index_range
 from cigwas_tpu_torch.parallel.mesh import Mesh, flat_mesh, visible_devices
+from cigwas_tpu_torch.utils.timing import count
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -310,14 +312,18 @@ class ShardedEngine:
     def corr_panel_device(self, bed_bytes, phen: np.ndarray, marker_mean: np.ndarray,
                           marker_std: np.ndarray, num_samples: int,
                           mp_corr: np.ndarray | None = None,
-                          sample_chunk: int = DEFAULT_SAMPLE_CHUNK):
+                          sample_chunk: int = DEFAULT_SAMPLE_CHUNK,
+                          stats: dict | None = None):
         """The block's panel (layout [m markers, p traits, inert pads], vp a
         multiple of :meth:`align`) built in one row slab per shard; returns
         (panel, v). Without mp_corr the trait blocks are
         :func:`~cigwas_tpu_torch.ops.corr.fused_trait_blocks` (the
         single-pass panel's); with mp_corr (the pre-screen's correlations)
         they are mp_corr and ``phen_phen_corr``, as the striped panel takes
-        them."""
+        them. stats, if given, receives the one-device panel's counters
+        (``panel_markers``, ``panel_samples``, ``panel_sample_chunks``, and
+        ``panel_decode_bytes`` over every shard's decodes); the engine's
+        copies are in its ``record``."""
         require_full_f32()
         bed_bytes = np.asarray(bed_bytes, dtype=np.uint8)
         phen = np.asarray(phen, dtype=np.float32)
@@ -334,6 +340,7 @@ class ShardedEngine:
         mp_of, pp_of = self.replicate(mp, 0), self.replicate(pp, 0)
         padded, n_chunks = _prep_bytes(bed_bytes, num_samples,
                                        _sample_chunk(bed_bytes.shape[1], sample_chunk))
+        _count_panel(stats, m, num_samples, n_chunks)
         cb = padded.shape[1] // n_chunks
         host_cols = torch.tensor(padded)
         cols = {}  # per distinct device: the packed bytes and the decoded chunks
@@ -343,8 +350,10 @@ class ShardedEngine:
                 t = self._copy(host_cols, None, self.owner[dev])
 
                 def decode(c):
-                    return geno_onehot(unpack_bed_codes(t[:, c * cb : (c + 1) * cb])).reshape(
+                    X = geno_onehot(unpack_bed_codes(t[:, c * cb : (c + 1) * cb])).reshape(
                         3 * m, -1)
+                    count(stats, "panel_decode_bytes", X.numel())
+                    return X
 
                 once = 3 * m * 4 * padded.shape[1] <= DECODE_ONCE_MAX_BYTES
                 cols[dev] = [decode(c) for c in range(n_chunks)] if once else decode

@@ -144,18 +144,19 @@ def cusk(
     Returns the written ReducedGCS, or None if the block was skipped because
     no marker–phenotype correlation is significant. stats, if given, collects
     phase walls: ``context_s`` (the :class:`CuskContext`: `.phen`, `.bim`,
-    `.dim`, `.blocks`, thresholds), ``prepare_s`` (host I/O) and those of
-    :meth:`CuskContext.finish`. A solved block's top-level spans, which tile
-    the call, are ``context_s``, ``prepare_s``, ``prescreen_s``,
-    ``panel_s``, ``stage1["skeleton_wall_s"]``, ``reduce_s``, ``stage2_s``
-    and ``write_s``. mesh / panel_mode: see :class:`CuskContext`.
+    `.dim`, `.blocks`, thresholds; of it ``load_phen_s``), ``prepare_s``
+    (host I/O; of it ``read_bed_s``) and those of :meth:`CuskContext.finish`.
+    A solved block's top-level spans, which tile the call, are
+    ``context_s``, ``prepare_s``, ``prescreen_s``, ``panel_s``,
+    ``stage1["skeleton_wall_s"]``, ``reduce_s``, ``stage2_s`` and
+    ``write_s``. mesh / panel_mode: see :class:`CuskContext`.
     """
     with span(None, None, "cigwas.pipeline.cusk"):
         with span(stats, "context_s", "cigwas.pipeline.context"):
             ctx = CuskContext(
                 phen_path, bed_base_path, block_path, alpha, max_level, max_level_two,
                 depth, outdir, verbose=verbose, device=device, mesh=mesh,
-                panel_mode=panel_mode,
+                panel_mode=panel_mode, stats=stats,
             )
         prep = ctx.prepare(block_index, stats=stats)
         return ctx.finish(prep, stats=stats)
@@ -174,7 +175,8 @@ class CuskContext:
     device, where the pre-screen runs. panel_mode: ``"replicated"`` keeps the
     panel whole on every device, ``"rowsharded"`` in (vp / D, vp) row
     stripes (its second stage runs on the first device). The block outputs
-    are byte-identical to the one-device run's.
+    are byte-identical to the one-device run's. stats, if given, receives
+    the `.phen` read's wall ``load_phen_s``.
     """
 
     def __init__(
@@ -191,6 +193,7 @@ class CuskContext:
         device="cuda",
         mesh=None,
         panel_mode: str = "replicated",
+        stats: dict | None = None,
     ):
         if panel_mode not in ("replicated", "rowsharded"):
             raise ValueError(f"unknown panel_mode: {panel_mode!r}")
@@ -206,7 +209,8 @@ class CuskContext:
         check_path(block_path)
         check_path(outdir)
 
-        self.phen = load_phen(phen_path)
+        with span(stats, "load_phen_s", "cigwas.io.load_phen"):
+            self.phen = load_phen(phen_path)
         self.bfiles = BfilesBase(bed_base_path)
         self.dims = BedDims.from_file(self.bfiles.dim())
         if self.phen.num_samples != self.dims.num_samples:
@@ -233,7 +237,8 @@ class CuskContext:
 
     def prepare(self, block_index: int, stats: dict | None = None) -> dict:
         """Host I/O plus the pre-screen sums on the device (no fetch); its
-        wall into ``stats["prepare_s"]`` if stats is given."""
+        wall into ``stats["prepare_s"]`` if stats is given, the `.bed` read's
+        into ``read_bed_s`` and the uploads' bytes into ``h2d_bytes``."""
         with span(stats, "prepare_s", "cigwas.pipeline.prepare"):
             block = self.blocks[block_index]
             num_markers = block.block_size()
@@ -242,7 +247,8 @@ class CuskContext:
                     f"Processing block {block_index + 1} / {len(self.blocks)} "
                     f"({num_markers} markers)"
                 )
-            bedblock = read_block_from_bed(self.bfiles.bed(), block, self.dims, self.bim)
+            with span(stats, "read_bed_s", "cigwas.io.read_bed"):
+                bedblock = read_block_from_bed(self.bfiles.bed(), block, self.dims, self.bim)
             chr_start = self.bim.get_global_chr_start(block.chr_id)
             first = chr_start + block.first_marker_ix
             last = chr_start + block.last_marker_ix
@@ -251,7 +257,7 @@ class CuskContext:
             if means.size != num_markers or stds.size != num_markers:
                 raise ValueError("block size and number of means or stds differ")
             sums = marker_phen_sums(
-                bedblock, self.phen.data, self.dims.num_samples, self.device
+                bedblock, self.phen.data, self.dims.num_samples, self.device, stats=stats
             )
             return {
                 "block": block,
@@ -270,9 +276,11 @@ class CuskContext:
         ``retained_markers`` and the stages' ``final_level`` /
         ``final_level_two``, ``write_s`` (the block files), ``d2h_bytes``
         (the pre-screen's and the reductions' fetches; the stages count
-        theirs) and with a mesh ``engine_record`` (the engine's placements,
-        calls and copies); walls are host seconds that end in a device
-        synchronisation or a fetch."""
+        theirs), the panel's counters ``panel_markers``, ``panel_samples``,
+        ``panel_sample_chunks`` and ``panel_decode_bytes``, its uploads'
+        ``h2d_bytes`` (without a mesh) and with a mesh ``engine_record``
+        (the engine's placements, calls and copies); walls are host seconds
+        that end in a device synchronisation or a fetch."""
         with span(stats, "prescreen_s", "cigwas.pipeline.prescreen"):
             mp_corr = marker_phen_corr_from_sums(prep["mp_sums"], prep["means"], prep["stds"],
                                                  stats)
@@ -306,17 +314,17 @@ class CuskContext:
             if engine is not None:  # slabs over the mesh; trait blocks as one device's route
                 C, v_panel = engine.corr_panel_device(
                     prep["bedblock"], self.phen.data, prep["means"], prep["stds"], n,
-                    mp_corr=None if num_markers <= FUSED_PANEL_MAX else mp_corr,
+                    mp_corr=None if num_markers <= FUSED_PANEL_MAX else mp_corr, stats=stats,
                 )
             elif num_markers <= FUSED_PANEL_MAX:
                 C, v_panel = corr_panel_device(
                     prep["bedblock"], self.phen.data, prep["means"], prep["stds"], n,
-                    self.device,
+                    self.device, stats=stats,
                 )
             else:
                 C, v_panel = corr_panel_device_tiled(
                     prep["bedblock"], self.phen.data, prep["means"], prep["stds"], n,
-                    self.device, mp_corr=mp_corr,
+                    self.device, mp_corr=mp_corr, stats=stats,
                 )
             self._sync()
         stats["stage1"] = {}

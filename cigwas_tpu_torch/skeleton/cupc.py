@@ -76,7 +76,7 @@ CHUNK = 512
 # max chunks per scan launch
 MAX_CHUNKS_PER_LAUNCH = 256
 # cap on (nodes x combos x neighbours x l) elements live per scan call
-ELEM_BUDGET = 1 << 26
+ELEM_BUDGET = pcorr.SCAN_ELEMS
 
 # Route gates (`cigwas_tpu.skeleton.cupc`'s names; tests and chip_smoke.py
 # monkeypatch them). Every route decides the same. The values are the port's

@@ -1,16 +1,19 @@
 """Spans and transfer counters of the solve path (`cigwas_tpu.utils.timing`).
 
 :class:`span` adds a block's host wall into a ``stats`` dict, the port's one
-record of where a solve's time goes, and :func:`to_host` fetches a device
-tensor and counts its bytes there under ``stats["d2h_bytes"][site]``. While
-a ``torch.profiler`` records, and only then, each also opens a
-``torch.profiler.record_function`` annotation: the span then lies in the
-profiler's trace on the clock of the kernels and copies it caused, nested
-under the span that was open when it began. Names follow the layers of the
-solve: ``cigwas.pipeline.*``, ``cigwas.panel.*``, ``cigwas.skeleton.*``,
-``cigwas.reduce.*`` and ``cigwas.transfer.<site>`` (:func:`to_host`).
+record of where a solve's time goes, :func:`to_host` fetches a device
+tensor and counts its bytes there under ``stats["d2h_bytes"][site]``,
+:func:`to_device` uploads a host array and counts its bytes under
+``stats["h2d_bytes"][site]``, and :func:`count` adds to any other counter.
+While a ``torch.profiler`` records, and only then, each span and transfer
+also opens a ``torch.profiler.record_function`` annotation: the span then
+lies in the profiler's trace on the clock of the kernels and copies it
+caused, nested under the span that was open when it began. Names follow the
+layers of the solve: ``cigwas.pipeline.*``, ``cigwas.io.*``,
+``cigwas.panel.*``, ``cigwas.skeleton.*``, ``cigwas.reduce.*`` and
+``cigwas.transfer.<site>`` (:func:`to_host`, :func:`to_device`).
 
-Neither synchronises the device: a wall ends where the code it wraps ends,
+None synchronises the device: a wall ends where the code it wraps ends,
 in a synchronisation or a fetch only where that code makes one. With no
 profiler recording, a span costs the clock reads and one flag check.
 """
@@ -73,3 +76,22 @@ def to_host(t: torch.Tensor, stats: dict | None, site: str, copy: bool = False) 
         with torch.profiler.record_function("cigwas.transfer." + site):
             return t.to("cpu", copy=copy).numpy()
     return t.to("cpu", copy=copy).numpy()
+
+
+def count(stats: dict | None, key, value) -> None:
+    """stats[key] += value (from 0; a tuple key is a path of nested dicts);
+    nothing where stats is None."""
+    if stats is not None:
+        _add(stats, key, value)
+
+
+def to_device(a: np.ndarray, device, stats: dict | None, site: str) -> torch.Tensor:
+    """A fresh tensor on device holding ``a``, its bytes added to
+    ``stats["h2d_bytes"][site]`` whatever the device (so the count of a CPU
+    run is the card's), under the annotation ``cigwas.transfer.<site>`` while
+    a profiler records."""
+    count(stats, ("h2d_bytes", site), a.nbytes)
+    if _profiler_enabled():
+        with torch.profiler.record_function("cigwas.transfer." + site):
+            return torch.tensor(a, device=device)
+    return torch.tensor(a, device=device)

@@ -154,6 +154,37 @@ def test_level_scan_minrho_matches_jax(l):
     np.testing.assert_allclose(rho_t[valid], rho_j[valid], rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("l", [4, 6])
+def test_level_scan_takes_chunks_together_bit_for_bit(l, monkeypatch):
+    """The scan with consecutive chunks taken together (the default budget)
+    against one chunk a call: the same minima and ranks bit for bit, with
+    valid counts that end inside a chunk and tied minima across chunks
+    (every variable of the panel repeated, so a set and its copy tie)."""
+    from cigwas_tpu_torch.ops import pcorr as tp
+    from cigwas_tpu_torch.utils.combinatorics import colex_combinations_chunk
+
+    d, K, nch = 12, 64, 8
+    C, node_ixs, nbrs, deg = _sweep_case(60 + l, 256, 5, d, 0.01, clustered=True)
+    C = np.kron(C, np.ones((2, 2), np.float32))  # variable 2i + 1 repeats 2i
+    half = np.minimum(deg, d // 2)  # each neighbour a with its copy: 2a, 2a + 1
+    pairs = np.stack([2 * nbrs[:, : d // 2], 2 * nbrs[:, : d // 2] + 1], -1).reshape(-1, d)
+    node_ixs, deg = 2 * node_ixs, 2 * half
+    nbrs = np.where(np.arange(d)[None, :] < deg[:, None], pairs, 0)
+    combos = colex_combinations_chunk(0, K * nch, l).reshape(nch, K, l)
+    totals = np.array([min(math.comb(int(x), l), K * nch - 37) for x in deg])
+    left = np.clip(totals[None, :] - K * np.arange(nch)[:, None], 0, K)
+    args = [torch.from_numpy(C)] + [torch.from_numpy(np.asarray(a)).long()
+                                    for a in (node_ixs, nbrs, deg, combos, left)]
+    assert tp._chunks_per_call(nch, len(deg) * K * d * l) == nch
+    together = tp.level_scan_minrho(*args, l)
+    monkeypatch.setattr(tp, "SCAN_ELEMS", 1)
+    assert tp._chunks_per_call(nch, len(deg) * K * d * l) == 1
+    alone = tp.level_scan_minrho(*args, l)
+    valid = np.arange(d)[None, :] < deg[:, None]
+    assert (together[0].numpy()[valid] < 2.0).any()
+    assert torch.equal(together[0], alone[0]) and torch.equal(together[1], alone[1])
+
+
 def test_level0_screen_matches_jax():
     """The Fisher-z screen decides identically (NaN keeps the edge)."""
     import jax.numpy as jnp

@@ -342,3 +342,110 @@ def test_run_all_blocks_hands_back_each_blocks_stats(tmp_path, capsys):
     total = sum(st["prepare_s"] + st["finish_s"] for st in stats.values())
     assert f"processed {len(res)} blocks in {total:.2f}s" in printed
 
+
+
+def _chunk_samples(n: int, sample_chunk: int) -> int:
+    """Samples of a chunk of the panels: at most sample_chunk, and the
+    block's bytes rounded up to a multiple of 32 (`ops/corr.py`)."""
+    return min(sample_chunk, 4 * (-(-(-(-n // 4)) // 32) * 32))
+
+
+def test_to_device_counts_bytes_whatever_the_device():
+    from cigwas_tpu_torch.utils.timing import count, to_device
+
+    stats: dict = {}
+    a = np.arange(12, dtype=np.int32)
+    first = to_device(a, "cpu", stats, "rows")
+    to_device(a[::2], "cpu", stats, "rows")
+    to_device(np.zeros((3, 4), dtype=np.float32), "cpu", stats, "phen")
+    count(stats, "decoded", 5)
+    count(stats, "decoded", 7)
+    count(None, "decoded", 1)
+    assert stats == {"h2d_bytes": {"rows": 48 + 24, "phen": 48}, "decoded": 12}
+    a[0] = 9
+    assert first.tolist() == list(range(12))  # a fresh tensor, not a view of a
+
+
+def test_block_io_spans_nest_in_their_phases(block_files, tmp_path):
+    """The `.phen` read lies inside the context, the `.bed` read inside the
+    host I/O phase, in the trace and in the walls; the uploads appear as
+    transfers inside the solve."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        stats = _solve_block(block_files, tmp_path / "out")
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = _annotations(path)
+    for inner, outer in (("cigwas.io.load_phen", "cigwas.pipeline.context"),
+                         ("cigwas.io.read_bed", "cigwas.pipeline.prepare")):
+        (i,) = [e for e in events if e[0] == inner]
+        (o,) = [e for e in events if e[0] == outer]
+        assert _inside(i, o), inner
+    (root,) = [e for e in events if e[0] == ROOTS["block"]]
+    for site in ("prescreen_block", "panel_block", "phen", "panel_traits"):
+        got = [e for e in events if e[0] == "cigwas.transfer." + site]
+        assert got and all(_inside(e, root) for e in got), site
+    assert 0.0 < stats["load_phen_s"] <= stats["context_s"]
+    assert 0.0 < stats["read_bed_s"] <= stats["prepare_s"]
+
+
+def test_block_uploads_and_panel_counters_follow_the_shapes(block_files, tmp_path):
+    """The single-pass panel of the block (one sample chunk, decoded once):
+    the pre-screen uploads the block's packed bytes, the panel the bytes of
+    its m_pad rows, both padded to the sample chunk's bytes; each uploads
+    the phenotypes and their validities over the padded samples; the panel
+    its padded means and stds; it decodes the (3 m_pad, samples) one-hot
+    once."""
+    stats = _solve_block(block_files, tmp_path / "out")
+    samples = _chunk_samples(SAMPLES, 131072)  # one chunk
+    m_pad = MARKERS + (-(MARKERS + TRAITS)) % PANEL_ALIGN
+    assert stats["h2d_bytes"] == {
+        "prescreen_block": MARKERS * samples // 4,
+        "panel_block": m_pad * samples // 4,
+        "phen": 2 * (2 * TRAITS * samples * 4),
+        "panel_traits": 2 * m_pad * 4,
+    }
+    assert (stats["panel_markers"], stats["panel_samples"], stats["panel_sample_chunks"]) == (
+        MARKERS, SAMPLES, 1)
+    assert stats["panel_decode_bytes"] == 3 * m_pad * samples
+
+
+@pytest.mark.parametrize("case", ["four-chunks-redecode", "one-chunk-decode-once"])
+def test_striped_panel_counters(case, monkeypatch):
+    """The striped panel's counters: with 4 sample chunks and the one-hot
+    over DECODE_ONCE_MAX_BYTES, every stripe decodes every chunk again; in
+    one chunk under it, the block is decoded once. The uploads: the packed
+    bytes of the m_pad rows and, without the pre-screen's correlations, of
+    the m rows for the marker-phen sums (in their own default chunks), the
+    phenotypes, the trait blocks."""
+    from cigwas_tpu_torch.io.bed import encode_bed_values
+    from cigwas_tpu_torch.ops import corr
+
+    m, n, p, row_tile = 300, 3901, 3, 128
+    rng = np.random.default_rng(3)
+    G = rng.integers(0, 3, (m, n)).astype(np.float32)
+    Y = rng.normal(size=(p, n)).astype(np.float32)
+    means, stds = G.mean(1).astype(np.float32), G.std(1).astype(np.float32)
+    bb = encode_bed_values(G)
+    if case == "four-chunks-redecode":
+        monkeypatch.setattr(corr, "DECODE_ONCE_MAX_BYTES", 0)
+        sample_chunk, chunks = 1024, 4
+    else:
+        sample_chunk, chunks = corr.DEFAULT_SAMPLE_CHUNK, 1
+    samples = chunks * _chunk_samples(n, sample_chunk)
+    stats: dict = {}
+    corr.corr_panel_device_tiled(bb, Y, means, stds, n, "cpu", sample_chunk=sample_chunk,
+                                 row_tile=row_tile, stats=stats)
+    vp = -(-(m + p) // row_tile) * row_tile
+    m_pad = vp - p
+    stripes = -(-m_pad // row_tile)
+    decodes = stripes * chunks if chunks > 1 else chunks
+    assert (stats["panel_markers"], stats["panel_samples"], stats["panel_sample_chunks"]) == (
+        m, n, chunks)
+    assert stats["panel_decode_bytes"] == decodes * 3 * m_pad * (samples // chunks)
+    sums = _chunk_samples(n, corr.DEFAULT_SAMPLE_CHUNK)  # the marker-phen sums' own chunks
+    assert stats["h2d_bytes"] == {
+        "prescreen_block": m * sums // 4,
+        "panel_block": m_pad * samples // 4,
+        "phen": 2 * p * sums * 4 + 2 * p * n * 4,
+        "panel_traits": 2 * m * 4 + p * p * 4,
+    }
