@@ -42,6 +42,12 @@ and the script exits non-zero:
    and degrees bit-identical) on random, empty, full and single-edge rows
    at widths 8-152, with one launch over every row of a 10,112 x 16 and a
    12,288 x 152 adjacency timed cold beside its byte bound;
+   the Kendall panel (``kendall_panel``; every value and NaN bit-identical
+   to the plain version) at 11,000 x 16,384 and 11,000 x 262,144 (the two
+   block cells), 3,000 x 16,384 (``corr_panel_device``'s blocks) and two
+   ragged shapes, 5% missing calls, an all-missing and a monomorphic
+   marker, junk codes past n; timed beside its bound, the plain version
+   and the striped ``torch._int_mm`` route the panels ran before it;
 4. the ``cusk`` slice: a small block on the card and on the CPU (plain
    versions) must write the same decisions, with every kernel launch of the
    card's run held bitwise to its plain version, and both devices must count
@@ -51,7 +57,9 @@ and the script exits non-zero:
    its largest launch per kernel re-run through the plain version (the
    device-resident loop's launches with the shape of what they hold,
    `launch_shape`, level 3's time in launch order, `launch_order_ms`, and
-   levels 2-3's time without their pair tests, `tables_only_ms`), and
+   levels 2-3's time without their pair tests, `tables_only_ms`), its
+   block panel's one launch of ``kendall_panel`` (counted, then re-run on
+   the rows it read against the plain version and timed), and
    ``slice_cusk_rates``: each stage's ``level2plus_tests_per_sec``
    (``ci_tests`` over the sum of its level walls over levels >= 2, the
    formula of ``bench.py``) and stage 1's attribution of ``skeleton_wall_s``
@@ -217,10 +225,14 @@ one-panel gather also carry the genome's (``launches_genome``, 0 allowed for
 the gather) and the pMax phases' (``launches_pmax_11k``,
 ``launches_pmax_stage2``, ``launches_sim_dag``) and every entry the mesh
 phase's (``launches_mesh_11k_{replicated,rowsharded}``,
-``launches_mesh_10k_{replicated,rowsharded}``).
+``launches_mesh_10k_{replicated,rowsharded}``), except ``kendall_panel``,
+the last entry: the 11k block's one launch, bound by its int8 operations
+over 1,979 TOP/s (``roofline_pct``), beside the striped ``torch._int_mm``
+route (``library_ms``).
 
 ``--kernels-only`` stops after phase 3; ``--routes-only`` runs phase 3, the
-small reference block, both slices' default runs and phase 11.
+small reference block, both slices' default runs and phase 11;
+``--kendall-panel-only`` builds ``kendall_panel`` and runs its checks alone.
 
 The last lines are the kernel summary (JSON), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -271,6 +283,7 @@ from cigwas_tpu_torch.ops.kernels import build
 from cigwas_tpu_torch.ops.kernels import compact_rows as cr
 from cigwas_tpu_torch.ops.kernels import dense_l1 as dk
 from cigwas_tpu_torch.ops.kernels import hetcor_sweep as hs
+from cigwas_tpu_torch.ops.kernels import kendall_panel as kp
 from cigwas_tpu_torch.ops.kernels import local_sweep as ls
 from cigwas_tpu_torch.ops.kernels import panel_gather as pg
 from cigwas_tpu_torch.merge import check_ivs, merge_block_outputs
@@ -297,7 +310,9 @@ REPLACES = {"local_sweep": f"{PALLAS}:671", "panel_gather": f"{PALLAS}:138",
             "dense_l1": "cigwas_tpu/ops/pcorr.py:820",
             "hetcor_dense_l1": "cigwas_tpu/ops/pcorr.py:900",
             # no Pallas kernel: the JAX device loop's sort of masked columns
-            "compact_rows": "cigwas_tpu/skeleton/cupc.py:431"}
+            "compact_rows": "cigwas_tpu/skeleton/cupc.py:431",
+            # no Pallas kernel: XLA's int8 dot of decoded one-hots
+            "kendall_panel": "cigwas_tpu/ops/corr.py (XLA int8 dot)"}
 # the reference's default block and CLI parameters
 M11K, N11K, P11K = 11000, 16384, 8
 ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH = 1e-4, 3, 14, 1
@@ -1140,6 +1155,110 @@ def phase_compact_kernel(dev: str = "cuda", sizes: tuple = ((10112, 16), (12288,
     return sized
 
 
+def packed_codes(m: int, n: int, seed: int, dev: str = "cuda") -> torch.Tensor:
+    """(m, nb) packed genotypes made on the card, nb = ceil(n / 4) rounded up
+    to the kernel's ROW_ALIGN: codes 11 / 10 / 00 / 01 at 25 / 45 / 25 / 5%,
+    marker 1 all missing, marker 2 monomorphic, random junk past n."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nb = -(-(-(-n // 4)) // kp.ROW_ALIGN) * kp.ROW_ALIGN
+    codes = torch.empty((m, 4 * nb), dtype=torch.uint8, device=dev)
+    for r0 in range(0, m, 1024):  # in slabs: the draws of a whole block take GBs
+        u = torch.rand((min(1024, m - r0), 4 * nb), generator=gen, device=dev)
+        c = torch.where(u < 0.25, 3, torch.where(u < 0.70, 2, torch.where(u < 0.95, 0, 1)))
+        if r0 == 0 and m > 2:
+            c[1] = 1
+            c[2] = 2
+        codes[r0 : r0 + len(c)] = c.to(torch.uint8)
+    codes[:, n:] = torch.randint(0, 4, (m, 4 * nb - n), generator=gen, device=dev,
+                                 dtype=torch.uint8)
+    q = codes.view(m, nb, 4)
+    return q[..., 0] | q[..., 1] << 2 | q[..., 2] << 4 | q[..., 3] << 6
+
+
+def int_mm_route(codes: torch.Tensor, n: int) -> torch.Tensor:
+    """The striped route the block panels ran before the kernel, on the
+    card: rows padded to a 2,048 multiple, 131,072-sample chunks, the int8
+    one-hot decoded once where it fits 2 GiB (else again by every stripe),
+    each 2,048-row stripe's ``torch._int_mm`` against every marker summed in
+    int32, the Kendall map."""
+    m = codes.shape[0]
+    assert 4 * codes.shape[1] == n, "the route takes rows of whole bytes, no codes past n"
+    m_pad = -(-m // ROW_TILE) * ROW_TILE
+    x = torch.full((m_pad, codes.shape[1]), 0x55, dtype=torch.uint8, device=codes.device)
+    x[:m] = codes
+    cb = min(DEFAULT_SAMPLE_CHUNK // 4, x.shape[1])
+    x = torch.cat([x, x.new_full((m_pad, (-x.shape[1]) % cb), 0x55)], 1)
+    n_chunks = x.shape[1] // cb
+
+    def decode(c):
+        return corr_ops.geno_onehot(corr_ops.unpack_bed_codes(
+            x[:, c * cb : (c + 1) * cb])).reshape(3 * m_pad, -1)
+
+    once = [decode(c) for c in range(n_chunks)] if 3 * m_pad * 4 * x.shape[1] <= 2 << 30 else None
+    C = torch.zeros((m_pad, m_pad), dtype=torch.float32, device=x.device)
+    for t0 in range(0, m_pad, ROW_TILE):
+        counts = torch.zeros((3 * ROW_TILE, 3 * m_pad), dtype=torch.int32, device=x.device)
+        for c in range(n_chunks):
+            X = once[c] if once is not None else decode(c)
+            rows = torch.cat([X[a * m_pad + t0 : a * m_pad + t0 + ROW_TILE] for a in range(3)])
+            counts += corr_ops.contingency_counts(rows, X)
+        C[t0 : t0 + ROW_TILE] = kp.kendall_from_counts(counts.to(torch.float32), ROW_TILE, m_pad)
+        del counts
+    return C[:m, :m]
+
+
+def phase_kendall_panel(dev: str = "cuda", reps: int = 5) -> list:
+    """kendall_panel vs its plain version on the card, every value and NaN
+    position bit for bit, nothing outside out[:m, :m] written; at the
+    shapes of the block cells and of `corr_panel_device`'s blocks also the
+    kernel's ms (CUDA events, median of reps), its bound (the distinct
+    pairs' int8 operations, `h100bench/roofline.py`), the plain version's
+    ms and the striped `torch._int_mm` route's (the library yardstick,
+    checked bit for bit too)."""
+    from h100bench.roofline import int8_panel_seconds
+
+    t0 = time.perf_counter()
+    out = []
+    kp.reset_launches()
+    for m, n, timed in ((200, 777, False), (65, 1001, False), (3000, 16384, True),
+                        (11000, 16384, True), (11000, 262144, True)):
+        codes = packed_codes(m, n, seed=m + n, dev=dev)
+        got = torch.full((m + 1, m + 3), -7.0, device=dev)
+        kp.kendall_panel(codes, n, got)
+        torch.cuda.synchronize()
+        assert (got[m:] == -7).all() and (got[:, m:] == -7).all(), (m, n)
+        got = got[:m, :m].clone()
+        want = torch.empty((m, m), dtype=torch.float32, device=dev)
+        _, plain_ms = once_ms(lambda: kp.kendall_panel_plain(codes, n, want))
+        compare_bits(f"kendall_panel {m} x {n}", (got,), (want,))
+        rec = {"markers": m, "samples": n, "bit_identical": True,
+               "nan": int(torch.isnan(got).sum()), "plain_ms": plain_ms}
+        if timed:
+            del want
+            torch.cuda.empty_cache()
+            ms = []
+            for _ in range(reps):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                kp.kendall_panel(codes, n, got)
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+            lib, library_ms = once_ms(lambda: int_mm_route(codes, n))
+            compare_bits(f"int_mm route {m} x {n}", (got,), (lib,))
+            del lib
+            bound_ms = 1e3 * int8_panel_seconds(m, n)
+            k_ms = sorted(ms)[len(ms) // 2]
+            rec.update(ms=k_ms, min_ms=min(ms), reps=reps, bound_ms=bound_ms,
+                       roofline_pct=100.0 * bound_ms / k_ms, library_ms=library_ms)
+        out.append(rec)
+        del codes, got
+        torch.cuda.empty_cache()
+    emit("kernels_kendall_panel", t0, launches=dict(kp.launches), shapes=out,
+         nvidia_smi=nvidia_smi())
+    return out
+
+
 def write_block(d: str, G: np.ndarray, Y: np.ndarray) -> tuple[str, str]:
     """PLINK files + prep + a one-block `.blocks` file; returns (stem, blocks)."""
     m, n = G.shape
@@ -1487,13 +1606,14 @@ def reset_all_launches() -> None:
     pg.reset_launches()
     dk.reset_launches()
     cr.reset_launches()
+    kp.reset_launches()
 
 
 def all_launches() -> dict:
     """The launch count of every kernel entry, sweeps by level."""
     return {**{f"local_sweep_l{l}": n for l, n in ls.launches.items()}, **pg.launches,
             **{f"hetcor_sweep_l{l}": n for l, n in hs.launches.items()}, **dk.launches,
-            **cr.launches}
+            **cr.launches, **kp.launches}
 
 
 def kernel_entry(name: str, module, replaces: str, launches: int, err: float, ms: float,
@@ -1631,6 +1751,57 @@ def gather_entries(tag: str, rec: Recorder, launches: dict) -> list:
     return out
 
 
+class KendallRecorder:
+    """Keeps the packed rows and the sample count of every launch of the
+    Kendall panel kernel that the block panels make while it is open."""
+
+    def __enter__(self):
+        self.launches = []
+        saved = self.saved = corr_ops.kendall_panel
+
+        def kendall_panel(codes, num_samples, out):
+            self.launches.append((codes, num_samples))
+            return saved(codes, num_samples, out)
+
+        corr_ops.kendall_panel = kendall_panel
+        return self
+
+    def __exit__(self, *exc):
+        corr_ops.kendall_panel = self.saved
+
+
+def kendall_entry(tag: str, codes: torch.Tensor, n: int, launches: int) -> dict:
+    """A block panel's launch of the Kendall panel kernel again on the rows
+    it read, kernel vs plain (bit-identical), timed beside its bound (the
+    distinct pairs' int8 operations, `h100bench/roofline.py`) and the
+    striped `torch._int_mm` route the panels ran before it."""
+    from h100bench.roofline import int8_panel_seconds
+
+    m = codes.shape[0]
+    got = torch.empty((m, m), dtype=torch.float32, device=codes.device)
+    kp.kendall_panel(codes, n, got)
+
+    def plain():
+        want = torch.empty_like(got)
+        kp.kendall_panel_plain(codes, n, want)
+        return want
+
+    want, plain_ms = once_ms(plain)
+    err = compare_bits(f"{tag} kendall_panel", (got,), (want,))
+    del want
+    lib, library_ms = once_ms(lambda: int_mm_route(codes, n))
+    compare_bits(f"{tag} int_mm route", (got,), (lib,))
+    del lib, got
+    torch.cuda.empty_cache()
+    bound_ms = 1e3 * int8_panel_seconds(m, n)
+    out = torch.empty((m, m), dtype=torch.float32, device=codes.device)
+    ms = cuda_ms(lambda: kp.kendall_panel(codes, n, out), reps=5)
+    return kernel_entry(
+        "kendall_panel", kp, "kendall_panel", launches, err, ms, plain_ms,
+        {"bound_ms": bound_ms, "bound_by": "int8 operations"}, library_ms,
+        {"markers": m, "samples": n}, roofline_pct=100.0 * bound_ms / ms)
+
+
 def phase_slice(tmp: str, rho_th: dict, loops: dict, clock_hz: float):
     t0 = time.perf_counter()
     G, Y, planted = ar1_block(M11K, N11K, P11K, seed=0)
@@ -1644,7 +1815,7 @@ def phase_slice(tmp: str, rho_th: dict, loops: dict, clock_hz: float):
     os.makedirs(out)
     stats: dict = {}
     torch.cuda.reset_peak_memory_stats()
-    with Recorder() as rec, CapturePanels() as capture:
+    with Recorder() as rec, CapturePanels() as capture, KendallRecorder() as panels:
         reset_all_launches()
         t1 = time.perf_counter()
         res = cusk(stem + ".phen", stem, blocks, ALPHA, MAX_LEVEL, MAX_LEVEL_TWO,
@@ -1652,7 +1823,11 @@ def phase_slice(tmp: str, rho_th: dict, loops: dict, clock_hz: float):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         launches = {**{f"local_sweep_l{l}": n for l, n in ls.launches.items()}, **pg.launches,
-                    **dk.launches}
+                    **dk.launches, **kp.launches}
+    # the block's panel: one launch of the Kendall panel kernel over its rows
+    assert launches["kendall_int8_panel"] == 1 == len(panels.launches), launches
+    assert (stats["panel_kernel_launches"], stats["panel_decode_bytes"]) == (1, 0), (
+        stats["panel_kernel_launches"], stats["panel_decode_bytes"])
 
     s1, s2 = stats["stage1"], stats["stage2"]
     ran = set(s1.get("level_wall_s", {})) | set(s2.get("level_wall_s", {}))
@@ -1694,7 +1869,9 @@ def phase_slice(tmp: str, rho_th: dict, loops: dict, clock_hz: float):
     t0 = time.perf_counter()
     kernels = sweep_entries("11k", rec, launches, rho_th, loops, clock_hz)
     kernels += gather_entries("11k", rec, launches)
-    emit("largest_launch_cusk", t0, kernels=kernels)
+    kendall = kendall_entry("11k", *panels.launches[0], launches["kendall_int8_panel"])
+    del panels
+    emit("largest_launch_cusk", t0, kernels=kernels + [kendall])
 
     def again(name: str = "out11k_profiled"):
         out2 = os.path.join(tmp, name)
@@ -1714,7 +1891,7 @@ def phase_slice(tmp: str, rho_th: dict, loops: dict, clock_hz: float):
             k["gated_total_ms"], k["gated_total_launches"] = (
                 totals[k["name"]]["total_ms"], totals[k["name"]]["timed_launches"])
 
-    return kernels, again, wall, capture
+    return kernels, again, wall, capture, kendall
 
 
 def write_sumstats(d: str) -> tuple[dict, list]:
@@ -4343,6 +4520,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the build and the kernel checks (prints no result line)")
+    ap.add_argument("--kendall-panel-only", action="store_true",
+                    help="build kendall_panel and run its checks alone (prints no result line)")
     ap.add_argument("--routes-only", action="store_true",
                     help="after the kernel checks run only what the routes phase needs and "
                          "the routes phase (prints no result line)")
@@ -4354,8 +4533,16 @@ def main() -> int:
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count(), nvidia_smi=smi)
 
+    if opts.kendall_panel_only:
+        t0 = time.perf_counter()
+        lib = build.build("kendall_panel")
+        emit("build", t0, source="kendall_panel", library=lib.name,
+             ptxas=ptxas_summary(lib.with_suffix(".log").read_text()))
+        phase_kendall_panel()
+        return 1
     t0 = time.perf_counter()
-    names = ("local_sweep", "panel_gather", "hetcor_sweep", "dense_l1", "compact_rows")
+    names = ("local_sweep", "panel_gather", "hetcor_sweep", "dense_l1", "compact_rows",
+             "kendall_panel")
     with ThreadPoolExecutor(len(names) + 1) as pool:  # one nvcc per build, together
         tables_only = pool.submit(build.build, "local_sweep", TABLES_ONLY)
         libs = list(pool.map(build.build, names))
@@ -4378,6 +4565,7 @@ def main() -> int:
     phase_gather_kernel(panels)
     bucket = phase_hetcor_kernel(panels)
     compact_sized = phase_compact_kernel()
+    phase_kendall_panel()
     timed_dense = phase_dense_kernel(panels, loops, clock_hz)
     if opts.kernels_only:
         return 1
@@ -4385,11 +4573,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     expected = [f"local_sweep_l{l}" for l in (1, 2, 3)] + ["panel_gather"] + [
-        f"hetcor_sweep_l{l}" for l in (1, 2, 3)] + ["panel_gather2", "compact_rows"] + list(DENSE)
+        f"hetcor_sweep_l{l}" for l in (1, 2, 3)] + ["panel_gather2", "compact_rows"] + list(
+        DENSE) + ["kendall_panel"]
     tmp = tempfile.mkdtemp(prefix="cigwas_chip_smoke_")
     try:
         phase_small_reference(tmp)
-        kernels, cusk_again, wall, capture = phase_slice(tmp, rho_th, loops, clock_hz)
+        kernels, cusk_again, wall, capture, kendall = phase_slice(tmp, rho_th, loops, clock_hz)
         phase_small_cuskss(tmp)
         kernels_ss, cuskss_again, wall_ss, ss_kw = phase_cuskss(tmp, loops, clock_hz,
                                                                bucket, compact_sized)
@@ -4460,7 +4649,7 @@ def main() -> int:
             if k["name"] in listed:
                 k["list_route_largest"] = {key: v for key, v in listed[k["name"]].items()
                                            if key in keep}
-        kernels += dense
+        kernels += dense + [kendall]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     bad = sorted(k for k in sys.modules

@@ -277,7 +277,8 @@ class CuskContext:
         ``final_level_two``, ``write_s`` (the block files), ``d2h_bytes``
         (the pre-screen's and the reductions' fetches; the stages count
         theirs), the panel's counters ``panel_markers``, ``panel_samples``,
-        ``panel_sample_chunks`` and ``panel_decode_bytes``, its uploads'
+        ``panel_sample_chunks``, ``panel_decode_bytes`` and (without a mesh)
+        ``panel_kernel_launches``, its uploads'
         ``h2d_bytes`` (without a mesh) and with a mesh ``engine_record``
         (the engine's placements, calls and copies); walls are host seconds
         that end in a device synchronisation or a fetch."""

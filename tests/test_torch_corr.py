@@ -71,27 +71,26 @@ def test_corr_panel_device_matches_jax(sample_chunk):
 
 
 @pytest.mark.parametrize(
-    "sample_chunk,decode_once",
-    [(131072, True), (256, True), (256, False)],
-    ids=["one-chunk", "4-chunks", "4-chunks-redecode"],
+    "n", [1024, 1000, 1001, 1003],
+    ids=["rows-of-16-bytes", "rows-padded-to-16-bytes", "1-code-in-last-byte",
+         "3-codes-in-last-byte"],
 )
-def test_corr_panel_device_tiled_matches_jax(sample_chunk, decode_once, monkeypatch):
-    """Stripes of 128 rows; the one-hot decoded once or per stripe, in one
-    sample chunk or four (the counts are exact either way)."""
+def test_corr_panel_device_tiled_matches_jax(n):
+    """A canvas of 128-row multiples; the Kendall block is one launch over
+    every sample of the packed rows, padded to 16 bytes only where they
+    fall short, codes past n counted as missing; with the pre-screen's
+    correlations and without."""
     from cigwas_tpu.ops import corr as jc
     from cigwas_tpu_torch.ops import corr as tc
 
-    if not decode_once:
-        monkeypatch.setattr(tc, "DECODE_ONCE_MAX_BYTES", 0)
-    bb, Y, means, stds = _block(2, 300, 1000, 3)
-    mp = jc.marker_phen_corr(bb, Y, means, stds, 1000)
+    bb, Y, means, stds = _block(2, 300, n, 3)
+    mp = jc.marker_phen_corr(bb, Y, means, stds, n)
     for mp_corr in (None, mp):
         C_j, v_j = jc.corr_panel_device_tiled(
-            bb, Y, means, stds, 1000, mp_corr=mp_corr, row_tile=128
+            bb, Y, means, stds, n, mp_corr=mp_corr, row_tile=128
         )
         C_t, v_t = tc.corr_panel_device_tiled(
-            bb, Y, means, stds, 1000, "cpu", mp_corr=mp_corr,
-            sample_chunk=sample_chunk, row_tile=128,
+            bb, Y, means, stds, n, "cpu", mp_corr=mp_corr, row_tile=128,
         )
         assert v_t == v_j == 303
         assert tuple(C_t.shape) == C_j.shape == (384, 384)

@@ -389,12 +389,12 @@ def test_block_io_spans_nest_in_their_phases(block_files, tmp_path):
 
 
 def test_block_uploads_and_panel_counters_follow_the_shapes(block_files, tmp_path):
-    """The single-pass panel of the block (one sample chunk, decoded once):
-    the pre-screen uploads the block's packed bytes, the panel the bytes of
-    its m_pad rows, both padded to the sample chunk's bytes; each uploads
-    the phenotypes and their validities over the padded samples; the panel
-    its padded means and stds; it decodes the (3 m_pad, samples) one-hot
-    once."""
+    """The single-pass panel of the block (one sample chunk): the pre-screen
+    uploads the block's packed bytes, the panel the bytes of its m_pad rows,
+    both padded to the sample chunk's bytes; each uploads the phenotypes and
+    their validities over the padded samples; the panel its padded means and
+    stds; its marker-marker block is one launch of the Kendall panel kernel,
+    which writes no one-hot to device memory."""
     stats = _solve_block(block_files, tmp_path / "out")
     samples = _chunk_samples(SAMPLES, 131072)  # one chunk
     m_pad = MARKERS + (-(MARKERS + TRAITS)) % PANEL_ALIGN
@@ -406,17 +406,18 @@ def test_block_uploads_and_panel_counters_follow_the_shapes(block_files, tmp_pat
     }
     assert (stats["panel_markers"], stats["panel_samples"], stats["panel_sample_chunks"]) == (
         MARKERS, SAMPLES, 1)
-    assert stats["panel_decode_bytes"] == 3 * m_pad * samples
+    assert (stats["panel_decode_bytes"], stats["panel_kernel_launches"]) == (0, 1)
 
 
-@pytest.mark.parametrize("case", ["four-chunks-redecode", "one-chunk-decode-once"])
-def test_striped_panel_counters(case, monkeypatch):
-    """The striped panel's counters: with 4 sample chunks and the one-hot
-    over DECODE_ONCE_MAX_BYTES, every stripe decodes every chunk again; in
-    one chunk under it, the block is decoded once. The uploads: the packed
-    bytes of the m_pad rows and, without the pre-screen's correlations, of
-    the m rows for the marker-phen sums (in their own default chunks), the
-    phenotypes, the trait blocks."""
+@pytest.mark.parametrize("case", ["own-sums", "prescreen-corr"])
+def test_striped_panel_counters(case):
+    """The striped panel's counters: one launch of the Kendall panel kernel
+    over every sample, no one-hot in device memory. The uploads: the packed
+    bytes of the m rows as they are (976 bytes a row, a multiple of 16), the
+    phenotypes and the trait blocks; without the pre-screen's correlations
+    also the m rows and the phenotypes for the marker-phen sums (in their
+    own default chunks) and the means and stds, with them the correlations
+    themselves."""
     from cigwas_tpu_torch.io.bed import encode_bed_values
     from cigwas_tpu_torch.ops import corr
 
@@ -426,26 +427,25 @@ def test_striped_panel_counters(case, monkeypatch):
     Y = rng.normal(size=(p, n)).astype(np.float32)
     means, stds = G.mean(1).astype(np.float32), G.std(1).astype(np.float32)
     bb = encode_bed_values(G)
-    if case == "four-chunks-redecode":
-        monkeypatch.setattr(corr, "DECODE_ONCE_MAX_BYTES", 0)
-        sample_chunk, chunks = 1024, 4
-    else:
-        sample_chunk, chunks = corr.DEFAULT_SAMPLE_CHUNK, 1
-    samples = chunks * _chunk_samples(n, sample_chunk)
+    mp = (corr.marker_phen_corr(bb, Y, means, stds, n, device="cpu")
+          if case == "prescreen-corr" else None)
     stats: dict = {}
-    corr.corr_panel_device_tiled(bb, Y, means, stds, n, "cpu", sample_chunk=sample_chunk,
+    corr.corr_panel_device_tiled(bb, Y, means, stds, n, "cpu", mp_corr=mp,
                                  row_tile=row_tile, stats=stats)
-    vp = -(-(m + p) // row_tile) * row_tile
-    m_pad = vp - p
-    stripes = -(-m_pad // row_tile)
-    decodes = stripes * chunks if chunks > 1 else chunks
     assert (stats["panel_markers"], stats["panel_samples"], stats["panel_sample_chunks"]) == (
-        m, n, chunks)
-    assert stats["panel_decode_bytes"] == decodes * 3 * m_pad * (samples // chunks)
+        m, n, 1)
+    assert (stats["panel_decode_bytes"], stats["panel_kernel_launches"]) == (0, 1)
+    if mp is not None:
+        assert stats["h2d_bytes"] == {
+            "panel_traits": m * p * 4 + p * p * 4,
+            "panel_block": m * (-(-n // 4)),
+            "phen": 2 * p * n * 4,
+        }
+        return
     sums = _chunk_samples(n, corr.DEFAULT_SAMPLE_CHUNK)  # the marker-phen sums' own chunks
     assert stats["h2d_bytes"] == {
         "prescreen_block": m * sums // 4,
-        "panel_block": m_pad * samples // 4,
+        "panel_block": m * (-(-n // 4)),
         "phen": 2 * p * sums * 4 + 2 * p * n * 4,
         "panel_traits": 2 * m * 4 + p * p * 4,
     }

@@ -2,12 +2,12 @@
 against the benchmark's chunked plain reference (``h100bench/reference/
 panel_samples.py``, ``cusk_samples.py``), on the CPU.
 
-At a biobank's sample size the port's striped panel accumulates several
-131,072-sample chunks into each stripe's int32 counts and, where the int8
-one-hot of the block exceeds ``DECODE_ONCE_MAX_BYTES``, decodes every chunk
-again for each stripe; the reference sums float64 counts chunk by chunk.
-Here the same paths run at 300 markers x 3,901 individuals in 1,024-sample
-chunks (four chunks, the last one partial). Tolerances: the panel within
+At a biobank's sample size the reference sums float64 counts chunk by
+chunk, where the port's panel counts every sample in one launch of the
+Kendall panel kernel (its plain version here), on a canvas of 128- or
+2,048-row multiples. Here both run at 300 markers x 3,901 individuals, the
+reference in 1,024-sample chunks (four chunks, the last one partial).
+Tolerances: the panel within
 the parity contract's rtol 1e-5 / atol 1e-6 (float32 sums and Kendall
 arithmetic against float64); the chunked reference within 1e-12 of the
 whole-block reference (the same exact counts, float64 sums in another
@@ -66,20 +66,21 @@ def block(tmp_path_factory):
 
 
 @pytest.mark.parametrize("with_mp", [False, True], ids=["own-sums", "prescreen-corr"])
-@pytest.mark.parametrize("decode_once", [True, False], ids=["decode-once", "redecode"])
+@pytest.mark.parametrize("row_tile", [128, 2048], ids=["canvas-384", "canvas-2048"])
 def test_striped_panel_over_four_chunks_matches_the_chunked_reference(
-        block, decode_once, with_mp, monkeypatch):
+        block, row_tile, with_mp):
     from cigwas_tpu_torch.ops import corr
 
     stem, bb, Y, means, stds = block
-    if not decode_once:
-        monkeypatch.setattr(corr, "DECODE_ONCE_MAX_BYTES", 0)
     mp = corr.marker_phen_corr(bb, Y, means, stds, N, sample_chunk=CHUNK,
                                device="cpu") if with_mp else None
     stats: dict = {}
     C, v = corr.corr_panel_device_tiled(bb, Y, means, stds, N, "cpu", mp_corr=mp,
-                                        sample_chunk=CHUNK, row_tile=128, stats=stats)
-    assert v == M + P and stats["panel_sample_chunks"] == 4
+                                        row_tile=row_tile, stats=stats)
+    # one launch of the Kendall panel kernel over every sample, whatever the canvas
+    assert v == M + P and C.shape == (-(-v // row_tile) * row_tile,) * 2
+    assert stats["panel_sample_chunks"] == 1
+    assert (stats["panel_decode_bytes"], stats["panel_kernel_launches"]) == (0, 1)
     ref = panel_samples.panel(stem + ".bed", M, N, Y, chunk=CHUNK).numpy()
     assert np.isfinite(ref).all()
     np.testing.assert_allclose(C[:v, :v].double().numpy(), ref, rtol=RTOL, atol=ATOL)
