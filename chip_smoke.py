@@ -18,9 +18,10 @@ and the script exits non-zero:
    on panels of repeated variables, whose tied minima must resolve to the
    lowest colex rank:
    the levels 1-3 sweep (``local_sweep``; rho and positions bit-identical;
-   also launches as the device-resident loop makes them, every node at the
-   level's width: nodes of degree 0 .. l, one hub at the full width among
-   light nodes, every node at the full width, NaN entries, ties across s),
+   also launches at one width over ragged degrees, as the device-resident
+   loop makes them: one hub at the full width among light nodes, every
+   node at the full width, NaN entries, ties across s; plus nodes of degree
+   0 .. l, which have no test),
    the one- and two-panel gathers (``panel_gather``; int32 views equal, with
    the lists staged and read through the cache), with the main paths'
    8-node launches and bucket-sized launches (2048 nodes at widths 128, 48
@@ -713,7 +714,7 @@ def addressed(node_ixs, nbrs, deg, vp: int, pads_read_node: bool) -> tuple[int, 
 def sweep_bound(node_ixs, nbrs, deg, vp: int, l: int, panels: int, ops: dict) -> dict:
     """Bound of a levels 1-3 launch from its real lists: every slot y of a
     node meets each conditioning set of its other deg - 1 neighbours once (a
-    node of degree 0, as the device-resident loop launches them, none);
+    node of degree l or less none);
     the distinct panel entries the lists address are read once from each
     panel (and, for hetcor, the time index of each distinct variable), the
     index lists once, the (nt, d) outputs written once. sector_ms counts 32
@@ -836,11 +837,11 @@ def neighbour_lists(rng, vp: int, nt: int, d: int, clustered: bool, distinct: bo
 
 
 def loop_lists(rng, vp: int, nt: int, d: int, l: int, full: bool, clustered: bool):
-    """Lists as a launch of the device-resident loop holds them, every node
-    at the width d: all nodes of degree d (full), or (mixed) two nodes of
-    each degree 0 .. l (no test), one hub of degree d, and light nodes of
-    degree l + 1 .. max(l + 1, d // 3); the slots past a degree keep other
-    valid indices."""
+    """Lists at one width d over ragged degrees, as a launch of the
+    device-resident loop holds them: all nodes of degree d (full), or
+    (mixed) one hub of degree d, light nodes of degree l + 1 .. max(l + 1,
+    d // 3) and, beyond what the loop sends, two nodes of each degree 0 .. l
+    (no test); the slots past a degree keep other valid indices."""
     node_ixs, nbrs, deg = neighbour_lists(rng, vp, nt, d, clustered, lo=d)
     if not full:
         g = rng.integers(l + 1, max(l + 1, d // 3) + 1, nt)
@@ -889,10 +890,10 @@ def phase_kernels(rho_th: dict, panels) -> None:
     staged panel's (d = 236); level-1 nodes of width 6600 (52 CTAs a node),
     the same through the global-scratch route; and panels of repeated
     variables, where tied minima must resolve to the lowest colex rank.
-    Then launches as the device-resident loop makes them, at the loop's
-    widths 8, 56, 80 and 152: nodes of degree 0 .. l among light nodes and
-    one hub at the full width, every node at the full width, and mixed
-    degrees on the repeated variables."""
+    Then launches at one width over ragged degrees, as the device-resident
+    loop makes them, at its widths 8, 56, 80 and 152: light nodes (and nodes
+    of degree 0 .. l, no test) and one hub at the full width, every node at
+    the full width, and mixed degrees on the repeated variables."""
     t0 = time.perf_counter()
     rng, vp, Cd, Nd, td = panels
     cases = [(d, l, None) for d in (8, 40, 64, 112, 120, 136, 144, 232, 240, 256, 300)
@@ -923,8 +924,8 @@ def phase_kernels(rho_th: dict, panels) -> None:
         n_tied += int((rho_p < pcorr.RHO_BIG).sum())
         n_cmp += 1
     assert n_tied > 0, "the panels of repeated variables gave no valid test"
-    # launches as the device-resident loop makes them: every node at the
-    # level's width
+    # launches at one width over ragged degrees, as the device-resident loop
+    # makes them
     loop_cases = 0
     for l in (1, 2, 3):
         for d in (8, 56, 80, 152):
@@ -1695,7 +1696,8 @@ def launch_order_ms(run) -> float:
 
 def launch_shape(deg: torch.Tensor, l: int, d: int) -> dict:
     """What one launch holds (for the device-resident loop's, every node of
-    the block at the level's width): its nodes' degrees by classes of 8, the nodes with no test (degree <= l), tests per
+    the block with a test at the level's width): its nodes' degrees by
+    classes of 8, the nodes with no test (degree <= l), tests per
     node (quantiles, the largest, the share of the top 1% of nodes) and, at
     level 1, the live lanes (slots y < deg) over the lanes launched (the
     plan's threads for each node)."""
@@ -1823,7 +1825,7 @@ def phase_slice(tmp: str, rho_th: dict, loops: dict, clock_hz: float):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         launches = {**{f"local_sweep_l{l}": n for l, n in ls.launches.items()}, **pg.launches,
-                    **dk.launches, **kp.launches}
+                    **dk.launches, **kp.launches, **cr.launches}
     # the block's panel: one launch of the Kendall panel kernel over its rows
     assert launches["kendall_int8_panel"] == 1 == len(panels.launches), launches
     assert (stats["panel_kernel_launches"], stats["panel_decode_bytes"]) == (1, 0), (
@@ -1837,6 +1839,10 @@ def phase_slice(tmp: str, rho_th: dict, loops: dict, clock_hz: float):
             assert launches[f"local_sweep_l{l}"] > 0, f"level {l} ran without a kernel launch"
     assert max(ran) >= 4 and launches["panel_gather"] > 0, (
         f"levels {sorted(ran)} ran with {launches['panel_gather']} gather launches")
+    # the device-resident loop compacts the lists of the nodes with a test
+    # on the card, one launch a level of either stage
+    loop = [l for st in (s1, s2) for l, r in st["level_route"].items() if r == "device_loop"]
+    assert 0 < len(loop) == launches["compact_rows"], (loop, launches["compact_rows"])
     assert res is not None
     base = os.path.join(out, "1_0_10999")
     for ext in (".mdim", ".ixs", ".adj", ".corr", ".sep"):
@@ -4597,7 +4603,7 @@ def main() -> int:
             totals[run], per_level[kernel] = profile_sweeps(
                 run, again, w, prefix, {l: launched[f"{kernel}_l{l}"] for l in (1, 2, 3)})
         # each slice launches one gather entry only: all its panel_rows_kernel
-        # records; the row compaction runs on the cuskss slice alone
+        # records; the row compaction's entry is the cuskss slice's
         gathers = {name: [v for key, v in totals[run].items() if kernel in key]
                    for name, run, kernel in (("panel_gather", "cusk", "panel_rows_kernel"),
                                              ("panel_gather2", "cuskss", "panel_rows_kernel"),

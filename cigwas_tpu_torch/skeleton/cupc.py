@@ -11,9 +11,9 @@ summary statistics (correlations plus per-pair effective sample sizes).
   and their positions leave the device;
 * levels 1-3, the device-resident loop (panels up to ``DEV_RESIDENT_MAX``
   whose level-0 width is at most 152, no engine; checked first): the
-  adjacency stays on the device, each level compacts the neighbour lists
-  there and makes one local-sweep launch over all nodes at the level's
-  width;
+  adjacency stays on the device, each level compacts the lists of the
+  nodes with a test there and makes one local-sweep launch over them at
+  the level's width;
 * level 1, the dense route (where :func:`_l1_route_local` finds level 1
   hub-heavy, up to ``DENSE_L1_MAX``): x-row slabs against every y through
   the dense kernel (:mod:`cigwas_tpu_torch.ops.kernels.dense_l1`);
@@ -36,12 +36,15 @@ sets: levels 1-3 through
 :func:`cigwas_tpu_torch.ops.kernels.hetcor_sweep.hetcor_local_sweep`, level
 1 also by the dense route, the combinatorial route through the two-panel
 gather and :func:`cigwas_tpu_torch.ops.pcorr.level_scan_hetcor_pre`. It keeps
-no sepsets. On one card its adjacency stays on the device from level 0 on:
-each level's hits are cleared in place, the local route's lists compacted
-there (:mod:`cigwas_tpu_torch.ops.kernels.compact_rows`) and swept in one
-launch at the level's width, until the first level that is combinatorial,
-local and wider than 152, or past level 3; the host loop takes over from
-there. An engine runs every level on the host's adjacency.
+no sepsets. On one card its levels 1-3 run in the same device level loop as
+the block's (:func:`_device_levels`): each level's hits are cleared in
+place, the local route's lists compacted on the device
+(:mod:`cigwas_tpu_torch.ops.kernels.compact_rows`) and swept in one launch
+at the level's width, until the first level that is combinatorial, local
+and wider than 152, or past level 3; the host loop takes over from there.
+On one card both skeletons keep the adjacency on the device from level 0
+on and fetch it once, where the host loop takes over. An engine runs
+every level on the host's adjacency.
 
 Deletions apply between levels (PC-stable). The separation set of a deleted
 ordered pair (x, y) is the argmin-|rho| set from x's side, the lowest colex
@@ -50,6 +53,7 @@ rank among ties.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -399,84 +403,90 @@ def _run_level_dense1(C, G: np.ndarray, rho_threshold: float, engine=None,
     return removed, xs, ys, s_sel.astype(np.int32)[:, None], rho_sel
 
 
-def _level_local_dev_step(C: torch.Tensor, Gd: torch.Tensor, rho_th: float, l: int,
-                          d_pad: int, want_rho: bool):
-    """One level l <= 3 of the device-resident loop
-    (`cigwas_tpu.skeleton.cupc._level_local_dev_step`): the neighbour lists
-    compacted on the device (an ascending sort of where(G, iota, n) along
-    rows, the first d_pad kept, pad slots set to 0), one local-sweep launch
-    over every node at the level's width d_pad, and G updated on the device
-    by the hits alone (a node below degree l + 1 has no test, a pad slot is
-    no hit). The kernel's tests stop at each node's own degree, as JAX caps
-    its loops by `deg` and `t_hi`. Returns (G_new, its degrees, side (n,
-    d_pad) bool, the lists, the hits' positions (k, l) in row-major order,
-    their rho or None)."""
+def _device_levels(Gd: torch.Tensor, lmax: int, route_of, sweep, verbose: bool,
+                   stats: dict | None) -> tuple[np.ndarray, int]:
+    """Levels 1..min(3, lmax) of either skeleton with the adjacency Gd on the
+    device (the JAX package's device-resident loop), cleared in place by
+    each level's hits once all of them exist (PC-stable). Each level
+    fetches the n degrees (site ``loop_lists``) and stops where the graph
+    runs out of tests; route_of(l, deg, d_pad) then names the level's
+    route from those degrees and the padded max degree d_pad, or None to
+    leave the level to the caller's host loop. For every route but
+    ``dense`` the lists of the nodes with a test (degree >= l + 1) are
+    compacted on the device at the width d_pad
+    (:func:`~cigwas_tpu_torch.ops.kernels.compact_rows.compact_rows`);
+    sweep(l, lists) makes the level's one launch over (nodes, nbrs, deg),
+    or over the whole adjacency for ``dense`` (lists None), and returns the
+    hits (xs, ys) on the device. Every hit lies on an edge, since its list
+    came from Gd, so clearing it is all the update there is. Returns (Gd on
+    the host, fetched once, and the first level left to the host loop)."""
     n = Gd.shape[0]
-    dev = Gd.device
-    iota = torch.arange(n, dtype=torch.int32, device=dev)
-    keys = torch.where(Gd, iota[None, :], torch.full((), n, dtype=torch.int32, device=dev))
-    nbrs = torch.sort(keys, dim=1).values[:, :d_pad]
-    del keys
-    nbrs = torch.where(nbrs >= n, 0, nbrs).contiguous()
-    deg = Gd.sum(dim=1, dtype=torch.int32)
-    # the lists are in range by construction: each entry is a column index
-    # below n or the pad 0, and no degree exceeds d_pad (the level's max)
-    rho, pos = local_sweep(C, iota, nbrs, deg, l, index_range_checked=True)
-    side = _hit_mask(rho, rho_th, deg)
-    xs, slots = torch.nonzero(side, as_tuple=True)
-    hit = torch.zeros((n, n), dtype=torch.bool, device=dev)
-    hit[xs, nbrs[xs, slots].long()] = True  # only the hits: pad slots share index 0
-    Gd = Gd & ~(hit | hit.T)
-    return (Gd, Gd.sum(dim=1, dtype=torch.int32), side, nbrs, pos[side],
-            rho[side] if want_rho else None)
-
-
-def _run_levels_local_dev(C: torch.Tensor, Gd: torch.Tensor, deg0: np.ndarray,
-                          th: np.ndarray, lmax: int, sepset: np.ndarray,
-                          pmax: np.ndarray | None, verbose: bool, stats: dict | None):
-    """Levels 1..lmax (<= 3) with the adjacency on the device
-    (`cigwas_tpu.skeleton.cupc._run_levels_local_dev`): per level one
-    launch, then the new degrees, the side mask, the lists and the hits'
-    positions (and rho for pMax) are fetched and the sepsets folded on the
-    host. Returns (G on the host, final level, stopped: whether the graph
-    ran out of tests before lmax)."""
-    n = Gd.shape[0]
-    deg = deg0
-    final_level = 0
-    for l in range(1, lmax + 1):
+    l = 1
+    while l <= min(3, lmax):
+        deg = to_host(Gd.sum(dim=1, dtype=torch.int32), stats, "loop_lists")
         nprime = int(deg.max()) if n else 0
         if nprime - 1 < l:
-            return _final_fetch(Gd, stats), l - 1, True
+            break
+        d_pad = _pad8(nprime)
+        route = route_of(l, deg, d_pad)
+        if route is None:
+            break
         if verbose:
-            print(f"[skeleton] level {l}: max degree {nprime} (device loop)")
+            print(f"[skeleton] level {l}: max degree {nprime} ({route} on the device)")
         with span(stats, ("level_wall_s", l), f"cigwas.skeleton.level{l}"):
-            if l >= 2:  # from the degrees already on the host: no fetch for the count
+            if l >= 2:
                 _count_tests(stats, l, deg)
-            d_pad = _pad8(nprime)
-            rho_th = float(np.float32(np.tanh(float(th[l]))))
-            with span(None, None, "cigwas.skeleton.loop_step"):
-                Gd, deg_d, side_d, nbrs_d, pos_d, rho_d = _level_local_dev_step(
-                    C, Gd, rho_th, l, d_pad, pmax is not None)
-            deg, side, nbrs, pos = (to_host(t, stats, "loop_lists")
-                                    for t in (deg_d, side_d, nbrs_d, pos_d))
-            rho = None if pmax is None else to_host(rho_d, stats, "loop_lists")
-            with _host_pass(stats):
-                xs, slots = np.nonzero(side)
-                ys = nbrs[xs, slots]
-                sepset[xs, ys, l:] = -1
-                sepset[xs, ys, :l] = nbrs[xs[:, None], pos]  # positions -> variable indices
-                if pmax is not None:
-                    pmax[xs, ys] = fisher_z(rho)
+            lists = None
+            if route != "dense":
+                nodes = torch.from_numpy(np.flatnonzero(deg >= l + 1).astype(np.int32))
+                nodes = nodes.to(Gd.device)
+                # in range by construction: every entry a column of Gd or the
+                # pad 0, and no degree above d_pad, the level's max
+                lists = (nodes, *compact_rows(Gd, nodes, d_pad, index_range_checked=True))
+            xs, ys = sweep(l, lists)
+            Gd[xs, ys] = False
+            Gd[ys, xs] = False
         if stats is not None:
-            stats.setdefault("launches", {})[l] = [(d_pad, n)]
-            stats.setdefault("level_route", {})[l] = "device_loop"
-        final_level = l
-    return _final_fetch(Gd, stats), final_level, False
-
-
-def _final_fetch(Gd: torch.Tensor, stats: dict | None) -> np.ndarray:
+            stats.setdefault("level_route", {})[l] = route
+            if lists is not None:
+                stats.setdefault("launches", {})[l] = [(d_pad, int(lists[0].numel()))]
+        l += 1
     with span(stats, "final_fetch_s", "cigwas.skeleton.final_fetch"):
-        return to_host(Gd, stats, "final_adjacency")
+        return to_host(Gd, stats, "final_adjacency"), l
+
+
+def _loop_route(n: int, l: int, deg: np.ndarray, d_pad: int) -> str | None:
+    """:func:`skeleton`'s route_of for :func:`_device_levels`: the loop takes
+    every level 1-3 of a panel of at most DEV_RESIDENT_MAX variables whose
+    padded width is at most _DEV_RESIDENT_WIDTH, before the level-1 gate
+    (the JAX package checks the gate first, to dispatch a dense level 1
+    early; on the card the loop won). Degrees only fall, so a panel that
+    passes at level 1 passes at levels 2-3."""
+    if LOCAL_LEVELS == (2, 3) and n <= DEV_RESIDENT_MAX and d_pad <= _DEV_RESIDENT_WIDTH:
+        return "device_loop"
+    return None
+
+
+def _loop_sweep(C: torch.Tensor, th: np.ndarray, sepset: np.ndarray, pmax: np.ndarray | None,
+                stats: dict | None, l: int, lists: tuple):
+    """:func:`skeleton`'s sweep for :func:`_device_levels`: one local-sweep
+    launch; the hits' (x, y, sepset variables) and, for pMax, their rho are
+    fetched (site ``loop_lists``) and written into sepset (and pmax) on the
+    host. Returns the hits on the device."""
+    nodes, nbrs, deg = lists
+    rho, pos = local_sweep(C, nodes, nbrs, deg, l, index_range_checked=True)
+    ri, ci = _hits(rho, float(np.float32(np.tanh(float(th[l])))), deg)
+    xs, ys = nodes[ri], nbrs[ri, ci]
+    sep = nbrs[ri[:, None], pos[ri, ci].long()]  # positions -> variable indices
+    hits = to_host(torch.cat((xs[:, None], ys[:, None], sep), dim=1), stats, "loop_lists")
+    rho = None if pmax is None else to_host(rho[ri, ci], stats, "loop_lists")
+    with _host_pass(stats):
+        hx, hy = hits[:, 0], hits[:, 1]
+        sepset[hx, hy, l:] = -1
+        sepset[hx, hy, :l] = hits[:, 2:]
+        if pmax is not None:
+            pmax[hx, hy] = fisher_z(rho)
+    return xs.long(), ys.long()
 
 
 def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
@@ -626,9 +636,11 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
     per-bucket ``launches`` {level: [(d_pad, nodes)]} and, for levels 1-3 of
     the list route, ``level_detail`` {level: {compact_s, sweep_s}} (host
     compaction and upload; kernel launches up to the fetch of their hits);
-    after the device-resident loop ``final_fetch_s``; with want_pmax also
-    ``c_fetch_wall_s`` (the panel's fetch for level 0's pMax) and
-    ``pmax_wall_s`` (level 0's pMax and the final pass, on the host). On
+    on one card ``final_fetch_s`` (the adjacency's one fetch, after the
+    device-resident loop or where the host loop starts at level 1); with
+    want_pmax also ``c_fetch_wall_s`` (the fetch of the panel and of the
+    level-0 adjacency for level 0's pMax) and ``pmax_wall_s`` (level 0's
+    pMax and the final pass, on the host). On
     every route also ``ci_tests``, the exact number of (x, S, y) evaluations
     of levels >= 2 (and of level 1 where it takes the combinatorial route),
     a Python int (:func:`_count_tests`); ``preamble_s``, entry to the start
@@ -636,7 +648,10 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
     and the device-resident loop); ``skeleton_wall_s``, entry to return;
     ``host_pass_s``, the host passes over (n, n) and (n, n, depth) arrays
     between launches (degree sums, removal masks, adjacency updates, sepset
-    folds, the final cast); ``d2h_bytes`` {site: bytes} of its fetches. Each
+    folds, the final cast); ``d2h_bytes`` {site: bytes} of its fetches (on
+    one card: the degrees of each device level and the loop's hits under
+    ``loop_lists``, the adjacency once under ``final_adjacency``, the level-0
+    adjacency under ``l0_adjacency`` only for pMax). Each
     wall is a :class:`~cigwas_tpu_torch.utils.timing.span`, named
     ``cigwas.skeleton.*`` in a profiler's trace; each fetch goes through
     :func:`~cigwas_tpu_torch.utils.timing.to_host` (the engines' own fetches
@@ -670,7 +685,7 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
         with span(stats, "preamble_s", "cigwas.skeleton.preamble"):
             require_full_f32()  # the combinatorial route's one-hot selections must be exact
             th = np.asarray(thresholds, dtype=np.float32)
-            C, G, G0_dev, v_real = _level0(C, th, device, n_var, engine, stats)
+            C, G, v_real = _level0(C, th, device, n_var, engine, stats)
             n = G.shape[0]
             lmax = min(ML, max_level)
             with span(stats, "sepset_alloc_s", "cigwas.skeleton.sepset_fill"):
@@ -680,48 +695,44 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
                 # level 0: the Fisher z of C on the pairs it deleted, 0 elsewhere,
                 # over the real variables only (pads never re-enter)
                 with span(stats, "c_fetch_wall_s", "cigwas.skeleton.pmax_fetch"):
-                    pmax = (to_host(C[:v_real, :v_real], stats, "pmax_panel", copy=True)
-                            if engine is None else engine.fetch(C, v_real))
+                    if engine is None:
+                        pmax = to_host(C[:v_real, :v_real], stats, "pmax_panel", copy=True)
+                        kept0 = to_host(G[:v_real, :v_real], stats, "l0_adjacency")
+                    else:
+                        pmax, kept0 = engine.fetch(C, v_real), G[:v_real, :v_real]
                 with span(stats, "pmax_wall_s", "cigwas.skeleton.pmax"):
                     _fisher_z_inplace(pmax)
-                    kept0 = G[:v_real, :v_real]
                     pmax[kept0] = 0.0
                     np.fill_diagonal(pmax, 0.0)
-            final_level, start_l = 0, 1
-            with _host_pass(stats):
-                deg0 = G.sum(axis=1)
-            # the loop before the level-1 gate (the JAX package checks the gate
-            # first, to dispatch a dense level 1 early; on the card the loop won)
-            if (G0_dev is not None and LOCAL_LEVELS == (2, 3) and lmax >= 1 and n
-                    and _pad8(deg0.max()) <= _DEV_RESIDENT_WIDTH and n <= DEV_RESIDENT_MAX):
-                G, final_level, stopped = _run_levels_local_dev(
-                    C, G0_dev, deg0, th, min(lmax, 3), sepset, pmax, verbose, stats)
-                start_l = lmax + 1 if stopped else final_level + 1
-            del G0_dev
-        G, final_level = _host_levels(C, G, th, start_l, lmax, final_level, sepset, pmax,
-                                      verbose, stats, engine, chunk)
+            start_l = 1
+            if engine is None:
+                G, start_l = _device_levels(
+                    G, lmax, functools.partial(_loop_route, n),
+                    functools.partial(_loop_sweep, C, th, sepset, pmax, stats), verbose, stats)
+        G, final_level = _host_levels(C, G, th, start_l, lmax, sepset, pmax, verbose, stats,
+                                      engine, chunk)
         if pmax is not None:  # both sides' max; the kept edges' sentinel; 1 on the diagonal
             with span(stats, "pmax_wall_s", "cigwas.skeleton.pmax"):
                 pmax = np.maximum(pmax, pmax.T)
                 pmax[G[:v_real, :v_real]] = PMAX_RETAINED
                 np.fill_diagonal(pmax, 1.0)
         with _host_pass(stats):
-            G_out = G[:v_real, :v_real].astype(np.int32)
+            G_out = _cast(G[:v_real, :v_real], torch.int32)
         return SkeletonResult(G=G_out, sepset=sepset[:v_real, :v_real],
                               final_level=final_level, pmax=pmax)
 
 
 def _level0(C, th: np.ndarray, device, n_var: int | None, engine, stats: dict | None):
     """:func:`skeleton`'s level 0: (C as the levels read it, the level-0
-    adjacency on the host, the same on the device or None with an engine,
-    the number of real variables)."""
+    adjacency, on the device, or on the host with an engine, the number of
+    real variables)."""
     if engine is not None:
         v_real = n_var if n_var is not None else C.shape[0]
         C = engine.as_panel(C, v_real)
         with span(stats, "l0_wall_s", "cigwas.skeleton.level0"):
             G = engine.screen((C,), lambda c: pcorr.level0_keep(c, float(th[0])))
             np.fill_diagonal(G, False)
-        return C, G, None, v_real
+        return C, G, v_real
     device = resolve(device)
     if isinstance(C, torch.Tensor):
         v_real = n_var if n_var is not None else C.shape[0]
@@ -733,17 +744,16 @@ def _level0(C, th: np.ndarray, device, n_var: int | None, engine, stats: dict | 
         v_real = n_var if n_var is not None else np.asarray(C).shape[0]
         C = panel_from_numpy(C, v_real, device)
     with span(stats, "l0_wall_s", "cigwas.skeleton.level0"):
-        G0_dev = pcorr.level0_screen(C, float(th[0]))
-        G = to_host(G0_dev, stats, "l0_adjacency")
-    return C, G, G0_dev, v_real
+        G = pcorr.level0_screen(C, float(th[0]))
+    return C, G, v_real
 
 
-def _host_levels(C, G: np.ndarray, th: np.ndarray, start_l: int, lmax: int, final_level: int,
+def _host_levels(C, G: np.ndarray, th: np.ndarray, start_l: int, lmax: int,
                  sepset: np.ndarray, pmax: np.ndarray | None, verbose: bool,
                  stats: dict | None, engine, chunk: int):
     """:func:`skeleton`'s host loop, levels start_l..lmax from the adjacency
-    G: each level's route, its deletions and sepsets (and pMax). Returns (G,
-    final level)."""
+    G (level 0's, or what :func:`_device_levels` hands over): each level's
+    route, its deletions and sepsets (and pMax). Returns (G, final level)."""
     n = G.shape[0]
     for l in range(start_l, lmax + 1):
         with _host_pass(stats):
@@ -788,8 +798,7 @@ def _host_levels(C, G: np.ndarray, th: np.ndarray, start_l: int, lmax: int, fina
                 G = G & ~removed
         if stats is not None:
             stats.setdefault("level_route", {})[l] = route
-        final_level = l
-    return G, final_level
+    return G, lmax
 
 
 def _cast(a, dtype: torch.dtype) -> np.ndarray:
@@ -903,12 +912,14 @@ def hetcor_skeleton(C, G: np.ndarray, N, threshold: float, max_level: int,
 
         lmax = min(ML, max_level)
         start_l = 1
-        if stats is not None:
-            stats["device_levels"] = []
         if engine is None:
-            G, start_l = _hetcor_levels_dev(C, N_lvl, t_ix, Gd, float(threshold), lmax,
-                                            verbose, stats)
+            G, start_l = _device_levels(
+                Gd, lmax, functools.partial(_hetcor_route, n),
+                functools.partial(_hetcor_sweep, C, N_lvl, t_ix, Gd, float(threshold)),
+                verbose, stats)
             del Gd
+        if stats is not None:
+            stats["device_levels"] = list(range(start_l)) if engine is None else []
         G, final_level = _hetcor_levels(C, N_lvl, t_ix, G, float(threshold), start_l, lmax,
                                         verbose, stats, engine, chunk)
         with _host_pass(stats):
@@ -916,64 +927,34 @@ def hetcor_skeleton(C, G: np.ndarray, N, threshold: float, max_level: int,
         return SkeletonResult(G=G_out, sepset=None, final_level=final_level)
 
 
-def _hetcor_levels_dev(C, N_lvl, t_ix, Gd: torch.Tensor, th: float, lmax: int,
-                       verbose: bool, stats: dict | None):
-    """:func:`hetcor_skeleton`'s levels 1..min(3, lmax) with the adjacency
-    Gd on the device, cleared in place by each level's hits once all of
-    them exist (PC-stable): only the degrees leave the device each level,
-    and Gd once at the end. A level runs here while its route is dense, or
-    local at a padded width of at most _DEV_RESIDENT_WIDTH: the lists of
-    the nodes with a test are compacted on the device
-    (:func:`~cigwas_tpu_torch.ops.kernels.compact_rows.compact_rows`) and
-    swept in one launch at the level's width. Returns (G on the host, the
-    first level left to :func:`_hetcor_levels`)."""
-    n = Gd.shape[0]
-    done = [0]
-    l = 1
-    while l <= min(3, lmax):
-        deg = to_host(Gd.sum(dim=1, dtype=torch.int32), stats, "loop_lists")
-        nprime = int(deg.max()) if n else 0
-        if nprime - 1 < l:
-            break
-        route = _level_route(l, deg, n)
-        d_pad = _pad8(nprime)
-        if route == "combinatorial" or (route == "local" and d_pad > _DEV_RESIDENT_WIDTH):
-            break
-        if verbose:
-            print(f"[hetcor_skeleton] level {l}: max degree {nprime} (device)")
-        with span(stats, ("level_wall_s", l), f"cigwas.skeleton.level{l}"):
-            if route == "dense":
-                hits = pcorr.dense1_device_hits(pcorr.dense1_sweeps(C, Gd, N_lvl, t_ix, th))
-                xs, ys = (torch.cat([h[k] for h in hits]).long() for k in (0, 1))
-            else:
-                if l >= 2:
-                    _count_tests(stats, l, deg)
-                nodes = np.flatnonzero(deg >= l + 1).astype(np.int32)
-                nodes = torch.from_numpy(nodes).to(Gd.device)
-                # in range by construction: every entry a column of Gd or the
-                # pad 0, and no degree above d_pad, the level's max
-                nbrs, deg_t = compact_rows(Gd, nodes, d_pad, index_range_checked=True)
-                margin = hetcor_local_sweep(C, N_lvl, t_ix, nodes, nbrs, deg_t, th, l,
-                                            index_range_checked=True)
-                ri, ci = _hits(margin, 0.0, deg_t)
-                xs, ys = nodes[ri].long(), nbrs[ri, ci].long()
-                if stats is not None:
-                    stats.setdefault("launches", {})[l] = [(d_pad, int(nodes.numel()))]
-            Gd[xs, ys] = False  # every hit lies on an edge: its list came from Gd
-            Gd[ys, xs] = False
-        if stats is not None:
-            stats.setdefault("level_route", {})[l] = route
-        done.append(l)
-        l += 1
-    if stats is not None:
-        stats["device_levels"] = done
-    return _final_fetch(Gd, stats), l
+def _hetcor_route(n: int, l: int, deg: np.ndarray, d_pad: int) -> str | None:
+    """:func:`hetcor_skeleton`'s route_of for :func:`_device_levels`: level
+    l's own route (:func:`_level_route`) while it is dense, or local at a
+    padded width of at most _DEV_RESIDENT_WIDTH."""
+    route = _level_route(l, deg, n)
+    if route == "combinatorial" or (route == "local" and d_pad > _DEV_RESIDENT_WIDTH):
+        return None
+    return route
+
+
+def _hetcor_sweep(C, N_lvl, t_ix, Gd: torch.Tensor, th: float, l: int, lists: tuple | None):
+    """:func:`hetcor_skeleton`'s sweep for :func:`_device_levels`: the dense
+    level 1 over Gd (lists None) or one hetcor local-sweep launch; returns
+    the hits (margin < 0) on the device."""
+    if lists is None:
+        hits = pcorr.dense1_device_hits(pcorr.dense1_sweeps(C, Gd, N_lvl, t_ix, th))
+        return tuple(torch.cat([h[k] for h in hits]).long() for k in (0, 1))
+    nodes, nbrs, deg = lists
+    margin = hetcor_local_sweep(C, N_lvl, t_ix, nodes, nbrs, deg, th, l,
+                                index_range_checked=True)
+    ri, ci = _hits(margin, 0.0, deg)
+    return nodes[ri].long(), nbrs[ri, ci].long()
 
 
 def _hetcor_levels(C, N_lvl, t_ix, G: np.ndarray, th: float, start_l: int, lmax: int,
                    verbose: bool, stats: dict | None, engine, chunk: int):
     """:func:`hetcor_skeleton`'s levels start_l..lmax from the adjacency G
-    (level 0's, or what :func:`_hetcor_levels_dev` hands over); returns (G,
+    (level 0's, or what :func:`_device_levels` hands over); returns (G,
     final level)."""
     n = G.shape[0]
     for l in range(start_l, lmax + 1):

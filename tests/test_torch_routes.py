@@ -167,22 +167,33 @@ def test_device_loop_stops_when_the_graph_runs_out_of_tests():
     np.testing.assert_array_equal(got.sepset, ref.sepset)
 
 
-def test_device_loop_with_mostly_testless_nodes_matches_jax():
-    """A panel on which most nodes have no test at level 3 (degree <= 3): a
-    cluster of eight variables of one latent factor keeps its edges through
-    every level, a few short chains and independent variables do not. The
-    loop makes one launch a level over every node; its skeleton equals
+def _testless_panel(case: str):
+    """Panels on which most nodes have no test at levels 2-3 (degree <= l):
+    clusters of variables of one latent factor keep their edges through
+    every level, a few short chains and independent variables do not.
+    ``one_cluster``: eight variables of 48 keep a test at level 3;
+    ``clusters``: clusters of 8, 5 and 4 among 64, so levels 2 and 3 launch
+    different subsets."""
+    rng = np.random.default_rng(11 if case == "one_cluster" else 12)
+    X = rng.normal(size=(48 if case == "one_cluster" else 64, 4000))
+    clusters = [(0, 8)] if case == "one_cluster" else [(0, 8), (40, 45), (50, 54)]
+    for lo, hi in clusters:
+        X[lo:hi] += 1.2 * rng.normal(size=4000)
+    for a, b in ((10, 11), (11, 12), (20, 21), (30, 31), (31, 32), (32, 33)):
+        X[b] += 0.6 * X[a]
+    return np.corrcoef(X).astype(np.float32), threshold_array(4000, 1e-3)
+
+
+@pytest.mark.parametrize("case", ["one_cluster", "clusters"])
+def test_device_loop_with_mostly_testless_nodes_matches_jax(case):
+    """On a panel where most nodes have no test at levels 2-3, the loop's
+    launch at each level holds the nodes with a test alone (compacted on
+    the device), a strict subset of the variables; its skeleton equals
     JAX's loop and the list route's."""
     from cigwas_tpu.skeleton import cupc as jc
     from cigwas_tpu_torch.skeleton import cupc
 
-    rng = np.random.default_rng(11)
-    X = rng.normal(size=(48, 4000))
-    X[:8] += 1.2 * rng.normal(size=4000)
-    for a, b in ((10, 11), (11, 12), (20, 21), (30, 31), (31, 32), (32, 33)):
-        X[b] += 0.6 * X[a]
-    C = np.corrcoef(X).astype(np.float32)
-    th = threshold_array(4000, 1e-3)
+    C, th = _testless_panel(case)
     launched = []
     saved = cupc.local_sweep
 
@@ -197,8 +208,9 @@ def test_device_loop_with_mostly_testless_nodes_matches_jax():
     finally:
         cupc.local_sweep = saved
     assert [l for l, _, _ in launched] == [1, 2, 3]
-    l3_live, l3_rows = launched[2][1:]
-    assert 0 < l3_live < l3_rows // 4, launched
+    for l, live, rows in launched:
+        assert live == rows, launched
+        assert l == 1 or 0 < rows < C.shape[0] // 2, launched
     with _jax("device_loop"):
         ref = jc.skeleton(C, th, 3)
     assert got.final_level == ref.final_level == 3
@@ -384,21 +396,43 @@ def test_hetcor_device_levels_honour_the_incoming_adjacency():
     assert not (dev.G & ~G0).any()
 
 
-def test_hetcor_device_levels_fetch_the_adjacency_once():
-    """On the default gates the device levels fetch the degrees and the
-    final adjacency alone: no level-0 deletion mask, no hits."""
+@pytest.mark.parametrize("kind", ["hetcor", "block"])
+def test_hetcor_device_levels_fetch_the_adjacency_once(kind):
+    """On the default gates the device levels of either skeleton fetch the
+    degrees, each level's hits (the block's loop: x, y and the sepset's l
+    variables, int32) and the final adjacency alone: no level-0 adjacency
+    or deletion mask. The block's pMax adds the level-0 adjacency of the
+    real variables, the panel and the hits' rho."""
     from cigwas_tpu_torch.skeleton import cupc
 
-    C, N, t = _hetcor_case(1)
-    stats = {}
-    res = cupc.hetcor_skeleton(C, np.ones(C.shape, np.int32), N, hetcor_threshold(1e-3), 3,
-                               time_index=t, device="cpu", stats=stats)
-    assert stats["device_levels"] == list(range(res.final_level + 1))
     vp = 128
-    assert stats["d2h_bytes"]["final_adjacency"] == vp * vp
-    assert set(stats["d2h_bytes"]) == {"final_adjacency", "loop_lists"}
-    # one degree fetch a level, and one more where the graph ran out of tests
-    assert stats["d2h_bytes"]["loop_lists"] == 4 * vp * min(res.final_level + 1, 3)
+    if kind == "hetcor":
+        C, N, t = _hetcor_case(1)
+        stats = {}
+        res = cupc.hetcor_skeleton(C, np.ones(C.shape, np.int32), N, hetcor_threshold(1e-3),
+                                   3, time_index=t, device="cpu", stats=stats)
+        assert stats["device_levels"] == list(range(res.final_level + 1))
+        runs = [(stats, res, 0, {"final_adjacency", "loop_lists"})]
+    else:
+        C, th, _ = PANELS["factor0"]
+        runs = []
+        for want in (False, True):
+            stats = {}
+            res = cupc.skeleton(C, th, 3, device="cpu", stats=stats, want_pmax=want)
+            assert set(stats["level_route"].values()) == {"device_loop"}
+            sites = {"final_adjacency", "loop_lists"}
+            if want:
+                sites |= {"l0_adjacency", "pmax_panel"}
+                assert stats["d2h_bytes"]["l0_adjacency"] == C.shape[0] ** 2
+            width = (res.sepset != -1).sum(axis=2)
+            hit_bytes = sum(int((width == l).sum()) * 4 * (2 + l + want) for l in (1, 2, 3))
+            runs.append((stats, res, hit_bytes, sites))
+    for stats, res, hit_bytes, sites in runs:
+        assert stats["d2h_bytes"]["final_adjacency"] == vp * vp
+        assert set(stats["d2h_bytes"]) == sites
+        # one degree fetch a level, and one more where the graph ran out of tests
+        degrees = 4 * vp * min(res.final_level + 1, 3)
+        assert stats["d2h_bytes"]["loop_lists"] == degrees + hit_bytes
 
 
 @pytest.mark.parametrize("chunk", [16, 64])

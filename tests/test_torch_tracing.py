@@ -201,16 +201,16 @@ def test_top_level_spans_nest_in_the_callers_annotation(kind, block_files, tmp_p
         got = [e for e in program if e[0] == name]
         assert got and all(_inside(e, root) for e in got), name
     names = {e[0] for e in program}
-    # the hetcor levels 0-3 keep the adjacency on the device: it leaves once
-    fetches = {"block": {"cigwas.transfer.l0_adjacency"},
+    # on one card both skeletons keep the adjacency on the device from level
+    # 0 on: it leaves once, and the level-0 adjacency not at all
+    fetches = {"block": {"cigwas.transfer.loop_lists", "cigwas.transfer.final_adjacency"},
                "input": {"cigwas.transfer.loop_lists", "cigwas.transfer.final_adjacency"},
                "input_engine": {"cigwas.transfer.hits"}}[kind]
     assert {"cigwas.skeleton.level0", "cigwas.skeleton.level1", "cigwas.skeleton.host_pass",
             "cigwas.transfer.reduce_panel", *fetches} <= names
+    assert "cigwas.transfer.l0_adjacency" not in names
     assert any(re.fullmatch(r"cigwas\.skeleton\.level[2-9]", n) for n in names)
     level0 = [e for e in program if e[0] == "cigwas.skeleton.level0"]
-    for fetch in (e for e in program if e[0] == "cigwas.transfer.l0_adjacency"):
-        assert any(_inside(fetch, e) for e in level0)
     if kind == "input_engine":
         assert not names & {"cigwas.transfer.loop_lists", "cigwas.transfer.final_adjacency"}
         passes = [e for e in program if e[0] == "cigwas.skeleton.host_pass"]
@@ -253,10 +253,11 @@ def test_top_level_walls_are_present_and_fit_in_the_call(kind, block_files, tmp_
 
 def test_block_fetches_count_the_bytes_of_their_shapes(block_files, tmp_path):
     """On the device-resident loop's route (the default at this size) both
-    stages fetch the level-0 adjacency and the loop's final adjacency, each
-    (vp, vp) bool; the pre-screen fetches three (m, p) float32 sums, the
-    first reduction the kept (k, k) float32 panel; the loop's lists hold at
-    least each level's degrees, side mask and neighbour lists."""
+    stages fetch no level-0 adjacency and the loop's final adjacency once,
+    (vp, vp) bool; each loop level its n int32 degrees and its hits, an
+    int32 x, y and l sepset variables each; the pre-screen fetches three
+    (m, p) float32 sums, the first reduction the kept (k, k) float32
+    panel."""
     stats = _solve_block(block_files, tmp_path / "out")
     top = stats["d2h_bytes"]
     assert top["prescreen"] == 3 * MARKERS * TRAITS * 4
@@ -267,11 +268,15 @@ def test_block_fetches_count_the_bytes_of_their_shapes(block_files, tmp_path):
         vp = _padded(v)
         got = st["d2h_bytes"]
         assert set(st["level_route"].values()) <= {"device_loop", "combinatorial"}
-        assert got["l0_adjacency"] == vp * vp, stage
+        assert set(got) == {"loop_lists", "final_adjacency"} | (
+            {"hits"} if "combinatorial" in st["level_route"].values() else set()), stage
         assert got["final_adjacency"] == vp * vp, stage
-        loop = [(l, st["launches"][l][0]) for l, r in st["level_route"].items()
-                if r == "device_loop"]
-        assert got.get("loop_lists", 0) >= sum(n * (4 + 5 * d) for _, (d, n) in loop)
+        loop = [l for l, r in st["level_route"].items() if r == "device_loop"]
+        assert loop == list(range(1, len(loop) + 1)), stage
+        # one degree fetch a level, and one more where the graph ran out of tests
+        hits = got["loop_lists"] - 4 * vp * min(len(loop) + 1, 3)
+        assert hits >= 0 and hits % 4 == 0, stage
+        assert stage == "stage2" or hits >= 12, stage
 
 
 def test_input_fetches_count_the_bytes_of_their_shapes(tmp_path):
