@@ -232,8 +232,6 @@ class CuskContext:
                     f"last_ix: {b.last_marker_ix}"
                 )
         self.Th = threshold_array(self.dims.num_samples, alpha)
-        # kept across blocks: the GB-sized sepset buffers (`skeleton(scratch=)`)
-        self.scratch: dict = {}
 
     def prepare(self, block_index: int, stats: dict | None = None) -> dict:
         """Host I/O plus the pre-screen sums on the device (no fetch); its
@@ -332,11 +330,12 @@ class CuskContext:
         res1 = skeleton(
             C, self.Th, self.max_level, device=self.device, n_var=v_panel,
             verbose=self.verbose, stats=stats["stage1"], want_pmax=False, engine=engine,
-            scratch=self.scratch,
         )
         with span(stats, "reduce_s", "cigwas.reduce.stage1"):
             keep = subset_variables(res1.G, num_var, num_markers, self.depth)
-            gcs = reduce_gcs(res1.G, C, res1.sepset, keep, num_var, num_phen, self.max_level,
+            # the records of the removals, reduced to the kept corner: no
+            # (n, n, depth) sepset is built
+            gcs = reduce_gcs(res1.G, C, res1.records, keep, num_var, num_phen, self.max_level,
                              stats=stats)
             stats["final_level"] = res1.final_level
             del C, res1
@@ -351,12 +350,11 @@ class CuskContext:
                 gcs.C, self.Th, self.max_level_two, device=self.device,
                 verbose=self.verbose, stats=stats["stage2"], want_pmax=False,
                 engine=engine.for_stage2() if engine is not None else None,
-                scratch=self.scratch,
             )
             with span(stats["stage2"], "reduce_s", "cigwas.reduce.stage2"):
                 keep2 = subset_variables(res2.G, gcs.num_var, gcs.num_markers(), self.depth)
                 gcs2 = reduce_gcs(
-                    res2.G, gcs.C, res2.sepset, keep2, gcs.num_var, num_phen, ML,
+                    res2.G, gcs.C, res2.records, keep2, gcs.num_var, num_phen, ML,
                     index_map=gcs.new_to_old_indices, stats=stats,
                 )
         stats["retained_markers"] = gcs2.num_markers()

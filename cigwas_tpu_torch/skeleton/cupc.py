@@ -55,7 +55,6 @@ from __future__ import annotations
 
 import functools
 import math
-from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -73,7 +72,7 @@ from cigwas_tpu_torch.ops.kernels.panel_gather import (
 )
 from cigwas_tpu_torch.utils.combinatorics import colex_combinations_chunk, colex_unrank
 from cigwas_tpu_torch.utils.stats import fisher_z
-from cigwas_tpu_torch.utils.timing import span, to_host
+from cigwas_tpu_torch.utils.timing import count, span, to_host
 
 # combos per chunk of the combinatorial scan
 CHUNK = 512
@@ -115,14 +114,107 @@ L1_LOCAL_MAX_WIDTH = 128
 L1_LOCAL_COST_RATIO = 12000
 
 
-@dataclass
+class SepsetRecords:
+    """The separating sets of a skeleton's removals as an append-only
+    record: one entry a removed ordered pair (x, y), condemned from x's
+    side, with the l variables of its set, in int32 arrays, one group an
+    :meth:`append` (one level of one route). A level-0 removal (the empty
+    set) needs no record. A later record of an ordered pair replaces an
+    earlier one, as a later write replaced it in the dense (n, n, depth)
+    array, -1 padded, that :meth:`dense` builds. stats, if given (the
+    skeleton's), counts ``sepset_records`` as they are appended and, in
+    :func:`~cigwas_tpu_torch.skeleton.reduce.reduce_gcs`, ``sepset_kept``,
+    the records of the kept corner."""
+
+    def __init__(self, n: int, depth: int, stats: dict | None = None):
+        self.n, self.depth, self.stats = n, depth, stats
+        self.parts: list[tuple[int, np.ndarray, np.ndarray, np.ndarray]] = []
+        count(stats, "sepset_records", 0)
+
+    def append(self, l: int, xs, ys, sep) -> None:
+        """Records the ordered pairs (xs[i], ys[i]) with the sets sep[i],
+        l variables each (-1 where a dense array left a gap)."""
+        xs = np.array(xs, dtype=np.int32).ravel()
+        ys = np.array(ys, dtype=np.int32).ravel()
+        sep = np.array(sep, dtype=np.int32).reshape(xs.size, l)
+        if xs.size:
+            self.parts.append((l, xs, ys, sep))
+        count(self.stats, "sepset_records", xs.size)
+
+    def __len__(self) -> int:
+        return sum(xs.size for _, xs, _, _ in self.parts)
+
+    def latest(self, kept: np.ndarray | None = None) -> list:
+        """[(l, xs, ys, sep)]: the groups with each ordered pair's last
+        record only, and with kept, an (n,) bool mask, only the records
+        whose x and y are both kept."""
+        parts = self.parts
+        if kept is not None:
+            parts = []
+            for l, xs, ys, sep in self.parts:
+                m = kept[xs] & kept[ys]
+                parts.append((l, xs[m], ys[m], sep[m]))
+        keys = np.concatenate([xs.astype(np.int64) * self.n + ys for _, xs, ys, _ in parts]
+                              or [np.empty(0, np.int64)])
+        _, first_rev = np.unique(keys[::-1], return_index=True)
+        last = np.zeros(keys.size, dtype=bool)
+        last[keys.size - 1 - first_rev] = True
+        out, start = [], 0
+        for l, xs, ys, sep in parts:
+            m = last[start:start + xs.size]
+            start += xs.size
+            if m.any():
+                out.append((l, xs[m], ys[m], sep[m]))
+        return out
+
+    def dense(self) -> np.ndarray:
+        """The (n, n, depth) int32 sepset, -1 padded."""
+        S = np.full((self.n, self.n, self.depth), -1, dtype=np.int32)
+        for l, xs, ys, sep in self.latest():
+            S[xs, ys, :l] = sep
+        return S
+
+    @classmethod
+    def from_dense(cls, S: np.ndarray) -> "SepsetRecords":
+        """The records of an (n, n, depth) sepset: one for each ordered pair
+        with an entry other than -1, as wide as its last such entry."""
+        S = np.asarray(S)
+        n, _, depth = S.shape
+        rec = cls(n, depth)
+        set_ = S != -1
+        width = np.where(set_.any(axis=2), depth - np.argmax(set_[:, :, ::-1], axis=2), 0)
+        for w in range(1, depth + 1):
+            xs, ys = np.nonzero(width == w)
+            rec.append(w, xs, ys, S[xs, ys, :w])
+        return rec
+
+
 class SkeletonResult:
-    G: np.ndarray  # (n, n) int32 adjacency
-    sepset: np.ndarray | None  # (n, n, depth) int32, -1 padded; None for hetcor
-    final_level: int
-    # (n, n) f32 max Fisher z of a deleted pair's tests from either side,
-    # PMAX_RETAINED on kept edges, 1.0 on the diagonal; None unless asked for
-    pmax: np.ndarray | None = None
+    """A skeleton's result: ``G`` the (n, n) int32 adjacency;
+    ``final_level``; ``pmax``, (n, n) f32 max Fisher z of a deleted pair's
+    tests from either side, PMAX_RETAINED on kept edges, 1.0 on the
+    diagonal, None unless asked for; ``records``, the removals' separating
+    sets (:class:`SepsetRecords`), and ``sepset``, the same as the (n, n,
+    depth) int32 array, -1 padded, built from the records on first access
+    (None for hetcor). Either form may be given as ``sepset``."""
+
+    def __init__(self, G: np.ndarray, sepset, final_level: int,
+                 pmax: np.ndarray | None = None):
+        self.G, self.final_level, self.pmax = G, final_level, pmax
+        self._records = sepset if isinstance(sepset, SepsetRecords) else None
+        self._dense = None if self._records is not None else sepset
+
+    @property
+    def sepset(self) -> np.ndarray | None:
+        if self._dense is None and self._records is not None:
+            self._dense = self._records.dense()
+        return self._dense
+
+    @property
+    def records(self) -> SepsetRecords | None:
+        if self._records is None and self._dense is not None:
+            self._records = SepsetRecords.from_dense(self._dense)
+        return self._records
 
 
 def _next_pow2(v: int) -> int:
@@ -159,23 +251,6 @@ def _level_route(l: int, deg: np.ndarray, vp: int) -> str:
         if vp <= DENSE_L1_MAX:
             return "dense"
     return "local" if l <= 3 and l in LOCAL_LEVELS else "combinatorial"
-
-
-def _sepset_buffer(n: int, depth: int, scratch: dict | None) -> np.ndarray:
-    """An (n, n, depth) int32 sepset filled with -1: fresh, or the buffer
-    kept in scratch under ("sepset", n, depth), which the result then
-    aliases (a run over many blocks allocates it once per size; one buffer
-    per depth is kept, so blocks of many sizes do not pile buffers up)."""
-    if scratch is None:
-        return np.full((n, n, depth), -1, dtype=np.int32)
-    key = ("sepset", n, depth)
-    buf = scratch.get(key)
-    if buf is None:
-        for old in [k for k in scratch if k[0] == "sepset" and k[2] == depth]:
-            del scratch[old]
-        buf = scratch[key] = np.empty((n, n, depth), dtype=np.int32)
-    buf.fill(-1)
-    return buf
 
 
 def _count_tests(stats: dict | None, l: int, deg: np.ndarray,
@@ -234,8 +309,8 @@ def panel_from_numpy(C: np.ndarray, v_real: int, device) -> torch.Tensor:
 
 
 def _host_pass(stats: dict | None) -> span:
-    """The span of a host pass over an (n, n) or (n, n, depth) array between
-    launches: degree sums, removal masks, adjacency updates, sepset folds."""
+    """The span of a host pass between launches: degree sums, removal masks
+    and adjacency updates over (n, n) arrays, the sepsets' appends."""
     return span(stats, "host_pass_s", "cigwas.skeleton.host_pass")
 
 
@@ -467,12 +542,12 @@ def _loop_route(n: int, l: int, deg: np.ndarray, d_pad: int) -> str | None:
     return None
 
 
-def _loop_sweep(C: torch.Tensor, th: np.ndarray, sepset: np.ndarray, pmax: np.ndarray | None,
-                stats: dict | None, l: int, lists: tuple):
+def _loop_sweep(C: torch.Tensor, th: np.ndarray, records: SepsetRecords,
+                pmax: np.ndarray | None, stats: dict | None, l: int, lists: tuple):
     """:func:`skeleton`'s sweep for :func:`_device_levels`: one local-sweep
     launch; the hits' (x, y, sepset variables) and, for pMax, their rho are
-    fetched (site ``loop_lists``) and written into sepset (and pmax) on the
-    host. Returns the hits on the device."""
+    fetched (site ``loop_lists``), appended to records (and written into
+    pmax) on the host. Returns the hits on the device."""
     nodes, nbrs, deg = lists
     rho, pos = local_sweep(C, nodes, nbrs, deg, l, index_range_checked=True)
     ri, ci = _hits(rho, float(np.float32(np.tanh(float(th[l])))), deg)
@@ -481,11 +556,9 @@ def _loop_sweep(C: torch.Tensor, th: np.ndarray, sepset: np.ndarray, pmax: np.nd
     hits = to_host(torch.cat((xs[:, None], ys[:, None], sep), dim=1), stats, "loop_lists")
     rho = None if pmax is None else to_host(rho[ri, ci], stats, "loop_lists")
     with _host_pass(stats):
-        hx, hy = hits[:, 0], hits[:, 1]
-        sepset[hx, hy, l:] = -1
-        sepset[hx, hy, :l] = hits[:, 2:]
+        records.append(l, hits[:, 0], hits[:, 1], hits[:, 2:])
         if pmax is not None:
-            pmax[hx, hy] = fisher_z(rho)
+            pmax[hits[:, 0], hits[:, 1]] = fisher_z(rho)
     return xs.long(), ys.long()
 
 
@@ -624,14 +697,15 @@ def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
 def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
              n_var: int | None = None, verbose: bool = False,
              stats: dict | None = None, want_pmax: bool = True,
-             engine=None, chunk: int = CHUNK, scratch: dict | None = None) -> SkeletonResult:
+             engine=None, chunk: int = CHUNK) -> SkeletonResult:
     """PC-stable skeleton over a dense correlation panel (`Skeleton`,
     `cuPC-S.cu:61-450`; level 0 overwrites the adjacency from C).
 
     C: a numpy panel (padded here, see :func:`panel_from_numpy`) or a device
     tensor; n_var marks a tensor that is already padded with inert
     variables (the `ops.corr` panels). stats, if given, collects
-    ``l0_wall_s``, ``sepset_alloc_s``, ``level_wall_s`` {level: s},
+    ``l0_wall_s``, ``sepset_alloc_s`` (the set-up of the sepset's
+    :class:`SepsetRecords`), ``level_wall_s`` {level: s},
     ``level_route`` {level: local, dense, combinatorial or device_loop}, the
     per-bucket ``launches`` {level: [(d_pad, nodes)]} and, for levels 1-3 of
     the list route, ``level_detail`` {level: {compact_s, sweep_s}} (host
@@ -644,11 +718,14 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
     every route also ``ci_tests``, the exact number of (x, S, y) evaluations
     of levels >= 2 (and of level 1 where it takes the combinatorial route),
     a Python int (:func:`_count_tests`); ``preamble_s``, entry to the start
-    of the host's level loop (level 0, the sepset buffer, the panel's fetch
-    and the device-resident loop); ``skeleton_wall_s``, entry to return;
-    ``host_pass_s``, the host passes over (n, n) and (n, n, depth) arrays
-    between launches (degree sums, removal masks, adjacency updates, sepset
-    folds, the final cast); ``d2h_bytes`` {site: bytes} of its fetches (on
+    of the host's level loop (level 0, the sepset records' set-up, the
+    panel's fetch and the device-resident loop); ``skeleton_wall_s``, entry
+    to return; ``host_pass_s``, the host passes over (n, n) arrays between
+    launches (degree sums, removal masks, adjacency updates, the sepsets'
+    appends, the final cast); ``sepset_records``, the removals recorded
+    with a separating set (and, once the result is reduced,
+    ``sepset_kept``, see :class:`SepsetRecords`); ``d2h_bytes`` {site:
+    bytes} of its fetches (on
     one card: the degrees of each device level and the loop's hits under
     ``loop_lists``, the adjacency once under ``final_adjacency``, the level-0
     adjacency under ``l0_adjacency`` only for pMax). Each
@@ -672,10 +749,12 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
     the engine's own panel, with n_var); the results are the one-device
     path's, bit for bit, and ``device`` is not used.
 
-    chunk: conditioning sets per chunk of the combinatorial route. scratch:
-    a dict kept across calls (``CuskContext.scratch``): the sepset buffer
-    is reused from it, and the result's sepset then aliases it, so consume
-    the result before the next call with the same scratch.
+    chunk: conditioning sets per chunk of the combinatorial route.
+
+    The result's sepsets are its ``records``, one a removal; its
+    ``sepset``, the (v, v, depth) array of the JAX package's result, is
+    built from them on first access. The pipelines reduce the records and
+    never build the array.
 
     The routes of levels 1-3 (the module attributes LOCAL_LEVELS,
     DENSE_L1_MAX, DEV_RESIDENT_MAX, L1_LOCAL_MAX_WIDTH, L1_LOCAL_COST_RATIO
@@ -689,7 +768,7 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
             n = G.shape[0]
             lmax = min(ML, max_level)
             with span(stats, "sepset_alloc_s", "cigwas.skeleton.sepset_fill"):
-                sepset = _sepset_buffer(n, max(1, lmax), scratch)
+                records = SepsetRecords(v_real, max(1, lmax), stats)
             pmax = None
             if want_pmax:
                 # level 0: the Fisher z of C on the pairs it deleted, 0 elsewhere,
@@ -708,8 +787,8 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
             if engine is None:
                 G, start_l = _device_levels(
                     G, lmax, functools.partial(_loop_route, n),
-                    functools.partial(_loop_sweep, C, th, sepset, pmax, stats), verbose, stats)
-        G, final_level = _host_levels(C, G, th, start_l, lmax, sepset, pmax, verbose, stats,
+                    functools.partial(_loop_sweep, C, th, records, pmax, stats), verbose, stats)
+        G, final_level = _host_levels(C, G, th, start_l, lmax, records, pmax, verbose, stats,
                                       engine, chunk)
         if pmax is not None:  # both sides' max; the kept edges' sentinel; 1 on the diagonal
             with span(stats, "pmax_wall_s", "cigwas.skeleton.pmax"):
@@ -718,8 +797,7 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
                 np.fill_diagonal(pmax, 1.0)
         with _host_pass(stats):
             G_out = _cast(G[:v_real, :v_real], torch.int32)
-        return SkeletonResult(G=G_out, sepset=sepset[:v_real, :v_real],
-                              final_level=final_level, pmax=pmax)
+        return SkeletonResult(G=G_out, sepset=records, final_level=final_level, pmax=pmax)
 
 
 def _level0(C, th: np.ndarray, device, n_var: int | None, engine, stats: dict | None):
@@ -749,11 +827,12 @@ def _level0(C, th: np.ndarray, device, n_var: int | None, engine, stats: dict | 
 
 
 def _host_levels(C, G: np.ndarray, th: np.ndarray, start_l: int, lmax: int,
-                 sepset: np.ndarray, pmax: np.ndarray | None, verbose: bool,
+                 records: SepsetRecords, pmax: np.ndarray | None, verbose: bool,
                  stats: dict | None, engine, chunk: int):
     """:func:`skeleton`'s host loop, levels start_l..lmax from the adjacency
     G (level 0's, or what :func:`_device_levels` hands over): each level's
-    route, its deletions and sepsets (and pMax). Returns (G, final level)."""
+    route, its deletions, their sepsets appended to records (and pMax).
+    Returns (G, final level)."""
     n = G.shape[0]
     for l in range(start_l, lmax + 1):
         with _host_pass(stats):
@@ -775,8 +854,7 @@ def _host_levels(C, G: np.ndarray, th: np.ndarray, start_l: int, lmax: int,
                     removed, xs, ys, sep, rho_sel = _run_level_dense1(C, G, rho_th, engine,
                                                                       stats)
                 with _host_pass(stats):
-                    sepset[xs, ys, l:] = -1
-                    sepset[xs, ys, :l] = sep
+                    records.append(l, xs, ys, sep)
                     if pmax is not None:
                         pmax[xs, ys] = fisher_z(rho_sel)
             else:
@@ -787,13 +865,14 @@ def _host_levels(C, G: np.ndarray, th: np.ndarray, start_l: int, lmax: int,
                         xs, ys = np.nonzero((rho_min < rho_th) & G)
                         if pmax is not None:
                             pmax[xs, ys] = fisher_z(rho_min[xs, ys])
-                        sepset[xs, ys, l:] = -1
+                        sep = np.empty((xs.size, l), dtype=np.int32)
                         prev_x, nbr_x = -1, None
-                        for x, y in zip(xs, ys):  # xs ascending from np.nonzero
+                        for i, (x, y) in enumerate(zip(xs, ys)):  # xs ascending from np.nonzero
                             if x != prev_x:
                                 nbr_x = np.where(G[x])[0]
                                 prev_x = x
-                            sepset[x, y, :l] = nbr_x[colex_unrank(int(rank[x, y]), l)]
+                            sep[i] = nbr_x[colex_unrank(int(rank[x, y]), l)]
+                        records.append(l, xs, ys, sep)
             with _host_pass(stats):
                 G = G & ~removed
         if stats is not None:

@@ -11,7 +11,8 @@ import numpy as np
 import torch
 
 from cigwas_tpu_torch.io.results import ReducedGC, ReducedGCS
-from cigwas_tpu_torch.utils.timing import to_host
+from cigwas_tpu_torch.skeleton.cupc import SepsetRecords
+from cigwas_tpu_torch.utils.timing import count, to_host
 
 
 def subset_variables(
@@ -52,7 +53,7 @@ def _submatrix(M, keep: np.ndarray, num_var: int, stats: dict | None = None) -> 
 def reduce_gcs(
     G: np.ndarray,
     C,
-    S: np.ndarray,
+    S,
     keep: np.ndarray,
     num_var: int,
     num_phen: int,
@@ -63,13 +64,14 @@ def reduce_gcs(
     """Kept-variable submatrices of G/C/S, with sepset entries remapped to
     the new index space and entries that point at removed variables
     dropped (`parent_set.cpp:84-175`). C is a numpy panel, a device tensor
-    (possibly pad-extended beyond num_var) or a sharded engine's panel.
-    Output sepsets have stride ``max_level``; S may be narrower, its missing
-    slots being -1. stats, if given, counts the bytes of C's fetch
+    (possibly pad-extended beyond num_var) or a sharded engine's panel. S
+    is a skeleton's :class:`~cigwas_tpu_torch.skeleton.cupc.SepsetRecords`
+    or a (num_var, num_var, depth) sepset, taken as its records. Output
+    sepsets have stride ``max_level``; S may be narrower, its missing slots
+    being -1. stats, if given, counts the bytes of C's fetch
     (``d2h_bytes``)."""
     keep = np.asarray(keep, dtype=np.int64)
     G = np.asarray(G).reshape(num_var, num_var)
-    S = np.asarray(S).reshape(num_var, num_var, -1)
     k = keep.size
 
     old_to_new = np.full(num_var, -1, dtype=np.int32)
@@ -77,16 +79,7 @@ def reduce_gcs(
 
     Gr = G[np.ix_(keep, keep)].astype(np.int32)
     Cr = _submatrix(C, keep, num_var, stats)
-
-    depth = min(S.shape[2], max_level)
-    Ssub = S[np.ix_(keep, keep)][:, :, :depth]  # (k, k, depth)
-    valid = (Ssub != -1) & np.isin(Ssub, keep)
-    Sr = np.full((k, k, max_level), -1, dtype=np.int32)
-    # compact valid entries to the front of each (i, j) row
-    order = np.argsort(~valid, axis=2, kind="stable")
-    Scomp = np.take_along_axis(Ssub, order, axis=2)
-    vcomp = np.take_along_axis(valid, order, axis=2)
-    Sr[:, :, :depth] = np.where(vcomp, old_to_new[np.clip(Scomp, 0, num_var - 1)], -1)
+    Sr = _reduce_sepsets(S, old_to_new, k, max_level)
 
     if index_map is not None:
         new_to_old = np.asarray(index_map, dtype=np.int32)[keep]
@@ -102,6 +95,31 @@ def reduce_gcs(
         C=Cr,
         S=Sr,
     )
+
+
+def _reduce_sepsets(S, old_to_new: np.ndarray, k: int, max_level: int) -> np.ndarray:
+    """The (k, k, max_level) int32 sepsets of the kept corner, -1 padded,
+    from the records whose x and y are both kept (old_to_new >= 0): each
+    set cut to max_level entries, its variables mapped to the new indices,
+    those not kept dropped, the rest moved to the front in their order.
+    Counts ``sepset_kept`` in the records' stats."""
+    num_var = old_to_new.size
+    if not isinstance(S, SepsetRecords):
+        S = SepsetRecords.from_dense(np.asarray(S).reshape(num_var, num_var, -1))
+    if S.n != num_var:
+        raise ValueError(f"sepset records over {S.n} variables, expected {num_var}")
+    Sr = np.full((k, k, max_level), -1, dtype=np.int32)
+    kept = 0
+    for l, xs, ys, sep in S.latest(old_to_new >= 0):
+        w = min(l, max_level)
+        v = sep[:, :w]
+        in_range = (v >= 0) & (v < num_var)
+        new = np.where(in_range, old_to_new[np.where(in_range, v, 0)], -1)
+        order = np.argsort(new < 0, axis=1, kind="stable")
+        Sr[old_to_new[xs], old_to_new[ys], :w] = np.take_along_axis(new, order, axis=1)
+        kept += xs.size
+    count(S.stats, "sepset_kept", kept)
+    return Sr
 
 
 def reduce_gc(

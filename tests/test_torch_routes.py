@@ -8,7 +8,8 @@ the JAX skeleton under the same route and to the port's default: adjacency
 and sepsets identical, pMax within the JAX package's tolerance between its
 own routes (bitwise between the port's list, loop and dense routes, which
 share their arithmetic). Also the
-gate itself, `skeleton(chunk=, scratch=)` and `CuskContext.scratch`.
+gate itself, `skeleton(chunk=)`, `CuskContext` over two blocks and the pipeline's
+sepset records.
 """
 
 import contextlib
@@ -453,40 +454,11 @@ def test_chunk_of_the_combinatorial_route(chunk):
     _assert_same(got, default, pmax_exact=False)
 
 
-def test_scratch_is_reused_across_blocks():
-    """Two panels of one size through one scratch dict equal fresh calls;
-    the sepset aliases the kept buffer; a third size replaces the buffer of
-    its depth and keeps the other depth's."""
-    from cigwas_tpu_torch.skeleton import cupc
-
-    (C1, th1, _), (C2, th2, _) = PANELS["factor0"], PANELS["factor2"]
-    scratch: dict = {}
-    fresh = [cupc.skeleton(C, th, 3, device="cpu") for C, th in ((C1, th1), (C2, th2))]
-    first = cupc.skeleton(C1, th1, 3, device="cpu", scratch=scratch)
-    buf = scratch[("sepset", 128, 3)]
-    assert np.shares_memory(first.sepset, buf)
-    _assert_same(first, fresh[0], pmax_exact=True)
-    first_sep = first.sepset.copy()
-    second = cupc.skeleton(C2, th2, 3, device="cpu", scratch=scratch)
-    assert scratch[("sepset", 128, 3)] is buf and np.shares_memory(second.sepset, buf)
-    _assert_same(second, fresh[1], pmax_exact=True)
-    assert not np.array_equal(first_sep, second.sepset)
-    cupc.skeleton(C2, th2, 5, device="cpu", scratch=scratch)
-    C3, th3, _ = PANELS["ar1"]
-    Cbig = np.zeros((200, 200), np.float32)
-    Cbig[:96, :96] = C3[:96, :96]
-    np.fill_diagonal(Cbig, 1.0)
-    cupc.skeleton(Cbig, th3, 3, device="cpu", scratch=scratch)
-    assert sorted(scratch) == [("sepset", 128, 5), ("sepset", 256, 3)]
-
-
-def test_cusk_context_keeps_one_scratch_for_both_stages(tmp_path):
-    """CuskContext passes its scratch to both stages; a second block through
-    the same context writes what a fresh context writes."""
+def _two_block_fileset(tmp_path):
+    """(stem, .blocks path) of a 60-marker, 2-trait fileset in two blocks."""
     from torch_parity import std, write_plink
 
     from cigwas_tpu_torch.io import MarkerBlock, write_marker_blocks_to_file
-    from cigwas_tpu_torch.pipelines import CuskContext
     from cigwas_tpu_torch.prep import prep_bed
 
     rng = np.random.default_rng(12)
@@ -501,6 +473,15 @@ def test_cusk_context_keeps_one_scratch_for_both_stages(tmp_path):
     prep_bed(stem)
     blocks = stem + ".blocks"
     write_marker_blocks_to_file([MarkerBlock("1", 0, 29), MarkerBlock("1", 30, 59)], blocks)
+    return stem, blocks
+
+
+def test_cusk_context_blocks_equal_fresh_contexts(tmp_path):
+    """Two blocks through one CuskContext write what a fresh context
+    writes for each."""
+    from cigwas_tpu_torch.pipelines import CuskContext
+
+    stem, blocks = _two_block_fileset(tmp_path)
     out_a, out_b = tmp_path / "a", tmp_path / "b"
     out_a.mkdir()
     out_b.mkdir()
@@ -508,7 +489,6 @@ def test_cusk_context_keeps_one_scratch_for_both_stages(tmp_path):
                       device="cpu")
     for bi in (0, 1):
         assert ctx.finish(ctx.prepare(bi)) is not None
-    assert {k[2] for k in ctx.scratch} == {3, 14}
     for bi in (0, 1):
         fresh = CuskContext(stem + ".phen", stem, blocks, 1e-3, 3, 14, 1, str(out_b),
                             verbose=False, device="cpu")
@@ -517,6 +497,56 @@ def test_cusk_context_keeps_one_scratch_for_both_stages(tmp_path):
     assert names == sorted(p.name for p in out_b.iterdir()) and len(names) == 10
     for name in names:
         assert (out_a / name).read_bytes() == (out_b / name).read_bytes(), name
+
+
+def test_cusk_pipeline_builds_no_dense_sepset(tmp_path, monkeypatch):
+    """CuskContext.finish reduces both stages' sepset records without ever
+    building a dense (n, n, depth) sepset, and writes the sepsets that the
+    dense arrays give: each stage's result, materialised afterwards and
+    reduced, is the written .sep."""
+    from cigwas_tpu_torch.io import make_path
+    from cigwas_tpu_torch.io.results import ReducedGCS
+    import sys
+
+    from cigwas_tpu_torch.pipelines import CuskContext
+    from cigwas_tpu_torch.skeleton import cupc
+    from cigwas_tpu_torch.skeleton import reduce as red
+
+    stem, blocks = _two_block_fileset(tmp_path)
+    results = []
+
+    def recording_skeleton(*args, **kwargs):
+        results.append(cupc.skeleton(*args, **kwargs))
+        return results[-1]
+
+    def no_dense(self):
+        raise AssertionError("a dense sepset was built")
+
+    monkeypatch.setattr(sys.modules["cigwas_tpu_torch.pipelines.cusk"], "skeleton",
+                        recording_skeleton)
+    ctx = CuskContext(stem + ".phen", stem, blocks, 1e-3, 3, 14, 1, str(tmp_path), verbose=False,
+                      device="cpu")
+    with monkeypatch.context() as m:
+        m.setattr(cupc.SepsetRecords, "dense", no_dense)
+        stats: dict = {}
+        gcs2 = ctx.finish(ctx.prepare(0), stats=stats)
+    assert gcs2 is not None and len(results) == 2
+    assert all(r._dense is None for r in results)
+    assert len(results[1].records) > 0  # stage 2 removed pairs with a separating set
+    # the written sepsets are those of the dense arrays, reduced as the JAX package reduces
+    from cigwas_tpu.skeleton.reduce import reduce_gcs as jax_reduce
+
+    res1, res2 = results
+    num_var = res1.G.shape[0]
+    keep = red.subset_variables(res1.G, num_var, num_var - 2, 1)
+    gcs1 = jax_reduce(res1.G, np.zeros((num_var, num_var), np.float32), res1.sepset, keep,
+                      num_var, 2, 3)
+    keep2 = red.subset_variables(res2.G, gcs1.num_var, gcs1.num_var - 2, 1)
+    exp = jax_reduce(res2.G, np.zeros((gcs1.num_var,) * 2, np.float32), res2.sepset, keep2,
+                     gcs1.num_var, 2, 14)
+    np.testing.assert_array_equal(gcs2.S, exp.S)
+    written = ReducedGCS.from_file(make_path(str(tmp_path), ctx.blocks[0].to_file_string(), ""))
+    np.testing.assert_array_equal(written.S, exp.S)
 
 
 def test_device_loop_scatters_only_the_hits():

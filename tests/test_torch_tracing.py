@@ -243,6 +243,8 @@ def test_top_level_walls_are_present_and_fit_in_the_call(kind, block_files, tmp_
         assert st["skeleton_wall_s"] >= st["l0_wall_s"] + sum(st["level_wall_s"].values())
         if kind == "block":
             assert st["preamble_s"] >= st["sepset_alloc_s"] + st["l0_wall_s"]
+            # the removals' records, and those of the kept corner the reduction wrote
+            assert 0 <= st["sepset_kept"] <= st["sepset_records"]
     if kind == "block":
         assert stats["stage2_s"] >= (stats["stage2"]["skeleton_wall_s"]
                                      + stats["stage2"]["reduce_s"])
