@@ -230,13 +230,14 @@ def cuskss(args: CuskssArgs, verbose: bool = True, device="cuda",
 
     Writes `.mdim/.ixs/.adj/.corr` under ``args.outdir`` (`trait_only`,
     `cuskss_merged` or the block's name) and returns the written ReducedGC.
-    stats, if given, collects ``load_s`` (host file reads), ``assemble_s``
-    (upload and panel assembly), ``init_s`` (the starting adjacency and the
-    ReducedGC), ``stage1`` / ``stage2`` (:func:`run_cusk`'s stats) with
-    ``stage1_s`` / ``stage2_s`` (each stage with its reduction) and
-    ``write_s`` (the output files): the top-level spans, which tile the
-    call; with a mesh also ``engine_record``, the engine's record of its
-    placements, calls and copies.
+    stats, if given, collects ``load_s`` (host file reads; inside it, for
+    a merged input, ``merged_select_s``, the marker-trait tables' read and
+    row selection), ``assemble_s`` (upload and panel assembly), ``init_s``
+    (the starting adjacency and the ReducedGC), ``stage1`` / ``stage2``
+    (:func:`run_cusk`'s stats) with ``stage1_s`` / ``stage2_s`` (each stage
+    with its reduction) and ``write_s`` (the output files): the top-level
+    spans, which tile the call; with a mesh also ``engine_record``, the
+    engine's record of its placements, calls and copies.
 
     mesh: a :class:`~cigwas_tpu_torch.parallel.mesh.Mesh` (or a list of
     devices) runs the hetcor levels over its devices; ``device`` is then its
@@ -256,7 +257,7 @@ def cuskss(args: CuskssArgs, verbose: bool = True, device="cuda",
         stats["engine_record"] = engine.record
     with span(None, None, "cigwas.pipeline.cuskss"):
         with span(stats, "load_s", "cigwas.pipeline.load"):
-            inputs = _load(args)
+            inputs = _load(args, stats)
         th = hetcor_threshold(args.alpha)
         num_phen = inputs["pxp"].get_num_phen()
 
@@ -331,10 +332,12 @@ def cuskss(args: CuskssArgs, verbose: bool = True, device="cuda",
         return gc
 
 
-def _load(args: CuskssArgs) -> dict:
+def _load(args: CuskssArgs, stats: dict | None = None) -> dict:
     """:func:`cuskss`'s host reads: the traits' tables and time index and,
     unless trait_only, the mxm triangle, the marker-trait tables and the
-    block (or None for a merged input), checked against each other."""
+    block (or None for a merged input), checked against each other. stats,
+    if given, collects ``merged_select_s``: the read of a merged input's
+    marker-trait tables and the selection of its rows."""
     if args.merged:
         marker_ixs = read_ints_from_binary(args.marker_ixs_path)
         block = None
@@ -358,7 +361,9 @@ def _load(args: CuskssArgs) -> dict:
     mxm_tril = np.fromfile(args.mxm_path, dtype=np.float32)
     se_path = args.mxp_se_path if args.hetcor else None
     if args.merged:
-        mxp = MarkerTraitSummaryStats(args.mxp_path, se_path=se_path, marker_ixs=marker_ixs)
+        with span(stats, "merged_select_s", "cigwas.io.merged_select"):
+            mxp = MarkerTraitSummaryStats(args.mxp_path, se_path=se_path,
+                                          marker_ixs=marker_ixs)
     else:
         mxp = MarkerTraitSummaryStats(args.mxp_path, se_path=se_path, block=block)
     if pxp.get_num_phen() != mxp.get_num_phen():

@@ -256,9 +256,10 @@ def _level_route(l: int, deg: np.ndarray, vp: int) -> str:
 def _count_tests(stats: dict | None, l: int, deg: np.ndarray,
                  scanned: dict | None = None) -> None:
     """Adds level l's (x, S, y) evaluations to ``stats["ci_tests"]``, as the
-    JAX package counts them: each node x with deg_x >= l + 1 tests each of
-    its conditioning sets S against its deg_x neighbours y, all
-    comb(deg_x, l) sets, or scanned[x] of them where the combinatorial
+    JAX package counts them, and to ``stats["ci_tests_level"][l]`` (so the
+    levels' counts sum to ``ci_tests``): each node x with deg_x >= l + 1
+    tests each of its conditioning sets S against its deg_x neighbours y,
+    all comb(deg_x, l) sets, or scanned[x] of them where the combinatorial
     route's waves stopped x early. deg holds the degrees at the start of
     the level (PC-stable). A Python int: comb(152, 14) alone is past int64."""
     if stats is None:
@@ -268,7 +269,8 @@ def _count_tests(stats: dict | None, l: int, deg: np.ndarray,
         n = sum(math.comb(int(d), l) * int(d) * int(r) for d, r in zip(vals, reps))
     else:
         n = sum(k * int(deg[x]) for x, k in scanned.items())
-    stats["ci_tests"] = stats.get("ci_tests", 0) + n
+    count(stats, "ci_tests", n)
+    count(stats, ("ci_tests_level", l), n)
 
 
 def _compact_neighbors(G: np.ndarray, nodes: np.ndarray, d_max: int):
@@ -717,7 +719,8 @@ def skeleton(C, thresholds: np.ndarray, max_level: int, device="cuda",
     pMax and the final pass, on the host). On
     every route also ``ci_tests``, the exact number of (x, S, y) evaluations
     of levels >= 2 (and of level 1 where it takes the combinatorial route),
-    a Python int (:func:`_count_tests`); ``preamble_s``, entry to the start
+    a Python int, and ``ci_tests_level`` {level: its share of them}
+    (:func:`_count_tests`); ``preamble_s``, entry to the start
     of the host's level loop (level 0, the sepset records' set-up, the
     panel's fetch and the device-resident loop); ``skeleton_wall_s``, entry
     to return; ``host_pass_s``, the host passes over (n, n) arrays between
@@ -918,7 +921,8 @@ def hetcor_skeleton(C, G: np.ndarray, N, threshold: float, max_level: int,
     stats, if given, collects ``l0_wall_s``, ``level_wall_s`` {level: s},
     ``level_route`` {level: local, dense or combinatorial}, the per-bucket
     ``launches`` {level: [(d_pad, nodes)]}, ``level_detail`` of levels
-    1-3 on the list route, ``ci_tests`` as :func:`skeleton` counts them,
+    1-3 on the list route, ``ci_tests`` and ``ci_tests_level`` as
+    :func:`skeleton` counts them,
     ``skeleton_wall_s``, entry to return (the JAX package's starts after
     level 0), ``device_levels``, the levels that ran with the adjacency on
     the device (0 first; empty with an engine), with ``final_fetch_s``

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import ATOL, set_threads
+from torch_parity import ATOL, rfdisease_input, set_threads
 
 from cigwas_tpu.pipelines import CuskssArgs as JaxArgs
 from cigwas_tpu.pipelines import cuskss as jax_cuskss
@@ -49,7 +49,17 @@ CONFIGS = {
         dict(marker_indices="NULL", blockfile=p("blocks.txt"), block_index=0), "1_0_2"),
     "hetcor_two_stage_merged": ("se", "cuskss_merged"),
     "time_index_merged": (dict(time_index=p("time_index.txt")), "cuskss_merged"),
+    # 500 markers merged from 600 rows, 4 risk factors at time 1 and 2
+    # diseases at time 2, with standard errors and stage 2 to level 14
+    "rfdisease_time_index_merged": ("rfdisease", "cuskss_merged"),
 }
+
+
+def _rfdisease_files(tmp_path):
+    d, _ = rfdisease_input(tmp_path)
+    return dict(mxm=d["mxm"], mxp=d["mxp"], mxp_se=d["mxp_se"], pxp=d["pxp"],
+                pxp_se=d["pxp_se"], marker_indices=d["marker_ixs"],
+                time_index=d["time_index"], max_level_two=14)
 
 
 def _args(cls, outdir, overrides):
@@ -69,6 +79,8 @@ def test_cuskss_files_match_jax(tmp_path, config, ess_mode):
     overrides, stem = CONFIGS[config]
     if overrides == "se":
         overrides = _se_files(tmp_path)
+    elif overrides == "rfdisease":
+        overrides = _rfdisease_files(tmp_path)
     overrides = dict(overrides, ess_mode=ess_mode)
     dj, dt = tmp_path / "jax", tmp_path / "torch"
     dj.mkdir()

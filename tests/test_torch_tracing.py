@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import planted_dataset, set_threads
+from torch_parity import planted_dataset, rfdisease_input, set_threads
 
 from cigwas_tpu_torch.constants import PANEL_ALIGN
 from cigwas_tpu_torch.utils.timing import span, to_host
@@ -456,3 +456,82 @@ def test_striped_panel_counters(case):
         "phen": 2 * p * sums * 4 + 2 * p * n * 4,
         "panel_traits": 2 * m * 4 + p * p * 4,
     }
+
+
+# the module attributes that force each route of levels 1-3 (both skeletons)
+ROUTES = {
+    "device_loop": {},
+    "list": {"DEV_RESIDENT_MAX": 0, "_DEV_RESIDENT_WIDTH": 0, "L1_LOCAL_MAX_WIDTH": 1 << 30},
+    "dense": {"DEV_RESIDENT_MAX": 0, "_DEV_RESIDENT_WIDTH": 0, "L1_LOCAL_MAX_WIDTH": 0,
+              "L1_LOCAL_COST_RATIO": 1 << 60},
+}
+
+
+@pytest.fixture(scope="module")
+def rfdisease_files(tmp_path_factory):
+    """A merged, time-indexed input of 4 risk factors and 2 diseases over 500
+    markers selected from 600 rows, and its configuration."""
+    return rfdisease_input(tmp_path_factory.mktemp("rfdisease"))
+
+
+def _solve_rfdisease(rfdisease_files, outdir) -> dict:
+    from cigwas_tpu_torch.pipelines import CuskssArgs, cuskss
+
+    d, cfg = rfdisease_files
+    os.makedirs(outdir, exist_ok=True)
+    args = CuskssArgs.from_paths(
+        mxm=d["mxm"], mxp=d["mxp"], mxp_se=d["mxp_se"], pxp=d["pxp"], pxp_se=d["pxp_se"],
+        marker_indices=d["marker_ixs"], time_index=d["time_index"], alpha=cfg["alpha"],
+        max_level_one=3, max_level_two=14, max_depth=1, num_samples=cfg["gwas_samples"],
+        outdir=str(outdir))
+    stats: dict = {}
+    cuskss(args, verbose=False, device="cpu", stats=stats)
+    return stats
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+@pytest.mark.parametrize("kind", ["block", "input"])
+def test_tests_by_level_sum_to_ci_tests(kind, route, monkeypatch, block_files,
+                                        rfdisease_files, tmp_path):
+    """In both stages of both skeletons, on the device loop, the list route
+    and the dense level 1, ``ci_tests_level`` splits ``ci_tests`` by level:
+    its levels ran, none below 2 unless combinatorial, and they sum to it."""
+    from cigwas_tpu_torch.skeleton import cupc
+
+    for name, value in ROUTES[route].items():
+        monkeypatch.setattr(cupc, name, value)
+    if kind == "block":
+        stats = _solve_block(block_files, tmp_path / "out")
+    else:
+        stats = _solve_rfdisease(rfdisease_files, tmp_path / "out")
+    s1 = stats["stage1"]
+    first = {"device_loop": "device_loop" if kind == "block" else None,
+             "list": "local", "dense": "dense"}[route]
+    if first is not None:
+        assert s1["level_route"][1] == first
+    if kind == "input":
+        assert s1["device_levels"][:2] == ([0] if route == "list" else [0, 1])
+    for stage in ("stage1", "stage2"):
+        st = stats[stage]
+        by_level = st["ci_tests_level"]
+        assert sum(by_level.values()) == st["ci_tests"], stage
+        assert set(by_level) <= set(st["level_route"]), stage
+        assert all(l >= 2 or st["level_route"][l] == "combinatorial" for l in by_level), stage
+    assert stats["stage1"]["ci_tests"] > 0
+    if kind == "input":  # stage 2's hubs reach the combinatorial levels
+        assert any(l >= 4 and n > 0 for l, n in stats["stage2"]["ci_tests_level"].items())
+
+
+def test_the_merged_selection_lies_inside_the_load(rfdisease_files, tmp_path):
+    """A merged input's marker-trait read and row selection is the span
+    ``cigwas.io.merged_select`` (``merged_select_s``), inside the load in
+    the trace and in the walls."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        stats = _solve_rfdisease(rfdisease_files, tmp_path / "out")
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = _annotations(path)
+    (inner,) = [e for e in events if e[0] == "cigwas.io.merged_select"]
+    (outer,) = [e for e in events if e[0] == INPUT_SPANS["load_s"]]
+    assert _inside(inner, outer)
+    assert 0.0 < stats["merged_select_s"] <= stats["load_s"]

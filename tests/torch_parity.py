@@ -304,3 +304,22 @@ def merged_fileset(stem: str, seed: int, n: int = 5000, p: int = 6, per_trait: i
     with open(stem + ".mdim", "w") as f:
         f.write(f"{p + m}\t{p}\t14\n")
     np.arange(m, dtype=np.int32).tofile(stem + ".ixs")
+
+
+def rfdisease_input(outdir: str, seed: int = 2147483811) -> tuple[dict, dict]:
+    """(files, configuration) of a small merged, time-indexed input of 4 risk
+    factors (time 1) and 2 diseases (time 2) over 500 markers selected from
+    600 rows, written by the benchmark's generator
+    (``h100bench/generators/sumstats_dag.py``) from its configuration
+    ``cuskss_rfdisease10k`` with fewer traits and markers."""
+    import json
+    import os
+
+    from h100bench.generators import sumstats_dag
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "h100bench")
+    with open(os.path.join(root, "configs", "cuskss_rfdisease10k.json")) as f:
+        cfg = json.load(f)
+    cfg.update(sumstats_dag.SMALL)
+    traffic = {**sumstats_dag.SMALL_TRAFFIC, "layout_seed": 20}
+    return sumstats_dag.generate(cfg, traffic, seed, str(outdir), "cpu"), cfg
