@@ -7,7 +7,7 @@ and the script exits non-zero:
 
 1. environment: versions, the card's name and power limit (nvidia-smi);
    fails without a CUDA device;
-2. build: compiles the five CUDA sources under ``cigwas_tpu_torch/csrc`` in
+2. build: compiles the CUDA sources under ``cigwas_tpu_torch/csrc`` in
    parallel and prints ptxas' registers and spills per kernel; then reads
    each sweep kernel's and the dense kernel's inner loop out of
    ``cuobjdump -sass`` (instructions per test, for ``issue_ms``);
@@ -39,6 +39,11 @@ and the script exits non-zero:
    rows that hold one alone), a 256 x 8192 launch of each timed beside its
    bounds (for hetcor with the paths its tests take) and the live-s
    histogram of its slab;
+   the hetcor combinatorial scan (``hetcor_scan``; margins bit-identical,
+   one launch a call) at the 10k merged input's stage-2 shapes (16 hubs at
+   widths 16 and 32, levels 1-14, each of levels 4-14 timed beside its f32
+   bound and the plain version), on wide buckets (64, 128, 256), on a C
+   panel with NaNs and on panels of duplicated variables (singular blocks);
    the row compaction of the hetcor device levels (``compact_rows``; lists
    and degrees bit-identical) on random, empty, full and single-edge rows
    at widths 8-152, with one launch over every row of a 10,112 x 16 and a
@@ -231,7 +236,9 @@ the last entry: the 11k block's one launch, bound by its int8 operations
 over 1,979 TOP/s (``roofline_pct``), beside the striped ``torch._int_mm``
 route (``library_ms``).
 
-``--kernels-only`` stops after phase 3; ``--routes-only`` runs phase 3, the
+``--kernels-only`` stops after phase 3; ``--hetcor-scan-only`` builds
+``hetcor_scan`` and the gather and runs the scan's checks alone;
+``--routes-only`` runs phase 3, the
 small reference block, both slices' default runs and phase 11;
 ``--kendall-panel-only`` builds ``kendall_panel`` and runs its checks alone.
 
@@ -298,6 +305,7 @@ from cigwas_tpu_torch.prep import prep_bed
 from cigwas_tpu_torch.sim import gen_rand_dag, simulate_genotype_dataset
 from cigwas_tpu_torch.skeleton import cupc, reduce_gcs, subset_variables
 from cigwas_tpu_torch.skeleton.second_stage import cusk_second_stage
+from cigwas_tpu_torch.utils.combinatorics import colex_combinations_chunk
 from cigwas_tpu_torch.utils.stats import fisher_z, hetcor_threshold, threshold_array
 
 # the pipeline module (the package exports its `cusk` function under that name)
@@ -313,7 +321,9 @@ REPLACES = {"local_sweep": f"{PALLAS}:671", "panel_gather": f"{PALLAS}:138",
             # no Pallas kernel: the JAX device loop's sort of masked columns
             "compact_rows": "cigwas_tpu/skeleton/cupc.py:431",
             # no Pallas kernel: XLA's int8 dot of decoded one-hots
-            "kendall_panel": "cigwas_tpu/ops/corr.py (XLA int8 dot)"}
+            "kendall_panel": "cigwas_tpu/ops/corr.py (XLA int8 dot)",
+            # no Pallas kernel: the plain XLA scan of colex chunks
+            "hetcor_scan": "cigwas_tpu/ops/pcorr.py:1111 (plain XLA level_scan_hetcor_pre)"}
 # the reference's default block and CLI parameters
 M11K, N11K, P11K = 11000, 16384, 8
 ALPHA, MAX_LEVEL, MAX_LEVEL_TWO, DEPTH = 1e-4, 3, 14, 1
@@ -1096,6 +1106,151 @@ def phase_hetcor_kernel(panels) -> list:
     return bucket
 
 
+def scan_ops(l: int) -> tuple[int, int]:
+    """(f32 operations a set, a test) that csrc/hetcor_scan.cu's work needs
+    at the least (a division, sqrt or tanh as one): a set's inverse (the
+    closed form at l <= 3; Gauss-Jordan above it: at step k a multiplier and
+    2 (2l - k - 1) updates for each of the l - 1 other rows, then l^2
+    divisions), t = M2^-1 C[S, x] and H00 (2 l^2 + 2 l + 1), the S-S and x-S
+    ESS terms (a value and a count each) and S's latest time (l - 1); a
+    test's H01 (2 l + 1), H11 as 1 - r.(M2^-1 r) (2 l^2 + 2 l + 1; the
+    kernel sums r_i m_ij r_j, 3 l^2), rho (5), the y-S and x-y ESS terms
+    (2 l + 2), the mean, threshold and margin (11)."""
+    if l <= 3:
+        inv = {1: 1, 2: 7, 3: 41}[l]
+    else:
+        inv = sum((l - 1) * (1 + 2 * (2 * l - k - 1)) for k in range(l)) + l * l
+    per_set = inv + 2 * l * l + 2 * l + 1 + l * (l - 1) + 2 * l + (l - 1)
+    return per_set, 2 * l * l + 6 * l + 20
+
+
+def scan_work(args) -> dict:
+    """What a scan launch's inputs need: the valid sets (the first left of
+    each chunk), their tests (the node's other deg - l neighbours each) and
+    the f32 operations of both (`scan_ops`), and the bound those put on the
+    card (operations over 67 TFLOP/s; the panels' bytes bound it far lower)."""
+    deg, left, l = args[6].long(), args[8], args[-1]
+    sets = left.sum(0)  # (nt,)
+    tests = int((sets * torch.clamp(deg - l, min=0)).sum())
+    n_sets = int(sets.sum())
+    per_set, per_test = scan_ops(l)
+    nbytes = 4 * (2 * args[0].numel() + 4 * args[1].numel())
+    return {"sets": n_sets, "tests": tests, **bound(nbytes, n_sets * per_set + tests * per_test)}
+
+
+def scan_wave(rng, C, N, t_ix, nt: int, d: int, l: int, lo: int, hi: int) -> tuple:
+    """One scan launch as `cupc._run_level` makes it: nt nodes of degree lo..hi
+    at bucket width d (the slots past a degree keep other valid indices),
+    their panels gathered, and the first wave of level-l sets: the next
+    power of two of 512-set chunks that holds the largest node's sets, at
+    most 256."""
+    vp = C.shape[0]
+    node_ixs, nbrs, _ = neighbour_lists(rng, vp, nt, d, False, lo=d)
+    deg_np = rng.integers(lo, hi + 1, nt).astype(np.int32)
+    deg = torch.from_numpy(deg_np).cuda()
+    sets = np.array([math.comb(int(g), l) for g in deg_np], dtype=np.int64)
+    chunk = cupc.CHUNK
+    n_ch = 1 << max(0, math.ceil(math.log2(max(1, -(-int(sets.max()) // chunk)))))
+    n_ch = min(n_ch, cupc.MAX_CHUNKS_PER_LAUNCH)
+    combos = torch.from_numpy(colex_combinations_chunk(0, n_ch * chunk, l).astype(np.int64)
+                              .reshape(n_ch, chunk, l)).cuda()
+    totals = np.minimum(sets, n_ch * chunk)
+    left = torch.from_numpy(np.clip(totals[None, :] - chunk * np.arange(n_ch)[:, None], 0,
+                                    chunk)).cuda()
+    Cb, qb, Nb, nr = pg.gather_local_panels2(C, N, node_ixs, nbrs, deg)
+    return (Cb, qb, Nb, nr, t_ix[nbrs.long()].float(), t_ix[node_ixs.long()].float(), deg,
+            combos, left, hetcor_threshold(ALPHA), l)
+
+
+def factor_panel_cuda(v: int, seed: int, n: int = 900, k: int = 4) -> torch.Tensor:
+    """Correlations of v variables on k shared factors (half the loadings
+    zero) plus noise of sd 1.5, from n samples made on the card: the
+    well-conditioned blocks of tests/torch_parity.py's `factor_panel`."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    F = torch.randn(k, n, generator=g, device="cuda")
+    W = torch.randn(v, k, generator=g, device="cuda")
+    W = W * (torch.rand(v, k, generator=g, device="cuda") < 0.5)
+    X = W @ F + 1.5 * torch.randn(v, n, generator=g, device="cuda")
+    return torch.corrcoef(X).float().contiguous()
+
+
+def phase_hetcor_scan(panels) -> list:
+    """hetcor_scan (`csrc/hetcor_scan.cu`) vs its plain version on the card,
+    margins bit for bit, one launch per call: at the shapes of the 10k
+    merged input's stage 2 (16 hubs, width 16 at degrees 14-16 and width 32
+    at 17-18, levels 4-14, each timed beside its bound and the plain
+    version) and at levels 1-3 there, on wide buckets (64, 128, 256 at
+    levels 1-5, the panels through L2), on a panel whose C holds 1% NaNs
+    (no test counts) and on one with a variable stored twice (singular
+    blocks), over a 4,096-variable factor panel with the check panels'
+    NaN-holed ESS and time indices."""
+    t0 = time.perf_counter()
+    rng, vp, Cd, Nd, td = panels
+    v = 4096
+    C = factor_panel_cuda(v, seed=21)
+    N, t_ix = Nd[:v, :v].contiguous(), td[:v].contiguous()
+    n_cmp, n_all, n_hits, n_big, timed = 0, 0, 0, 0, []
+
+    def check(tag, args, time_it=False):
+        nonlocal n_cmp, n_all, n_hits, n_big
+        before = hs.launches["hetcor_scan"]
+        m_k = hs.hetcor_scan(*args)
+        assert hs.launches["hetcor_scan"] == before + 1, tag
+        m_p, plain_ms = once_ms(lambda: pcorr.level_scan_hetcor_pre(*args))
+        count, _ = compare_margin(tag, m_k, m_p)
+        n_cmp, n_all = n_cmp + 1, n_all + count
+        n_hits += int((m_k < 0).sum())
+        n_big += int((m_k >= pcorr.MARGIN_BIG).sum())
+        if time_it:
+            nt, d = args[1].shape
+            timed.append({
+                "level": args[-1], "nodes": nt, "width": d, "chunks": int(args[7].shape[0]),
+                "plan": hs.scan_plan(args[-1], d),
+                "ctas_per_node": hs.scan_ctas_per_node(nt, args[7].shape[0] * args[7].shape[1]),
+                "ms": cuda_ms(lambda: hs.hetcor_scan(*args), reps=5), "plain_ms": plain_ms,
+                "hits": int((m_k < 0).sum()), **scan_work(args),
+                **kernel_device_ms(lambda: hs.hetcor_scan(*args), 5, r"hetcor_scan_kernel"),
+            })
+        return m_k
+
+    for d, lo, hi in ((16, 14, 16), (32, 17, 18)):
+        for l in range(1, 15):
+            check(f"hubs d={d} l={l}", scan_wave(rng, C, N, t_ix, 16, d, l, lo, hi),
+                  time_it=l >= 4)
+    for d in (64, 128, 256):
+        for l in range(1, 6):
+            check(f"wide d={d} l={l}", scan_wave(rng, C, N, t_ix, 4, d, l, d // 2, d))
+    args = scan_wave(rng, Cd, Nd, td, 16, 32, 5, 17, 18)
+    m = check("C with 1% NaN", args)
+    holed = ~(torch.isfinite(args[0]).all(2).all(1) & torch.isfinite(args[1]).all(1))
+    assert bool(holed.any()) and bool((m[holed] >= pcorr.MARGIN_BIG).all())
+    ix = torch.arange(v, device="cuda") // 2 * 2  # variable 2i + 1 stands for variable 2i
+    check("every variable twice", scan_wave(rng, C[ix][:, ix].contiguous(), N, t_ix, 16, 32,
+                                           6, 17, 18))
+    assert 0 < n_hits < n_all - n_big, (n_hits, n_all, n_big)
+    emit("kernels_hetcor_scan", t0, cases=n_cmp, bit_identical=True, margins=n_all,
+         hits=n_hits, sentinels=n_big, hubs=timed)
+    return timed
+
+
+def scan_entry(tag: str, rec: Recorder, launches: dict) -> dict:
+    """The largest hetcor_scan launch of a run (by slots x sets), kernel vs
+    plain bit for bit on the same tensors, timed beside its bound, the plain
+    version and the profiler's device time alone."""
+    args = rec.largest[("hetcor_scan",)][1]
+    plain, plain_ms = once_ms(lambda: pcorr.level_scan_hetcor_pre(*args))
+    count, err = compare_margin(f"{tag} hetcor_scan", hs.hetcor_scan(*args), plain)
+    nt, d = args[1].shape
+    work = scan_work(args)
+    run = lambda: hs.hetcor_scan(*args)  # noqa: E731
+    return {**kernel_entry(
+        "hetcor_scan", hs, "hetcor_scan", launches["hetcor_scan"], err, cuda_ms(run, reps=5),
+        plain_ms, work, None, {"level": args[-1], "nodes": nt, "width": d,
+                               "chunks": int(args[7].shape[0]), "sets": work["sets"]},
+        margins_bit_identical=count, **kernel_device_ms(run, 5, r"hetcor_scan_kernel")),
+        "source": hs.SCAN_SOURCE}
+
+
 def phase_compact_kernel(dev: str = "cuda", sizes: tuple = ((10112, 16), (12288, 152)),
                          reps: int = 50) -> list:
     """compact_rows vs plain, bit for bit: random (density 0.1), empty,
@@ -1358,7 +1513,7 @@ def assert_same_outputs(tag: str, cuda: dict, cpu: dict) -> float:
 
 # the kernel wrappers the skeleton calls through `cupc`
 WRAPPED = ("local_sweep", "hetcor_local_sweep", "gather_local_panels",
-                  "gather_local_panels2", "compact_rows")
+                  "gather_local_panels2", "compact_rows", "hetcor_scan")
 # the dense level-1 entries, which the skeleton and the engines call through
 # the wrapper's module, and their plain versions
 DENSE = ("dense_l1", "hetcor_dense_l1")
@@ -1430,6 +1585,15 @@ class EveryLaunchChecked:
                 self.checked += 1
             return out
 
+        def hetcor_scan(*args):
+            m = saved["hetcor_scan"](*args)
+            if args[0].is_cuda:
+                compare_margin(f"launch {self.checked}: hetcor_scan l={args[-1]} "
+                               f"{tuple(args[1].shape)} x {tuple(args[7].shape[:2])}", m,
+                               pcorr.level_scan_hetcor_pre(*args))
+                self.checked += 1
+            return m
+
         def dense(name):
             kern, plain = self.saved_dense[name], DENSE_PLAIN[name]
 
@@ -1448,7 +1612,7 @@ class EveryLaunchChecked:
         for n, fn in (("local_sweep", local_sweep), ("hetcor_local_sweep", hetcor_local_sweep),
                       ("gather_local_panels", gather_local_panels),
                       ("gather_local_panels2", gather_local_panels2),
-                      ("compact_rows", compact_rows)):
+                      ("compact_rows", compact_rows), ("hetcor_scan", hetcor_scan)):
             if n in self.names:
                 setattr(cupc, n, fn)
         for n in DENSE:
@@ -1576,6 +1740,11 @@ class Recorder:
                            (G[rows.long()].clone(), rows.clone(), d, G.shape[0]))
             return saved["compact_rows"](G, rows, d, **kw)
 
+        def hetcor_scan(*args):
+            self._keep(("hetcor_scan",), args[1].numel() * args[7].shape[0] * args[7].shape[1],
+                       args)
+            return saved["hetcor_scan"](*args)
+
         def dense(name):
             kern = self.saved_dense[name]
 
@@ -1588,7 +1757,7 @@ class Recorder:
         for n, fn in (("local_sweep", local_sweep), ("hetcor_local_sweep", hetcor_local_sweep),
                       ("gather_local_panels", gather_local_panels),
                       ("gather_local_panels2", gather_local_panels2),
-                      ("compact_rows", compact_rows)):
+                      ("compact_rows", compact_rows), ("hetcor_scan", hetcor_scan)):
             setattr(cupc, n, fn)
         for n in DENSE:
             setattr(dk, n, dense(n))
@@ -1613,8 +1782,13 @@ def reset_all_launches() -> None:
 def all_launches() -> dict:
     """The launch count of every kernel entry, sweeps by level."""
     return {**{f"local_sweep_l{l}": n for l, n in ls.launches.items()}, **pg.launches,
-            **{f"hetcor_sweep_l{l}": n for l, n in hs.launches.items()}, **dk.launches,
-            **cr.launches, **kp.launches}
+            **hetcor_launches(), **dk.launches, **cr.launches, **kp.launches}
+
+
+def hetcor_launches() -> dict:
+    """hetcor_sweep's launches by level and the scan's, flattened as the
+    benchmark harness flattens them."""
+    return {k if isinstance(k, str) else f"hetcor_sweep_l{k}": n for k, n in hs.launches.items()}
 
 
 def kernel_entry(name: str, module, replaces: str, launches: int, err: float, ms: float,
@@ -2002,8 +2176,7 @@ def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list, compact_s
                      stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-        launches = {**{f"hetcor_sweep_l{l}": n for l, n in hs.launches.items()}, **pg.launches,
-                    **dk.launches, **cr.launches}
+        launches = {**hetcor_launches(), **pg.launches, **dk.launches, **cr.launches}
 
     s1, s2 = stats["stage1"], stats["stage2"]
     # stage 1's levels 0-3 on the card, a row compaction at each local level
@@ -2015,6 +2188,7 @@ def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list, compact_s
             f"level {l}: ran {l in ran}, {launches[f'hetcor_sweep_l{l}']} kernel launches")
     assert max(ran) >= 4 and launches["panel_gather2"] > 0, (
         f"levels {sorted(ran)} ran with {launches['panel_gather2']} two-panel gather launches")
+    assert launches["hetcor_scan"] > 0, launches
     base = os.path.join(out, f"1_0_{MSS - 1}")
     for ext in (".mdim", ".ixs", ".adj", ".corr"):
         assert os.path.getsize(base + ext) > 0, base + ext
@@ -2048,6 +2222,7 @@ def phase_cuskss(tmp: str, loops: dict, clock_hz: float, bucket: list, compact_s
     kernels = hetcor_entries("cuskss", rec, launches, (1, 2, 3), loops, clock_hz, bucket)
     kernels += gather_entries("10k input", rec, launches)
     kernels.append(compact_entry("10k input", rec, launches, compact_sized))
+    kernels.append(scan_entry("10k input", rec, launches))
     emit("largest_launch_cuskss", t0, kernels=kernels)
 
     def again():
@@ -3227,6 +3402,13 @@ def shard_checks(tag: str, rec: ShardRecorder) -> list:
             C, nbrs, entry = args[0], args[4], f"hetcor_sweep_l{args[7]}"
         elif name in DENSE:
             out.append({"kernel": name, "shard": shard, **dense_check(label, name, args)})
+            continue
+        elif name == "hetcor_scan":
+            _, err = compare_margin(label, hs.hetcor_scan(*args),
+                                    pcorr.level_scan_hetcor_pre(*args))
+            out.append({"kernel": name, "shard": shard, "level": args[-1],
+                        "nodes": int(args[1].shape[0]), "width": int(args[1].shape[1]),
+                        "bit_identical": True, "max_abs_err": err})
             continue
         elif name == "compact_rows":  # the row-sharded engine's stage 2 runs on one card
             G, rows, d = compact_launch(args)
@@ -4517,7 +4699,8 @@ def profile_run(tag: str, run, unprofiled_wall_s: float, cpu: bool = True) -> di
     # device time of all launches of each hand-written kernel on the slice
     totals = {e.key[:80]: {"total_ms": e.self_device_time_total / 1e3, "launches": e.count}
               for e in events
-              if re.search(r"sweep\w*_kernel|panel_\w+_kernel|compact_rows_kernel", e.key)}
+              if re.search(r"sweep\w*_kernel|panel_\w+_kernel|compact_rows_kernel|hetcor_scan_kernel",
+                           e.key)}
     emit("profile_" + tag, t0, profiled_wall_s=wall, unprofiled_wall_s=unprofiled_wall_s,
          device_busy_s=busy_s, device_idle_share=1.0 - busy_s / unprofiled_wall_s,
          top=[{"name": k[:80], "ms": us / 1e3} for k, us in rows[:10]], kernel_totals=totals)
@@ -4530,6 +4713,9 @@ def main() -> int:
                     help="stop after the build and the kernel checks (prints no result line)")
     ap.add_argument("--kendall-panel-only", action="store_true",
                     help="build kendall_panel and run its checks alone (prints no result line)")
+    ap.add_argument("--hetcor-scan-only", action="store_true",
+                    help="build hetcor_scan and the gather and run the scan's checks alone "
+                         "(prints no result line)")
     ap.add_argument("--routes-only", action="store_true",
                     help="after the kernel checks run only what the routes phase needs and "
                          "the routes phase (prints no result line)")
@@ -4548,9 +4734,17 @@ def main() -> int:
              ptxas=ptxas_summary(lib.with_suffix(".log").read_text()))
         phase_kendall_panel()
         return 1
+    if opts.hetcor_scan_only:
+        t0 = time.perf_counter()
+        for name in ("hetcor_scan", "panel_gather"):
+            lib = build.build(name)
+            emit("build", t0, source=name, library=lib.name,
+                 ptxas=ptxas_summary(lib.with_suffix(".log").read_text()))
+        phase_hetcor_scan(check_panels())
+        return 1
     t0 = time.perf_counter()
     names = ("local_sweep", "panel_gather", "hetcor_sweep", "dense_l1", "compact_rows",
-             "kendall_panel")
+             "kendall_panel", "hetcor_scan")
     with ThreadPoolExecutor(len(names) + 1) as pool:  # one nvcc per build, together
         tables_only = pool.submit(build.build, "local_sweep", TABLES_ONLY)
         libs = list(pool.map(build.build, names))
@@ -4572,6 +4766,7 @@ def main() -> int:
     phase_kernels(rho_th, panels)
     phase_gather_kernel(panels)
     bucket = phase_hetcor_kernel(panels)
+    phase_hetcor_scan(panels)
     compact_sized = phase_compact_kernel()
     phase_kendall_panel()
     timed_dense = phase_dense_kernel(panels, loops, clock_hz)
@@ -4581,8 +4776,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     expected = [f"local_sweep_l{l}" for l in (1, 2, 3)] + ["panel_gather"] + [
-        f"hetcor_sweep_l{l}" for l in (1, 2, 3)] + ["panel_gather2", "compact_rows"] + list(
-        DENSE) + ["kendall_panel"]
+        f"hetcor_sweep_l{l}" for l in (1, 2, 3)] + ["panel_gather2", "compact_rows",
+                                                    "hetcor_scan"] + list(DENSE) + ["kendall_panel"]
     tmp = tempfile.mkdtemp(prefix="cigwas_chip_smoke_")
     try:
         phase_small_reference(tmp)
@@ -4605,11 +4800,13 @@ def main() -> int:
             totals[run], per_level[kernel] = profile_sweeps(
                 run, again, w, prefix, {l: launched[f"{kernel}_l{l}"] for l in (1, 2, 3)})
         # each slice launches one gather entry only: all its panel_rows_kernel
-        # records; the row compaction's entry is the cuskss slice's
+        # records; the row compaction's and the scan's entries are the cuskss
+        # slice's
         gathers = {name: [v for key, v in totals[run].items() if kernel in key]
                    for name, run, kernel in (("panel_gather", "cusk", "panel_rows_kernel"),
                                              ("panel_gather2", "cuskss", "panel_rows_kernel"),
-                                             ("compact_rows", "cuskss", "compact_rows_kernel"))}
+                                             ("compact_rows", "cuskss", "compact_rows_kernel"),
+                                             ("hetcor_scan", "cuskss", "hetcor_scan_kernel"))}
         for k in kernels:
             m = re.fullmatch(r"(local_sweep|hetcor_sweep)_l(\d)", k["name"])
             if m:

@@ -1,8 +1,11 @@
-"""Wrapper of the hetcor levels 1-3 kernel ``csrc/hetcor_sweep.cu``.
+"""Wrappers of the hetcor kernels: the levels 1-3 sweep ``csrc/hetcor_sweep.cu``
+and the combinatorial scan ``csrc/hetcor_scan.cu``.
 
-:func:`hetcor_local_sweep` launches the CUDA kernel for CUDA tensors and runs
-the plain version (:func:`cigwas_tpu_torch.ops.pcorr.hetcor_local_sweep_plain`)
-for CPU tensors; nothing else. The kernel is built at its first launch
+:func:`hetcor_local_sweep` and :func:`hetcor_scan` launch their CUDA kernels
+for CUDA tensors and run the plain versions
+(:func:`cigwas_tpu_torch.ops.pcorr.hetcor_local_sweep_plain`,
+:func:`cigwas_tpu_torch.ops.pcorr.level_scan_hetcor_pre`) for CPU tensors;
+nothing else. The kernels are built at their first launch
 (:mod:`cigwas_tpu_torch.ops.kernels.build`), never at import.
 """
 
@@ -33,6 +36,7 @@ from cigwas_tpu_torch.ops.kernels.checks import (
 )
 
 SOURCE = "cigwas_tpu_torch/csrc/hetcor_sweep.cu"
+SCAN_SOURCE = "cigwas_tpu_torch/csrc/hetcor_scan.cu"
 # float rows per node: DIRECT (list, Rq, Pq, raw N[x, .], time index); ROWS
 # (list, q, N[x, .], time index, 9 aux rows); TABLE at levels 2 / 3 (list, q,
 # rinv(q), N[x, .], time index, keys; plus five rows per u)
@@ -42,8 +46,16 @@ TILE = 32 * 33
 # threads an SM can hold of the table kernels at their register counts
 # (65,536 registers over 46 / 55 a thread at levels 2 / 3)
 TABLE_THREADS_SM = {2: 1408, 3: 1152}
-# kernel launches per level since the last reset; the CPU path adds nothing
-launches = {1: 0, 2: 0, 3: 0}
+# the scan's threads per CTA (it launches with __launch_bounds__(256))
+SCAN_THREADS = 256
+# dynamic shared memory up to which the scan stages its node's panels, rows
+# and minima: two CTAs an SM; wider panels are read through L2
+SCAN_PANEL_SMEM = 100 * 1024
+# CTAs a scan launch aims at (four an SM), and the sets a warp takes at least
+SCAN_CTAS, SCAN_MIN_SETS = 4 * 132, 4
+# kernel launches since the last reset: the sweep's per level, the scan's
+# under "hetcor_scan"; the CPU path adds nothing
+launches = {1: 0, 2: 0, 3: 0, "hetcor_scan": 0}
 
 
 def reset_launches() -> None:
@@ -158,4 +170,99 @@ def hetcor_local_sweep(C: torch.Tensor, N: torch.Tensor, t_ix: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"hetcor_sweep kernel launch failed: cudaError {err}, plan {pl}")
     launches[l] += 1
+    return margin
+
+
+def _scan_smem_floats(l: int, d: int, warps: int, staged: bool) -> int:
+    """Floats of the scan's shared memory (``scan_smem_floats`` in the
+    source): per warp the inverse's l x l tile; staged, also both panels at
+    row stride d + 1, three rows and per warp a row of running minima."""
+    return warps * l * l + (2 * d * (d + 1) + 3 * d + warps * d if staged else 0)
+
+
+def scan_plan(l: int, d: int) -> dict:
+    """The launch plan of the scan at level l and bucket width d: threads
+    per CTA, whether the node's panels, rows and the warps' minima are
+    staged in shared memory, and the dynamic shared memory bytes. They are
+    staged while that stays within SCAN_PANEL_SMEM (d <= 106 at level 14,
+    109 at level 4); wider, the panels and rows are read through L2 and the
+    minima kept in global scratch, so every width has a plan."""
+    if not 1 <= l <= 14 or d < 1:
+        raise ValueError(f"hetcor_scan: no plan for level {l}, width {d}")
+    warps = SCAN_THREADS // 32
+    staged = 4 * _scan_smem_floats(l, d, warps, True) <= SCAN_PANEL_SMEM
+    return {"threads": SCAN_THREADS, "staged": staged,
+            "smem_bytes": 4 * _scan_smem_floats(l, d, warps, staged)}
+
+
+def scan_ctas_per_node(nt: int, nsets: int) -> int:
+    """CTAs that share a node's sets: enough that the launch has about
+    SCAN_CTAS of them, never so many that a warp gets fewer than
+    SCAN_MIN_SETS sets, within the grid's 65,535."""
+    by_card = -(-SCAN_CTAS // max(1, nt))
+    by_sets = -(-nsets // (SCAN_THREADS // 32 * SCAN_MIN_SETS))
+    return max(1, min(by_card, by_sets, 65535))
+
+
+def _scan_lib() -> ctypes.CDLL:
+    lib = build.load("hetcor_scan")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.hetcor_scan_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, f,
+                                       i, i, i, i, p, p, p]
+    lib.hetcor_scan_launch.restype = i
+    return lib
+
+
+def hetcor_scan(C_x: torch.Tensor, c_row: torch.Tensor, N_x: torch.Tensor,
+                n_row: torch.Tensor, t_nbrs: torch.Tensor, t_x: torch.Tensor,
+                deg: torch.Tensor, combos_seq: torch.Tensor, left_seq: torch.Tensor,
+                th: float, l: int) -> torch.Tensor:
+    """The hetcor combinatorial scan of one node tile and one wave: the
+    minimum margin over the wave's conditioning sets for every node and
+    neighbour slot, (nt, d) f32 (see
+    :func:`cigwas_tpu_torch.ops.pcorr.level_scan_hetcor_pre`, its plain
+    version, which CPU tensors run).
+
+    C_x, N_x (nt, d, d), c_row, n_row, t_nbrs (nt, d) and t_x (nt,) float32:
+    the gathered panels (:func:`~cigwas_tpu_torch.ops.kernels.panel_gather.
+    gather_local_panels2`) and time indices; deg (nt,) int32; combos_seq
+    (nch, K, l) int64 colex positions, left_seq (nch, nt) int64 the sets of
+    each chunk per node; th the scalar |Phi^-1(alpha / 2)|; l in 1..14. A
+    CUDA tensor launches ``csrc/hetcor_scan.cu`` once (``launches
+    ["hetcor_scan"]``); there is no other route on the card."""
+    nt, d = c_row.shape
+    nch, K = combos_seq.shape[:2]
+    dev = c_row.device
+    named = {"C_x": (C_x, torch.float32, (nt, d, d)), "c_row": (c_row, torch.float32, (nt, d)),
+             "N_x": (N_x, torch.float32, (nt, d, d)), "n_row": (n_row, torch.float32, (nt, d)),
+             "t_nbrs": (t_nbrs, torch.float32, (nt, d)), "t_x": (t_x, torch.float32, (nt,)),
+             "deg": (deg, torch.int32, (nt,)), "combos_seq": (combos_seq, torch.int64, (nch, K, l)),
+             "left_seq": (left_seq, torch.int64, (nch, nt))}
+    for name, (t, dtype, shape) in named.items():
+        if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"hetcor_scan: {name} must be {dtype} {shape} on {dev}")
+    if dev.type == "cpu":
+        return pcorr.level_scan_hetcor_pre(C_x, c_row, N_x, n_row, t_nbrs, t_x, deg,
+                                           combos_seq, left_seq, th, l)
+    if dev.type != "cuda":
+        raise ValueError(f"hetcor_scan: unsupported device {dev}")
+    pl = scan_plan(l, d)
+    margin = torch.full((nt, d), pcorr.MARGIN_BIG, dtype=torch.float32, device=dev)
+    if nt == 0:
+        return margin
+    ctas = scan_ctas_per_node(nt, nch * K)
+    mins = None if pl["staged"] else torch.empty(
+        nt * ctas * pl["threads"] // 32 * d, dtype=torch.float32, device=dev)
+    args = [t.contiguous() for t in (C_x, c_row, N_x, n_row, t_nbrs, t_x, deg, combos_seq,
+                                     left_seq)]
+    lib = _scan_lib()
+    with torch.cuda.device(dev):
+        err = lib.hetcor_scan_launch(
+            *(t.data_ptr() for t in args), nt, d, nch, K, l, float(th), pl["threads"], ctas,
+            int(pl["staged"]), pl["smem_bytes"], mins.data_ptr() if mins is not None else None,
+            margin.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"hetcor_scan kernel launch failed: cudaError {err}, plan {pl}")
+    launches["hetcor_scan"] += 1
     return margin

@@ -22,14 +22,18 @@ skeleton's |rho| tests and the hetcor skeleton's margin tests
   Each folds the launches of :func:`dense1_sweeps` (the engines' launches
   go through the same :func:`dense1_slab_sweeps`) with
   :func:`dense1_gather` or :func:`dense1_screen`;
-* :func:`level_scan_minrho`, :func:`level_scan_hetcor` — any level over
-  colex chunks of conditioning sets (the combinatorial route), with one-hot selection matmuls like the
-  JAX package, so a NaN in a local panel sends a test to ``RHO_BIG`` the
-  same way. Each is the gather of the local panels
-  (:mod:`cigwas_tpu_torch.ops.kernels.panel_gather`: the kernel
-  ``csrc/panel_gather.cu`` on the card, its plain version on CPU tensors)
-  followed by its ``_pre`` form on gathered panels; the skeleton calls the
-  two steps itself.
+* :func:`level_scan_minrho_pre`, :func:`level_scan_hetcor_pre` — any level
+  over colex chunks of conditioning sets (the combinatorial route), on the
+  local panels that the gathers of
+  :mod:`cigwas_tpu_torch.ops.kernels.panel_gather` make (the kernel
+  ``csrc/panel_gather.cu`` on the card, its plain version on CPU tensors);
+  the skeleton calls both steps itself (:func:`level_scan_minrho` is the
+  two in one). The plain scan selects with one-hot matmuls like the JAX
+  package, so a NaN in a local panel sends a test to ``RHO_BIG`` the same
+  way; :func:`level_scan_hetcor_pre` is the plain version of the kernel
+  ``csrc/hetcor_scan.cu``
+  (:func:`cigwas_tpu_torch.ops.kernels.hetcor_sweep.hetcor_scan`), which
+  indexes directly and reproduces that NaN rule node by node.
 
 Every ``rsqrt`` of the JAX sweeps is spelled ``1 / sqrt``: that is IEEE
 exact on both CPU and CUDA, so the kernel (built with ``-fmad=false``) and
@@ -43,10 +47,7 @@ import numpy as np
 import torch
 
 from cigwas_tpu_torch.ops.kernels import dense_l1 as dk
-from cigwas_tpu_torch.ops.kernels.panel_gather import (
-    gather_local_panels,
-    gather_local_panels2,
-)
+from cigwas_tpu_torch.ops.kernels.panel_gather import gather_local_panels
 from cigwas_tpu_torch.utils.timing import span, to_host
 
 # sentinel for masked or non-finite tests; |rho| <= 1 for any valid test
@@ -689,77 +690,132 @@ def hetcor_local_sweep_plain(C, N, t_ix, node_ixs, nbrs, deg, th: float, l: int)
     return torch.cat(out)
 
 
-def level_scan_hetcor(C, N, t_ix, node_ixs, nbrs, deg, combos_seq, left_seq,
-                      th: float, l: int):
-    """Hetcor level-l chunks (`cigwas_tpu.ops.pcorr.level_scan_hetcor`): the
-    gather of both local panels (pad slots read as the node itself), then
-    :func:`level_scan_hetcor_pre`."""
-    C_x, c_row, N_x, n_row = gather_local_panels2(C, N, node_ixs, nbrs, deg)
-    return level_scan_hetcor_pre(
-        C_x, c_row, N_x, n_row, t_ix[nbrs.long()].float(),
-        t_ix[node_ixs.long()].float(), deg, combos_seq, left_seq, th, l,
-    )
+def _pivoted_inverse(M: torch.Tensor):
+    """Inverse of a batch of l x l blocks M (..., l, l) by Gauss-Jordan
+    elimination with partial pivoting, the arithmetic of ``csrc/hetcor_scan.cu``
+    op for op; returns (inverse, singular (...) bool).
+
+    Step k takes as pivot the unused row with the largest |M[row, k]|, the
+    lowest row on a tie (a NaN is never a pivot), and subtracts
+    (M[i, k] / pivot) times the pivot row from every other row i, both
+    halves of [M | I]: identical rows then cancel exactly, so an exactly
+    singular block meets a zero pivot (``singular``; the caller sends its
+    tests to the sentinel). The rows are not swapped: row k of the inverse
+    is the right half of step k's pivot row over its pivot. No symmetry or
+    definiteness is assumed (summary-statistic blocks may be indefinite)."""
+    l = M.shape[-1]
+    lead = M.shape[:-2]
+    A = M.clone()
+    B = torch.eye(l, dtype=M.dtype, device=M.device).expand(*lead, l, l).clone()
+    rows = torch.arange(l, device=M.device)
+    used = torch.zeros((*lead, l), dtype=torch.bool, device=M.device)
+    singular = torch.zeros(lead, dtype=torch.bool, device=M.device)
+    pivots = []
+    for k in range(l):
+        absv = torch.abs(A[..., k])
+        best = torch.full(lead, -1.0, dtype=M.dtype, device=M.device)
+        p = torch.zeros(lead, dtype=torch.int64, device=M.device)
+        for i in range(l):
+            cand = ~used[..., i] & (absv[..., i] > best)
+            best = torch.where(cand, absv[..., i], best)
+            p = torch.where(cand, i, p)
+        singular = singular | ~(best > 0.0)
+        at = p[..., None, None].expand(*lead, 1, l)
+        Ap = torch.gather(A, -2, at)  # (..., 1, l)
+        Bp = torch.gather(B, -2, at)
+        pk = Ap[..., 0, k]
+        f = (A[..., :, k] / pk[..., None])[..., None]  # (..., l, 1)
+        is_p = (rows == p[..., None])[..., None]
+        A[..., :, k + 1 :] = torch.where(is_p, A[..., :, k + 1 :],
+                                         A[..., :, k + 1 :] - f * Ap[..., k + 1 :])
+        B = torch.where(is_p, B, B - f * Bp)
+        used = used | is_p[..., 0]
+        pivots.append((at, pk))
+    inv = torch.stack([torch.gather(B, -2, at)[..., 0, :] / pk[..., None]
+                       for at, pk in pivots], -2)
+    return inv, singular
 
 
 def level_scan_hetcor_pre(C_x, c_row, N_x_raw, n_row_raw, t_nbrs, t_x, deg,
                           combos_seq, left_seq, th: float, l: int):
-    """`level_scan_hetcor` on gathered panels: the minimum margin over every
-    scanned conditioning set, (nt, d). A test of (x, y | S) compares |rho| with
-    tanh(th / sqrt(mean_ess({x, y} u S) - l - 3)), the mean taken over all
-    variable pairs of the test ignoring NaNs, and S may hold no variable later
-    in time than max(t_x, t_y). NaNs of N ride a parallel 0/1 panel so the
-    one-hot selections stay NaN-safe; every selected sum has one non-zero
-    term, so it is exact."""
+    """`cigwas_tpu.ops.pcorr.level_scan_hetcor` on gathered panels: the
+    minimum margin over every scanned conditioning set, (nt, d); the plain
+    version of the kernel ``csrc/hetcor_scan.cu`` (the wrapper
+    :func:`cigwas_tpu_torch.ops.kernels.hetcor_sweep.hetcor_scan` runs it for
+    CPU tensors), the same operations in the same order, chunk by chunk.
+
+    combos_seq (nch, K, l) colex position tuples, left_seq (nch, nt) the valid
+    leading sets of each chunk per node. A test of (x, y | S) compares |rho|
+    = |H01| / sqrt(|H00 H11|) of the l x l block M2 = C[S, S], inverted by
+    :func:`_inv_unrolled` for l <= 3 and :func:`_pivoted_inverse` above (an
+    exactly singular block is the sentinel), with tanh(th / sqrt(mean_ess -
+    l - 3)), mean_ess the mean of N over all variable pairs of {x, y} u S
+    with NaNs left out, summed S-S (i over l, j < i), x-S, y-S, x-y; S may
+    hold no variable later in time than max(t_x, t_y). MARGIN_BIG at pad
+    slots, y in S, sets past left and non-finite statistics. A node whose
+    gathered C panel or row holds a non-finite entry tests nothing: the
+    one-hot selections of the JAX package smear it into every test."""
     nt, d = c_row.shape
     nch, K, _ = combos_seq.shape
     dev = c_row.device
-    N_x = torch.nan_to_num(N_x_raw)
-    N_x_nan = torch.isnan(N_x_raw).float()
-    n_row = torch.nan_to_num(n_row_raw)
-    n_row_nan = torch.isnan(n_row_raw).float()
+    big = torch.tensor(MARGIN_BIG, device=dev)
     th_t = _f32(th, c_row)
-    nan_xy = n_row_nan > 0.5  # (nt, d)
-    s_xy = torch.where(nan_xy, 0.0, n_row)[:, None, :]
-    c_xy = torch.where(nan_xy, 0.0, 1.0)[:, None, :]
+    node_ok = torch.isfinite(C_x).all(2).all(1) & torch.isfinite(c_row).all(1)  # (nt,)
+    N_v, N_c = _ess_masked(N_x_raw)
+    n_v, n_c = _ess_masked(n_row_raw)
     t_pair = torch.maximum(t_x[:, None], t_nbrs)  # (nt, d)
+    slot = torch.arange(d, device=dev)
+    slot_ok = slot[None, :] < deg[:, None]  # (nt, d)
+    nix = torch.arange(nt, device=dev)[:, None]  # (nt, 1)
     margin_min = torch.full((nt, d), MARGIN_BIG, device=dev)
     for ci in range(nch):
-        combos = combos_seq[ci]
-        sel = _combo_onehots(combos, d, l)
-        rho = _pcorr_rho_local(C_x, c_row, deg, _combo_ok(left_seq[ci : ci + 1], K), sel,
-                               combos, l)
-        rowsN = [torch.matmul(sel[i], N_x) for i in range(l)]  # l x (nt, K, d)
-        rowsNaN = [torch.matmul(sel[i], N_x_nan) for i in range(l)]
+        S = [combos_seq[ci, :, i].clamp(0, d - 1)[None, :] for i in range(l)]  # (1, K)
+        rows = [C_x[nix, S[i]] for i in range(l)]  # (nt, K, d): C[S_i, y]
+        Cx = [c_row[nix, S[i]] for i in range(l)]  # (nt, K)
+        M2 = [[C_x[nix, S[i], S[j]] for j in range(l)] for i in range(l)]
+        if l <= 3:
+            inv = _inv_unrolled(M2, l)
+            singular = torch.zeros((nt, K), dtype=torch.bool, device=dev)
+        else:
+            inv_d, singular = _pivoted_inverse(
+                torch.stack([torch.stack(M2[i], -1) for i in range(l)], -2))
+            inv = [[inv_d[..., i, j] for j in range(l)] for i in range(l)]
+        t = [sum(inv[i][j] * Cx[j] for j in range(l)) for i in range(l)]
+        H00 = 1.0 - sum(Cx[i] * t[i] for i in range(l))  # (nt, K)
+        H01 = c_row[:, None, :] - sum(rows[i] * t[i][..., None] for i in range(l))
+        H11 = 1.0 - sum(rows[i] * inv[i][j][..., None] * rows[j]
+                        for i in range(l) for j in range(l))
+        rho = torch.abs(H01) * (1.0 / torch.sqrt(torch.abs(H00[..., None] * H11)))
+        # the ESS terms of every variable pair of the test, NaNs left out
         s_SS = torch.zeros((nt, K), device=dev)
         c_SS = torch.zeros((nt, K), device=dev)
         for i in range(l):
             for j in range(i):
-                vij = torch.sum(rowsN[i] * sel[j], dim=2)
-                nanij = torch.sum(rowsNaN[i] * sel[j], dim=2) > 0.5
-                s_SS = s_SS + torch.where(nanij, 0.0, vij)
-                c_SS = c_SS + torch.where(nanij, 0.0, 1.0)
+                s_SS = s_SS + N_v[nix, S[i], S[j]]
+                c_SS = c_SS + N_c[nix, S[i], S[j]]
         s_xS = torch.zeros((nt, K), device=dev)
         c_xS = torch.zeros((nt, K), device=dev)
         for i in range(l):
-            vi = torch.sum(sel[i] * n_row[:, None, :], dim=2)
-            nani = torch.sum(sel[i] * n_row_nan[:, None, :], dim=2) > 0.5
-            s_xS = s_xS + torch.where(nani, 0.0, vi)
-            c_xS = c_xS + torch.where(nani, 0.0, 1.0)
+            s_xS = s_xS + n_v[nix, S[i]]
+            c_xS = c_xS + n_c[nix, S[i]]
         s_yS = torch.zeros((nt, K, d), device=dev)
         c_yS = torch.zeros((nt, K, d), device=dev)
         for i in range(l):
-            nan_i = rowsNaN[i] > 0.5
-            s_yS = s_yS + torch.where(nan_i, 0.0, rowsN[i])
-            c_yS = c_yS + torch.where(nan_i, 0.0, 1.0)
-        total = s_SS[:, :, None] + s_xS[:, :, None] + s_yS + s_xy
-        count = c_SS[:, :, None] + c_xS[:, :, None] + c_yS + c_xy
+            s_yS = s_yS + N_v[nix, S[i]]
+            c_yS = c_yS + N_c[nix, S[i]]
+        total = s_SS[:, :, None] + s_xS[:, :, None] + s_yS + n_v[:, None, :]
+        count = c_SS[:, :, None] + c_xS[:, :, None] + c_yS + n_c[:, None, :]
         th_test = torch.tanh(th_t / torch.sqrt(total / count - l - 3.0))
-        tS_max = torch.sum(sel[0] * t_nbrs[:, None, :], dim=2)
+        tS_max = t_nbrs[nix, S[0]]
         for i in range(1, l):
-            tS_max = torch.maximum(tS_max, torch.sum(sel[i] * t_nbrs[:, None, :], dim=2))
-        time_bad = tS_max[:, :, None] > t_pair[:, None, :]
-        margin = torch.where(time_bad | ~torch.isfinite(th_test), MARGIN_BIG,
-                             rho - th_test)
-        margin = torch.where(rho >= RHO_BIG, MARGIN_BIG, margin)
+            tS_max = torch.maximum(tS_max, t_nbrs[nix, S[i]])
+        y_in_S = torch.zeros((1, K, d), dtype=torch.bool, device=dev)
+        for i in range(l):
+            y_in_S = y_in_S | (S[i][..., None] == slot)
+        set_ok = (torch.arange(K, device=dev)[None, :] < left_seq[ci][:, None]) & ~singular
+        ok = (set_ok[..., None] & slot_ok[:, None, :] & ~y_in_S & node_ok[:, None, None]
+              & (rho < RHO_BIG) & ~(tS_max[..., None] > t_pair[:, None, :])
+              & torch.isfinite(th_test))
+        margin = torch.where(ok, rho - th_test, big)
         margin_min = torch.minimum(margin_min, margin.amin(1))
     return margin_min

@@ -35,7 +35,10 @@ tanh(th / sqrt(mean_ess - l - 3)) and a time constraint on the conditioning
 sets: levels 1-3 through
 :func:`cigwas_tpu_torch.ops.kernels.hetcor_sweep.hetcor_local_sweep`, level
 1 also by the dense route, the combinatorial route through the two-panel
-gather and :func:`cigwas_tpu_torch.ops.pcorr.level_scan_hetcor_pre`. It keeps
+gather and one launch of the scan kernel a node tile and wave
+(:func:`cigwas_tpu_torch.ops.kernels.hetcor_sweep.hetcor_scan`; its plain
+version :func:`cigwas_tpu_torch.ops.pcorr.level_scan_hetcor_pre` on CPU
+tensors). It keeps
 no sepsets. On one card its levels 1-3 run in the same device level loop as
 the block's (:func:`_device_levels`): each level's hits are cleared in
 place, the local route's lists compacted on the device
@@ -64,7 +67,7 @@ from cigwas_tpu_torch.constants import ML, PANEL_ALIGN, PMAX_RETAINED
 from cigwas_tpu_torch.ops import pcorr
 from cigwas_tpu_torch.ops.kernels.checks import check_index_range
 from cigwas_tpu_torch.ops.kernels.compact_rows import compact_rows
-from cigwas_tpu_torch.ops.kernels.hetcor_sweep import hetcor_local_sweep
+from cigwas_tpu_torch.ops.kernels.hetcor_sweep import hetcor_local_sweep, hetcor_scan
 from cigwas_tpu_torch.ops.kernels.local_sweep import local_sweep
 from cigwas_tpu_torch.ops.kernels.panel_gather import (
     gather_local_panels,
@@ -579,7 +582,8 @@ def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
     is margin < 0, and there are no ranks.
 
     Each node tile's local panels come from the gather kernel (one panel, or
-    two matched panels for hetcor) and feed the scan on gathered panels.
+    two matched panels for hetcor) and feed the scan on gathered panels: for
+    hetcor one launch of ``csrc/hetcor_scan.cu`` covers the tile's wave.
     With an engine each tile is split into the shards' parts (the tile is
     ndev times longer), every part launched before any result is fetched.
 
@@ -660,10 +664,9 @@ def _run_level(C, G: np.ndarray, l: int, rho_threshold: float | None,
                         (t_k,) = vk
                         Cb, qb, Nb, nr = gather_local_panels2(
                             pk[0], pk[1], tile_t, nbrs_t, deg_t, index_range_checked=True)
-                        launched.append((pcorr.level_scan_hetcor_pre(
+                        launched.append((hetcor_scan(
                             Cb, qb, Nb, nr, t_k[nbrs_t.long()].float(),
-                            t_k[tile_t.long()].float(), deg_t.long(), combos_seq,
-                            left_seq, th, l,
+                            t_k[tile_t.long()].float(), deg_t, combos_seq, left_seq, th, l,
                         ), None))
                 rho_c = np.concatenate([to_host(r, stats, "hits") for r, _ in launched])
                 rank_c = None

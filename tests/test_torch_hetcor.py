@@ -17,6 +17,7 @@ import torch
 
 from torch_parity import (
     ATOL,
+    factor_panel,
     hetcor_case,
     hetcor_inputs_to_torch,
     hetcor_neighbours,
@@ -98,7 +99,7 @@ def test_hetcor_local_sweep_plain_matches_jax(l, ess_mode):
         Ct, Nt, tt, torch.from_numpy(node_ixs), torch.from_numpy(nbrs),
         torch.from_numpy(deg), TH, l,
     ).numpy()
-    assert hs.launches == {1: 0, 2: 0, 3: 0}  # CPU tensors: the plain version
+    assert hs.launches == {1: 0, 2: 0, 3: 0, "hetcor_scan": 0}  # CPU tensors: the plain version
     valid = np.arange(d)[None, :] < deg[:, None]
     assert (got[~valid] >= BIG).all()  # the port's pad slots are the sentinel
     exp = np.where(valid, exp, np.float32(BIG))
@@ -199,30 +200,113 @@ def test_hetcor_local_sweep_ties_match_brute_force(l):
     assert tied_slots >= 6, f"only {tied_slots} slots with a tied minimum"
 
 
-def test_level_scan_hetcor_l4_matches_jax():
+def _scan_both(C, N, t_ix, node_ixs, nbrs, deg, combos, left, l):
+    """The level-l scan of one wave by the JAX package and by the port's
+    plain version (through the kernel's wrapper, which takes it for CPU
+    tensors): (port, jax) margins."""
     import jax.numpy as jnp
 
     from cigwas_tpu.ops import pcorr as jp
-    from cigwas_tpu.utils.combinatorics import colex_combinations_chunk
-    from cigwas_tpu_torch.ops import pcorr as tp
+    from cigwas_tpu_torch.ops.kernels import hetcor_sweep as hs
+    from cigwas_tpu_torch.ops.kernels.panel_gather import gather_local_panels2
 
-    v, nt, d, l, K, nch = 40, 6, 16, 4, 128, 4
-    C, N, t_ix = hetcor_case(21, v, t_max=2)
-    node_ixs, nbrs, deg = hetcor_neighbours(4, v, nt, d)
-    combos = colex_combinations_chunk(0, K * nch, l).reshape(nch, K, l)
-    totals = np.array([min(K * nch, math.comb(int(g), l)) for g in deg])
-    left = np.clip(totals[None, :] - K * np.arange(nch)[:, None], 0, K).astype(np.int32)
     exp = np.asarray(jp.level_scan_hetcor(
         jnp.asarray(C), jnp.asarray(N), jnp.asarray(t_ix), jnp.asarray(node_ixs),
         jnp.asarray(nbrs), jnp.asarray(deg), jnp.asarray(combos.astype(np.int32)),
-        jnp.asarray(left), jnp.float32(TH), l,
+        jnp.asarray(left.astype(np.int32)), jnp.float32(TH), l,
     ))
-    Ct, Nt, _, tt = hetcor_inputs_to_torch(C, N, np.zeros((v, v)), t_ix)
-    got = tp.level_scan_hetcor(
-        Ct, Nt, tt, torch.from_numpy(node_ixs).long(), torch.from_numpy(nbrs).long(),
-        torch.from_numpy(deg).long(), torch.from_numpy(combos.astype(np.int64)),
-        torch.from_numpy(left).long(), TH, l,
-    ).numpy()
+    t = torch.from_numpy
+    Ct, Nt, _, tt = hetcor_inputs_to_torch(C, N, np.zeros((1, 1)), t_ix)
+    nodes_t, nbrs_t, deg_t = t(node_ixs), t(nbrs), t(deg)
+    panels = gather_local_panels2(Ct, Nt, nodes_t, nbrs_t, deg_t)
+    before = dict(hs.launches)
+    got = hs.hetcor_scan(*panels, tt[nbrs_t.long()].float(), tt[nodes_t.long()].float(),
+                         deg_t, t(combos.astype(np.int64)), t(left.astype(np.int64)), TH,
+                         l).numpy()
+    assert hs.launches == before  # CPU tensors: the plain version
+    return got, exp
+
+
+# levels 4-8 at the bucket widths 8-40 on factor panels, whose blocks are
+# well-conditioned (`torch_parity.factor_panel`), and level 4 on a chain panel
+SCAN_CASES = [("chain", 4, 16)] + [("factor", l, d) for l in range(4, 9)
+                                   for d in (8, 16, 32, 40) if d > l]
+
+
+@pytest.mark.parametrize("panel,l,d", SCAN_CASES)
+def test_level_scan_hetcor_l4_matches_jax(panel, l, d):
+    """Levels 4-8 at bucket widths 8-40: NaN ESS, time indices 0-2 (the
+    filter rejects sets), ragged degrees, and chunks whose valid sets end
+    part way (left < K) or hold none."""
+    from cigwas_tpu.utils.combinatorics import colex_combinations_chunk
+
+    if panel == "chain":
+        v, nt, K, nch = 40, 6, 128, 4
+        C, N, t_ix = hetcor_case(21, v, t_max=2)
+        node_ixs, nbrs, deg = hetcor_neighbours(4, v, nt, d)
+    else:
+        v, nt, K, nch = d + 24, 16, 64, 4
+        seed = 20 + 7 * l + d
+        _, N, t_ix = hetcor_case(seed, v, nan_frac=0.1, t_max=2)
+        C = factor_panel(np.random.default_rng(seed), v)
+        node_ixs, nbrs, deg = hetcor_neighbours(l + d, v, nt, d)
+    # a wave that ends part way through the lowest-degree node's sets
+    sets = np.array([math.comb(int(g), l) for g in deg])
+    offset = max(0, int(sets.min()) - K * nch // 2 + 7)
+    combos = colex_combinations_chunk(offset, K * nch, l).reshape(nch, K, l)
+    totals = np.clip(sets - offset, 0, K * nch)
+    left = np.clip(totals[None, :] - K * np.arange(nch)[:, None], 0, K)
+    assert ((left > 0) & (left < K)).any()
+    got, exp = _scan_both(C, N, t_ix, node_ixs, nbrs, deg, combos, left, l)
+    _assert_margins(got, exp)
+
+
+def _block_case(special: str):
+    """Two nodes whose lists share positions; every set holds positions 0-2
+    (l = 4, the sets are those three with one of 3..11). "singular": node 0's
+    first two neighbours are one variable twice, so each of its blocks has
+    two equal rows; "indefinite": node 0's first three neighbours have
+    correlations 0.9, 0.9 and -0.9, which no data give, so each of its
+    blocks is indefinite but invertible. Node 1 is an ordinary node."""
+    v, d, l = 40, 16, 4
+    C, N, t_ix = hetcor_case(51, v, nan_frac=0.1, t_max=1)
+    node_ixs = np.array([0, 1], np.int32)
+    lists = [np.arange(2, 14), np.arange(14, 26)]
+    if special == "singular":
+        a, b = lists[0][:2]
+        C[b, :] = C[a, :]
+        C[:, b] = C[:, a]
+        C[a, b] = C[b, a] = C[b, b] = 1.0
+    else:
+        a, b, c = lists[0][:3]
+        C[a, b] = C[b, a] = C[a, c] = C[c, a] = 0.9
+        C[b, c] = C[c, b] = -0.9
+    nbrs = np.zeros((2, d), np.int32)
+    for i, nb in enumerate(lists):
+        nbrs[i, : len(nb)] = nb
+    deg = np.array([12, 12], np.int32)
+    combos = np.array([(0, 1, 2, u) for u in range(3, 12)], np.int64)[None]
+    left = np.full((1, 2), combos.shape[1], np.int64)
+    blocks = [C[np.ix_(lists[0][list(S)], lists[0][list(S)])] for S in combos[0]]
+    return (C, N, t_ix, node_ixs, nbrs, deg, combos, left, l), blocks
+
+
+@pytest.mark.parametrize("special", ["singular", "indefinite"])
+def test_level_scan_hetcor_special_blocks_match_jax(special):
+    """An exactly singular block sends its tests to the sentinel, as the JAX
+    package's inverse does with inf/NaN; an indefinite, invertible block
+    keeps finite margins in both."""
+    args, blocks = _block_case(special)
+    got, exp = _scan_both(*args)
+    dx = 12
+    if special == "singular":
+        assert all(np.linalg.matrix_rank(B.astype(np.float64)) < 4 for B in blocks)
+        assert (exp[0] >= BIG).all() and (got[0] >= BIG).all()
+    else:
+        assert all(np.linalg.eigvalsh(B.astype(np.float64)).min() < -0.1 for B in blocks)
+        live = np.arange(3, dx)  # y outside S's fixed positions 0-2
+        assert (exp[0, live] < BIG).all() and (got[0, live] < BIG).all()
+    assert (exp[1, 3:dx] < BIG).all()
     _assert_margins(got, exp)
 
 
@@ -292,7 +376,7 @@ def test_plain_gather2_matches_pallas_rowgather2_kernel():
         np.testing.assert_array_equal(_bits(g.numpy()), _bits(e))
 
 
-def _both_skeletons(C, N, t_ix, max_level, ess_mode):
+def _both_skeletons(C, N, t_ix, max_level, ess_mode, stats=None):
     from cigwas_tpu.skeleton import hetcor_skeleton as jax_hetcor
     from cigwas_tpu_torch.skeleton import hetcor_skeleton
 
@@ -301,7 +385,7 @@ def _both_skeletons(C, N, t_ix, max_level, ess_mode):
     res_j = jax_hetcor(C, G0, N, TH, max_level, time_index=t_ix, ess_mode=ess_mode)
     Ct, Nt, Gt, _ = hetcor_inputs_to_torch(C, N, G0, np.zeros(v))
     res_t = hetcor_skeleton(Ct, Gt, Nt, TH, max_level, time_index=t_ix,
-                            device="cpu", ess_mode=ess_mode)
+                            device="cpu", ess_mode=ess_mode, stats=stats)
     return res_t, res_j
 
 
@@ -323,21 +407,40 @@ def test_hetcor_skeleton_time_index_matches_jax(seed):
     np.testing.assert_array_equal(res_t.G, res_j.G)
 
 
-@pytest.mark.parametrize("ess_mode", ["reference", "float"])
-def test_hetcor_skeleton_levels_4_to_6_match_jax(ess_mode):
+def _levels_4_to_6_case():
     """Variables loading on shared latent factors keep degrees high, so the
     hetcor branch of the level >= 4 scan (two-panel gather + margins) runs
     and removes edges; stage 2 of cuskss takes the same branch."""
-    rng = np.random.default_rng(7)
-    v, n, k = 30, 900, 4
-    F = rng.normal(size=(k, n))
-    W = rng.normal(size=(v, k)) * (rng.random((v, k)) < 0.5)
-    C = np.corrcoef(W @ F + 1.5 * rng.normal(size=(v, n))).astype(np.float32)
+    v, n = 30, 900
+    C = factor_panel(np.random.default_rng(7), v, n)
     _, N, t_ix = hetcor_case(8, v, n=n, nan_frac=0.1, t_max=1)
-    res_t, res_j = _both_skeletons(C, N, t_ix, 6, ess_mode)
+    return C, N, t_ix
+
+
+@pytest.mark.parametrize("ess_mode", ["reference", "float"])
+def test_hetcor_skeleton_levels_4_to_6_match_jax(ess_mode):
+    res_t, res_j = _both_skeletons(*_levels_4_to_6_case(), 6, ess_mode)
     assert res_j.final_level >= 4
     assert res_t.final_level == res_j.final_level
     np.testing.assert_array_equal(res_t.G, res_j.G)
+
+
+# the tests of each level on that panel, as the scan counted them before its
+# kernel (one chunk at a time through PyTorch operations)
+LEVEL_TESTS_4_TO_6 = {"reference": {2: 3905, 3: 1747, 4: 295, 5: 108},
+                      "float": {2: 5091, 3: 2299, 4: 450, 5: 219}}
+
+
+@pytest.mark.parametrize("ess_mode", ["reference", "float"])
+def test_hetcor_skeleton_level_tests_unchanged(ess_mode):
+    """The scan's waves stop every node where they stopped before: the
+    tests of every level (``ci_tests_level``) are the counts pinned above."""
+    stats: dict = {}
+    res_t, _ = _both_skeletons(*_levels_4_to_6_case(), 6, ess_mode, stats)
+    assert res_t.final_level == 5
+    assert stats["level_route"][4] == stats["level_route"][5] == "combinatorial"
+    assert dict(stats["ci_tests_level"]) == LEVEL_TESTS_4_TO_6[ess_mode]
+    assert stats["ci_tests"] == sum(LEVEL_TESTS_4_TO_6[ess_mode].values())
 
 
 def test_hetcor_skeleton_honours_incoming_adjacency():

@@ -14,7 +14,9 @@ the route's layout needs), cover every slot y < d, and change route exactly
 at the stated widths. ``panel_gather.plan(d, panels)`` is held to the
 launcher of ``csrc/panel_gather.cu`` likewise, for every width 1..13000, and
 ``dense_l1.plan(entry, nx, ny, vp)`` to the launcher of ``csrc/dense_l1.cu`` for
-the slabs of the skeleton's sweeps and of the engines' rings.
+the slabs of the skeleton's sweeps and of the engines' rings, and
+``hetcor_sweep.scan_plan(l, d)`` to the launcher of ``csrc/hetcor_scan.cu``
+at every level 1-14.
 """
 
 import numpy as np
@@ -301,3 +303,51 @@ def test_dense_plan_refuses_what_the_kernel_does_not_serve(entry):
             dk.plan(entry, nx, ny, vp)
     with pytest.raises(ValueError):
         dk.plan("dense", 8, 8, 8)
+
+
+# --- the hetcor combinatorial scan (csrc/hetcor_scan.cu) ---------------------
+
+
+def _scan_needed(l: int, d: int, p: dict) -> int:
+    """Shared memory the scan's layout takes, as the C launcher counts it
+    (``scan_smem_floats``): per warp the inverse's tile; staged, both
+    panels at row stride d + 1, three rows and per warp a row of minima."""
+    warps = p["threads"] // 32
+    staged = 2 * d * (d + 1) + 3 * d + warps * d if p["staged"] else 0
+    return 4 * (warps * l * l + staged)
+
+
+@pytest.mark.parametrize("l", [1, 3, 4, 9, 14])
+@pytest.mark.parametrize("d_range", [(1, 256), (257, 4000), (58000, 58200)])
+def test_scan_plan_is_launchable_for_every_width(l, d_range):
+    """Every level 1-14 at every width has a plan the launcher takes: 256
+    threads (the kernel's launch bound), shared memory within the opt-in
+    limit and at least the layout's; staged exactly while that fits
+    SCAN_PANEL_SMEM (d <= 109 at level 4, 106 at level 14)."""
+    last_staged = {1: 109, 3: 109, 4: 109, 9: 108, 14: 106}[l]
+    for d in range(d_range[0], d_range[1] + 1):
+        p = hs.scan_plan(l, d)
+        assert p["threads"] == 256 and p["staged"] == (d <= last_staged), (l, d, p)
+        assert _scan_needed(l, d, p) == p["smem_bytes"] <= SMEM_OPT_IN, (l, d, p)
+        assert not p["staged"] or p["smem_bytes"] <= hs.SCAN_PANEL_SMEM
+
+
+def test_scan_ctas_share_a_node_within_the_grid():
+    """A few hubs spread their sets over about SCAN_CTAS CTAs, a warp never
+    holding fewer than SCAN_MIN_SETS sets; many nodes take a CTA each."""
+    assert hs.scan_ctas_per_node(16, 65536) == 33  # the 10k merged input's hubs
+    assert hs.scan_ctas_per_node(16, 120) == 4
+    assert hs.scan_ctas_per_node(2000, 512) == 1
+    assert hs.scan_ctas_per_node(1, 1 << 40) == hs.SCAN_CTAS
+    assert hs.scan_ctas_per_node(3, 0) == 1
+    for nt in (1, 7, 528, 5000):
+        for nsets in (1, 512, 131072):
+            c = hs.scan_ctas_per_node(nt, nsets)
+            assert 1 <= c <= 65535
+            assert c == 1 or -(-nsets // (8 * c)) >= hs.SCAN_MIN_SETS
+
+
+def test_scan_plan_refuses_what_the_kernel_does_not_serve():
+    for l, d in ((0, 16), (15, 16), (4, 0)):
+        with pytest.raises(ValueError, match="no plan"):
+            hs.scan_plan(l, d)

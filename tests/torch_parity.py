@@ -105,6 +105,18 @@ def hetcor_panel(rng, v: int, n: int = 4000) -> np.ndarray:
     return np.corrcoef(X).astype(np.float32)
 
 
+def factor_panel(rng, v: int, n: int = 900, k: int = 4) -> np.ndarray:
+    """Correlation panel of v variables loading on k shared latent factors
+    (about half the loadings zero) plus noise of sd 1.5: high degrees and
+    moderate correlations, so conditioning blocks of levels 4-8 are
+    well-conditioned (the chain panel of :func:`hetcor_panel` puts the JAX
+    package's own float32 margins up to 2e-6 from a float64 computation
+    there, past the parity tolerance)."""
+    F = rng.normal(size=(k, n))
+    W = rng.normal(size=(v, k)) * (rng.random((v, k)) < 0.5)
+    return np.corrcoef(W @ F + 1.5 * rng.normal(size=(v, n))).astype(np.float32)
+
+
 def hetcor_ess(rng, v: int, n: int, nan_frac: float = 0.15) -> np.ndarray:
     """Fractional symmetric per-pair ESS with a share of NaN holes."""
     E = rng.uniform(0.3 * n, 1.2 * n, size=(v, v))
